@@ -1,0 +1,394 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (latentsync_tpu_torch) once on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # from the repository root
+
+Phases, each of which must pass (the script exits nonzero otherwise,
+and without CUDA it exits nonzero before doing anything):
+
+1. print the card's name and power limit; build the CUDA kernels from
+   ``latentsync_tpu_torch/csrc`` (nvcc, sm_90a);
+2. hold every kernel against its plain PyTorch version in bf16 at every
+   shape the serving path gives it, and time both with CUDA events;
+3. the full-width UNet (LatentSync 1.5 stage 2, random seeded non-zero
+   weights): eps is finite, non-zero and depends on the audio, and the
+   bf16 GPU forward agrees with the f32 CPU forward of the same weights
+   on a small input;
+4. serve three requests through the port's HTTP server at full width
+   (synthetic 576² avatar, 1.2 s and 2.4 s of audio, 20 DDIM steps, CFG
+   1.5), check the output frame counts and that every kernel ran.
+
+The line before the last is a JSON object with each kernel's launches on
+the served path, its largest error against the plain version and both
+times; the last line is the device record.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+import traceback
+import urllib.request
+
+SEED = 1247
+# kernel vs plain version in bf16: |err| <= TOL_REL * max(1, max|plain|),
+# about two bf16 ulps at the output's top binade (the kernels keep f32
+# where the plain versions round to bf16, and sum in another order)
+TOL_REL = 2.0**-6
+# full-width UNet, bf16 GPU vs f32 CPU: relative L2 error of eps
+UNET_TOL = 5e-2
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, warmup: int = 2, iters: int = 10) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def kernel_cases():
+    """(name, wrapper, plain, source, replaces, [(shape label, make_args)])
+    with the shapes of the served path: window batch 2 × CFG 2 → B = 4
+    sequences of 16 frames, 32² latents, channels 320/640/1280, 8 heads."""
+    from latentsync_tpu_torch.ops import attn_block, ffn, temporal_attention as ta
+
+    def ffn_args(m, c):
+        def make(r):
+            return (r(m, c), r(8 * c, c, s=c**-0.5), r(8 * c, s=0.1), r(c, 4 * c, s=(4 * c) ** -0.5),
+                    r(c, s=0.1), 1 + r(c, s=0.1), r(c, s=0.1)), {"residual": True}
+        return f"M={m} C={c}", make
+
+    def block_args(b, s, c, temporal):
+        def make(r):
+            ws = [r(c, c, s=c**-0.5) for _ in range(4)]
+            return ((r(b, s, c), 1 + r(c, s=0.1), r(c, s=0.1), *ws, r(c, s=0.1), 8),
+                    {"temporal": temporal, "pe": r(s, c) if temporal else None})
+        mode = "temporal" if temporal else "spatial"
+        return f"{mode} B={b} S={s} C={c}", make
+
+    def attn_args(b, s, hd):
+        def make(r):
+            return (r(b, s, hd), r(b, s, hd), r(b, s, hd), 8), {}
+        return f"B={b} S={s} heads*D={hd}", make
+
+    return [
+        ("geglu_ffn", ffn.geglu_ffn, ffn.geglu_ffn_reference,
+         "latentsync_tpu_torch/csrc/geglu.cu", "latentsync_tpu/ops/ffn.py:82",
+         [ffn_args(65536, 320), ffn_args(16384, 640), ffn_args(4096, 1280),
+          ffn_args(1024, 1280)]),
+        ("self_attention_block", attn_block.self_attention_block,
+         attn_block.self_attention_block_reference,
+         "latentsync_tpu_torch/csrc/attn_block.cu", "latentsync_tpu/ops/attn_block.py:76",
+         [block_args(4096, 16, 320, True), block_args(1024, 16, 640, True),
+          block_args(64, 256, 640, False)]),
+        ("temporal_attention", ta.temporal_attention, ta.temporal_attention_reference,
+         "latentsync_tpu_torch/csrc/temporal_attention.cu",
+         "latentsync_tpu/ops/temporal_attention.py:47",
+         [attn_args(256, 16, 1280), attn_args(64, 16, 1280)]),
+        ("spatial_attention", ta.spatial_attention, ta.spatial_attention_reference,
+         "latentsync_tpu_torch/csrc/spatial_attention.cu",
+         "latentsync_tpu/ops/temporal_attention.py:173",
+         [attn_args(64, 1024, 320), attn_args(64, 64, 1280), attn_args(64, 16, 1280)]),
+    ]
+
+
+def check_kernels(device):
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED)
+
+    def r(*shape, s=1.0):
+        return (torch.randn(shape, generator=gen) * s).to(device, torch.bfloat16)
+
+    results, ok = [], True
+    for name, wrapper, plain, source, replaces, shapes in kernel_cases():
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
+                 "shape": shapes[0][0]}
+        for i, (label, make) in enumerate(shapes):
+            args, kw = make(r)
+            got = wrapper(*args, **kw)
+            ref = plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            tol = TOL_REL * max(1.0, float(ref.float().abs().max()))
+            finite = bool(torch.isfinite(got).all())
+            ms = cuda_ms(lambda: wrapper(*args, **kw))
+            plain_ms = cuda_ms(lambda: plain(*args, **kw))
+            good = finite and err <= tol
+            ok &= good
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            if i == 0:
+                entry["ms"], entry["plain_ms"] = ms, plain_ms
+            log(f"kernel {name:22s} {label:28s} max_abs_err={err:.6g} tol={tol:.6g} "
+                f"ms={ms:.4f} plain_ms={plain_ms:.4f} {'ok' if good else 'FAIL'}")
+            del args, kw, got, ref
+        results.append(entry)
+    torch.cuda.empty_cache()
+    return results, ok
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the full-width UNet
+# ---------------------------------------------------------------------------
+
+
+def check_unet(unet, device) -> bool:
+    import torch
+
+    from latentsync_tpu_torch.models.unet3d import UNet3DConditionModel
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    cfg = unet.config
+    ok = True
+    with torch.inference_mode():
+        x = torch.randn((2, cfg.in_channels, 16, 32, 32), generator=gen)
+        audio = torch.randn((2, 16, 50, cfg.cross_attention_dim), generator=gen)
+        t = torch.tensor([981, 451])
+        xb, ab = x.to(device, torch.bfloat16), audio.to(device, torch.bfloat16)
+        eps = unet(xb, t.to(device), ab).float()
+        eps0 = unet(xb, t.to(device), torch.zeros_like(ab)).float()
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(eps).all() and torch.isfinite(eps0).all())
+        mag = float(eps.abs().mean())
+        dep = float((eps - eps0).norm() / eps.norm())
+        good = finite and eps.shape == (2, cfg.out_channels, 16, 32, 32) and mag > 1e-2 \
+            and dep > 1e-3
+        ok &= good
+        log(f"unet eps (2, 4, 16, 32, 32): finite={finite} mean|eps|={mag:.6g} "
+            f"|eps(audio)-eps(0)|/|eps|={dep:.6g} {'ok' if good else 'FAIL'}")
+
+        # the same weights in f32 on the CPU run the plain versions
+        ref_model = UNet3DConditionModel(cfg)
+        ref_model.load_state_dict({k: v.float().cpu() for k, v in unet.state_dict().items()})
+        xs, as_ = x[:1, :, :, :8, :8], audio[:1]
+        ts = t[:1]
+        got = unet(xs.to(device, torch.bfloat16), ts.to(device),
+                   as_.to(device, torch.bfloat16)).float().cpu()
+        t0 = time.time()
+        ref = ref_model.eval()(xs, ts, as_)
+        rel = float((got - ref).norm() / ref.norm())
+        good = bool(torch.isfinite(got).all()) and rel <= UNET_TOL
+        ok &= good
+        log(f"unet bf16 GPU vs f32 CPU (1, 13, 16, 8, 8): rel_l2={rel:.6g} tol={UNET_TOL} "
+            f"cpu_s={time.time() - t0:.1f} {'ok' if good else 'FAIL'}")
+        del ref_model
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the served path
+# ---------------------------------------------------------------------------
+
+
+def make_avatar(root: str, n_frames: int = 40, size: int = 576, crop_at: int = 32):
+    """A synthetic avatar: smooth moving frames, a translation-only align
+    matrix, 256² faces as the 2×2 average of the 512² crop, 512 boxes."""
+    import numpy as np
+
+    from latentsync_tpu_torch.utils.media import StreamingVideoWriter, write_audio
+
+    rng = np.random.default_rng(SEED)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    frames = np.stack([np.stack([128 + 90 * np.sin(xx / 37 + t / 5 + c) * np.cos(yy / 53 - c)
+                                 for c in range(3)], -1) for t in range(n_frames)])
+    frames = np.clip(frames + rng.normal(0, 4, frames.shape), 0, 255).astype(np.uint8)
+    writer = StreamingVideoWriter(os.path.join(root, "avatar.mp4"), fps=25,
+                                  frame_hw=(size, size))
+    writer.append(frames)
+    writer.close()
+    crop = frames[:, crop_at:crop_at + 512, crop_at:crop_at + 512].astype(np.float32)
+    faces = crop.reshape(n_frames, 256, 2, 256, 2, 3).mean(axis=(2, 4)).round().astype(np.uint8)
+    mat = np.array([[1.0, 0.0, -crop_at], [0.0, 1.0, -crop_at]])
+    np.savez(os.path.join(root, "avatar.npz"), faces=faces,
+             boxes=np.tile([0, 0, 512, 512], (n_frames, 1)),
+             affine_matrices=np.repeat(mat[None], n_frames, 0))
+    audios = {}
+    for sec in (1.2, 2.4):
+        path = os.path.join(root, f"speech_{sec}.wav")
+        tt = np.arange(int(16000 * sec)) / 16000.0
+        wave = 0.3 * np.sin(2 * np.pi * 220 * tt) * (1 + np.sin(2 * np.pi * 3 * tt)) \
+            + 0.05 * rng.standard_normal(tt.shape)
+        write_audio(path, wave.astype(np.float32))
+        audios[sec] = path
+    return audios
+
+
+def serve_requests(pipeline, root: str, audios, counters):
+    import torch
+
+    from latentsync_tpu_torch.serving.api import ServingState, make_handler
+    from latentsync_tpu_torch.serving.artifacts import AvatarStore
+    from latentsync_tpu_torch.utils.media import read_video
+    from http.server import ThreadingHTTPServer
+
+    # 1.2 s of audio → 31 frames → 2 windows of 16; 2.4 s → 4 windows
+    plan = [(1.2, 32), (2.4, 64), (1.2, 32)]
+    state = ServingState(pipeline, AvatarStore(root), os.path.join(root, "out"))
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    ok, jobs, launches = True, [], {}
+    try:
+        for fn in counters:
+            fn.launches = 0
+        for sec, _ in plan:
+            body = json.dumps({"avatar_id": "avatar", "audio_path": audios[sec]}).encode()
+            req = urllib.request.Request(base + "/process", data=body, method="POST",
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                jobs.append((json.loads(resp.read())["job_id"], time.time()))
+        done = {}
+        deadline = time.time() + 900
+        while len(done) < len(jobs) and time.time() < deadline:
+            for job_id, t_sub in jobs:
+                if job_id in done:
+                    continue
+                with urllib.request.urlopen(f"{base}/jobs/{job_id}", timeout=60) as resp:
+                    job = json.loads(resp.read())
+                if job["status"] in ("completed", "failed"):
+                    job["latency_s"] = time.time() - t_sub
+                    done[job_id] = job
+            time.sleep(0.2)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        for (job_id, _), (sec, want) in zip(jobs, plan):
+            job = done.get(job_id, {"status": "timeout"})
+            frames = -1
+            if job["status"] == "completed":
+                frames = read_video(job["output"], change_fps=False).shape[0]
+            good = job["status"] == "completed" and job.get("num_frames") == want == frames
+            ok &= good
+            log(f"request audio={sec}s status={job['status']} frames={frames} (want {want}) "
+                f"latency_s={job.get('latency_s', float('nan')):.3f} "
+                f"worker_s={job.get('elapsed', float('nan')):.3f} "
+                f"stages={json.dumps(job.get('timings', {}), sort_keys=True)} "
+                f"{'ok' if good else 'FAIL ' + str(job.get('error', ''))}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        state.shutdown()
+        thread.join(timeout=30)
+    for name, n in launches.items():
+        good = n > 0
+        ok &= good
+        log(f"launches on the served path: {name}={n} {'ok' if good else 'FAIL'}")
+    return launches, ok
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 2
+    try:
+        from latentsync_tpu_torch.config import LatentSyncConfig
+        from latentsync_tpu_torch.ops import _build, attn_block, ffn
+        from latentsync_tpu_torch.ops import temporal_attention as ta
+    except ImportError as e:
+        print(f"chip_smoke: cannot import the port ({e}); run it from the repository root",
+              file=sys.stderr)
+        return 2
+
+    device = torch.device("cuda", 0)
+    log(gpu_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    t0 = time.time()
+    so = _build.build()
+    _build.lib()
+    log(f"phase 1: built {so.name} in {time.time() - t0:.1f}s")
+    for line in so.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    counters = [ffn.geglu_ffn, attn_block.self_attention_block, ta.temporal_attention,
+                ta.spatial_attention]
+    ok = True
+    phase = "kernels"
+    try:
+        kernels, good = check_kernels(device)
+        ok &= good
+        log(f"phase 2 (kernels vs plain versions): {'ok' if good else 'FAIL'}")
+
+        phase = "unet"
+        from latentsync_tpu_torch.audio.features import Audio2Feature
+        from latentsync_tpu_torch.models.unet3d import UNet3DConditionModel
+        from latentsync_tpu_torch.models.vae import AutoencoderKL
+        from latentsync_tpu_torch.models.whisper import WhisperEncoder
+        from latentsync_tpu_torch.pipelines.lipsync import LipsyncPipeline
+        from latentsync_tpu_torch.utils.convert import init_random_
+
+        cfg = LatentSyncConfig()
+        t0 = time.time()
+        unet = init_random_(UNet3DConditionModel(cfg.unet), seed=SEED).to(device, torch.bfloat16)
+        vae = init_random_(AutoencoderKL(cfg.vae), seed=SEED + 2).to(device, torch.bfloat16)
+        whisper = init_random_(WhisperEncoder(cfg.whisper), seed=SEED + 3).to(device)
+        n_params = sum(p.numel() for p in unet.parameters())
+        log(f"models: unet {n_params / 1e6:.1f}M params, init {time.time() - t0:.1f}s")
+        good = check_unet(unet.eval(), device)
+        ok &= good
+        log(f"phase 3 (full-width UNet): {'ok' if good else 'FAIL'}")
+
+        phase = "serving"
+        pipeline = LipsyncPipeline(unet, vae, Audio2Feature(whisper), cfg,
+                                   dtype=torch.bfloat16, device=device)
+        with tempfile.TemporaryDirectory() as root:
+            audios = make_avatar(root)
+            torch.cuda.reset_peak_memory_stats()
+            launches, good = serve_requests(pipeline, root, audios, counters)
+        ok &= good
+        log(f"phase 4 (served path, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB): {'ok' if good else 'FAIL'}")
+        for k in kernels:
+            k["launches"] = launches.get(k["name"], 0)
+    except Exception:  # noqa: BLE001 — report the phase, then fail
+        traceback.print_exc()
+        print(f"chip_smoke: phase {phase} raised", file=sys.stderr)
+        return 1
+    if not ok:
+        print("chip_smoke: a check failed (see FAIL above)", file=sys.stderr)
+        return 1
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

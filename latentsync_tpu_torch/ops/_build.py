@@ -1,0 +1,133 @@
+"""Build and bind the hand-written Hopper kernels (``csrc/*.cu``).
+
+The sources compile with ``nvcc -gencode arch=compute_90a,code=sm_90a
+-shared`` into one shared library with a plain C interface under
+``latentsync_tpu_torch/_build/``, named by a hash of the sources and
+flags, at first use (never at import). The library is loaded with
+``ctypes``: pointers and the stream travel as ``c_void_p``. Every entry
+point returns ``cudaGetLastError()`` and :func:`call` raises on any
+nonzero code, so a refused launch never passes silently.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# entry point -> argtypes (all return int: a cudaError_t)
+_SIGNATURES = {
+    "ls_geglu_ffn": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P, _P],
+    "ls_attn_block": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P,
+                      _F, _P, _P, _P, _P, _P],
+    "ls_temporal_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _P],
+    "ls_spatial_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F,
+                             _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.isfile(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return path
+
+
+def _sources():
+    return sorted(SRC_DIR.glob("*.cu")), sorted(SRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in cu + cuh:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"liblatentsync_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels if the library for these sources is missing.
+    The compiler's register/spill report is kept beside it as ``.log``."""
+    so = library_path()
+    if so.is_file():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, so)
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            cdll = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(cdll, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            cdll.ls_error_string.argtypes = [ctypes.c_int]
+            cdll.ls_error_string.restype = ctypes.c_char_p
+            _lib = cdll
+        return _lib
+
+
+def call(name: str, *args) -> None:
+    """Launch entry point `name` on the current stream (the caller passes
+    `stream()` last) and raise if CUDA refused or failed the launch."""
+    cdll = lib()
+    code = getattr(cdll, name)(*args)
+    if code != 0:
+        msg = cdll.ls_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+def stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels take bf16 CUDA tensors on one device, 16-byte aligned."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: expected bfloat16, got {t.dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensor data is not 16-byte aligned")

@@ -1,0 +1,153 @@
+"""Self- and cross-attention blocks: x + Wo·Attn(QKV(LN(x) [+ PE])) + bo.
+
+Counterpart of ``latentsync_tpu/ops/attn_block.py``.
+
+``self_attention_block`` (K2) on a CUDA tensor routes like the
+reference: where the TPU ran its fused block kernel (temporal mode at
+C = 320 and 640, spatial mode at S ≤ 256 with C = 640), it launches the
+kernel chain of ``csrc/attn_block.cu``; where the reference's weight or
+VMEM budget sent the block to its composed lowering (C = 1280, and
+spatial S = 1024 at C = 320), it runs that composition, whose attention
+core is the K3/K4 kernel (``temporal_attention``/``spatial_attention``).
+On a CPU tensor it runs the plain version.
+
+``cross_attention_block`` is plain composed torch: its TPU kernel
+(``_cross_kernel``) was opt-in in the reference and is not ported yet.
+
+Weights use the torch ``nn.Linear`` layout: wq/wk/wv (inner, C) without
+bias, wo (C, inner) with bias bo.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .attention import dot_product_attention
+from .ffn import layer_norm_f32
+from .temporal_attention import (
+    SPATIAL_HEAD_DIMS,
+    TEMPORAL_FRAMES,
+    spatial_attention,
+    spatial_attention_reference,
+    spatial_smem_ok,
+    temporal_attention,
+    temporal_attention_reference,
+)
+
+# the reference's fused-block limits (attn_block.py:172-174 weight budget,
+# and the spatial shapes it fused at the flagship)
+_FUSED_WEIGHT_BYTES = 8 * 2**20
+_FUSED_SPATIAL_MAX_S = 256
+
+
+def fused_route(s: int, c: int, inner: int, temporal: bool) -> bool:
+    """Whether the reference ran this block as its fused TPU kernel."""
+    if (3 * c * inner + inner * c) * 2 > _FUSED_WEIGHT_BYTES:
+        return False
+    return temporal or s <= _FUSED_SPATIAL_MAX_S
+
+
+def self_attention_block_reference(x, ln_scale, ln_bias, wq, wk, wv, wo, bo,
+                                   heads: int, *, temporal: bool = False,
+                                   pe: Optional[torch.Tensor] = None,
+                                   eps: float = 1e-6) -> torch.Tensor:
+    """Plain version: f32 LN and products, rounded to x.dtype where the
+    kernel chain rounds (normalised input, q/k/v, attention output,
+    block output)."""
+    dt = x.dtype
+    d = wq.shape[0] // heads
+    scale = 1.0 / math.sqrt(d)
+    h = layer_norm_f32(x, ln_scale, ln_bias, eps).to(dt)
+    if pe is not None:
+        h = h + pe.to(dt)
+    hf = h.float()
+    q, k, v = ((hf @ w.float().t()).to(dt) for w in (wq, wk, wv))
+    core = temporal_attention_reference if temporal else spatial_attention_reference
+    o = core(q, k, v, heads, scale)
+    return (x.float() + o.float() @ wo.float().t() + bo.float()).to(dt)
+
+
+def _composed(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads, temporal, pe, eps):
+    """The reference's ``_xla_block``: torch products around the K3/K4 core."""
+    dt = x.dtype
+    h = layer_norm_f32(x, ln_scale, ln_bias, eps).to(dt)
+    if pe is not None:
+        h = h + pe.to(dt)
+    q, k, v = F.linear(h, wq.to(dt)), F.linear(h, wk.to(dt)), F.linear(h, wv.to(dt))
+    o = (temporal_attention if temporal else spatial_attention)(q, k, v, heads)
+    return x + F.linear(o, wo.to(dt), bo.to(dt))
+
+
+def self_attention_block(x: torch.Tensor, ln_scale, ln_bias, wq, wk, wv, wo, bo,
+                         heads: int, *, temporal: bool = False,
+                         pe: Optional[torch.Tensor] = None,
+                         eps: float = 1e-6) -> torch.Tensor:
+    """x: (B, S, C) → x + OutProj(SelfAttn(QKV(LN(x) [+ pe]))). `pe`: (S, C)
+    positional encoding added after the LN (temporal mode)."""
+    if x.device.type == "cpu":
+        return self_attention_block_reference(
+            x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads, temporal=temporal,
+            pe=pe, eps=eps)
+    b, s, c = x.shape
+    inner = wq.shape[0]
+    if not fused_route(s, c, inner, temporal):
+        return _composed(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads,
+                         temporal, pe, eps)
+    d = inner // heads
+    core_ok = (s == TEMPORAL_FRAMES if temporal
+               else d in SPATIAL_HEAD_DIMS and spatial_smem_ok(s, d))
+    if c % 8 or d % 8 or inner != heads * d or not core_ok:
+        raise ValueError(f"self_attention_block: no kernel for S={s}, C={c}, "
+                         f"inner={inner}, heads={heads}, temporal={temporal}")
+    dt = x.dtype
+    dev = x.device
+    f32 = dict(device=dev, dtype=torch.float32)
+    x = x.contiguous()
+    w_qkv = torch.cat([wq, wk, wv], dim=0).to(dt).contiguous()
+    w_o = wo.to(dt).contiguous()
+    b_o = bo.to(**f32).contiguous()
+    ln_w = ln_scale.to(**f32).contiguous()
+    ln_b = ln_bias.to(**f32).contiguous()
+    pe_b = None if pe is None else pe.to(device=dev, dtype=dt).contiguous()
+    _build.check_cuda("self_attention_block", x, w_qkv, w_o)
+    m = b * s
+    stats = torch.empty((m, 2), **f32)
+    qkv = torch.empty((m, 3 * inner), device=dev, dtype=dt)
+    attn = torch.empty((m, inner), device=dev, dtype=dt)
+    out = torch.empty_like(x)
+    scale = 1.0 / math.sqrt(d)
+    _build.call(
+        "ls_attn_block", x.data_ptr(), b, s, c, inner, heads, int(temporal),
+        ln_w.data_ptr(), ln_b.data_ptr(), eps, _build.ptr(pe_b),
+        w_qkv.data_ptr(), w_o.data_ptr(), b_o.data_ptr(), scale,
+        stats.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
+        _build.stream(x))
+    self_attention_block.launches += 1
+    return out
+
+
+self_attention_block.launches = 0
+
+
+def cross_attention_block(x: torch.Tensor, ln_scale, ln_bias, ctx: torch.Tensor,
+                          wq, wk, wv, wo, bo, heads: int, *,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """x: (B, S, C), ctx: (B, Sk, Cc) → x + OutProj(Attn(Q(LN(x)), K(ctx),
+    V(ctx))); the context is used raw, like the reference."""
+    dt = x.dtype
+    b, s, _ = x.shape
+    inner = wq.shape[0]
+    d = inner // heads
+    h = layer_norm_f32(x, ln_scale, ln_bias, eps).to(dt)
+    ctx = ctx.to(dt)
+    sk = ctx.shape[1]
+    q = F.linear(h, wq.to(dt)).reshape(b, s, heads, d)
+    k = F.linear(ctx, wk.to(dt)).reshape(b, sk, heads, d)
+    v = F.linear(ctx, wv.to(dt)).reshape(b, sk, heads, d)
+    o = dot_product_attention(q, k, v).reshape(b, s, inner)
+    return x + F.linear(o, wo.to(dt), bo.to(dt))
