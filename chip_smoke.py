@@ -7,25 +7,34 @@ Phases, each of which must pass (the script exits nonzero otherwise,
 and without CUDA it exits nonzero before doing anything):
 
 1. print the card's name and power limit; build the CUDA kernels from
-   ``latentsync_tpu_torch/csrc`` (nvcc, sm_90a);
+   ``latentsync_tpu_torch/csrc`` (one nvcc per source, all at once, sm_90a);
 2. hold every kernel against its plain PyTorch version in bf16 at every
    shape the serving path gives it, and time both with CUDA events;
 3. the full-width UNet (LatentSync 1.5 stage 2, random seeded non-zero
-   weights): eps is finite, non-zero and depends on the audio, and the
-   bf16 GPU forward agrees with the f32 CPU forward of the same weights
-   on a small input;
+   weights), in the default configuration and in the fused-kernel one
+   (``LATENTSYNC_PALLAS_GN=1 LATENTSYNC_FUSED_XATTN=1``): eps is finite,
+   non-zero and depends on the audio, the two configurations agree, and
+   each bf16 GPU forward agrees with the f32 CPU forward of the same
+   weights on a small input; the median of 5 warm batch-4 forwards of
+   each, and the GroupNorm shapes of one fused forward, which must be
+   those phase 2 checked;
 4. serve three requests through the port's HTTP server at full width
    (synthetic 576² avatar, 1.2 s and 2.4 s of audio, 20 DDIM steps, CFG
-   1.5), check the output frame counts and that every kernel ran.
+   1.5) in the default configuration, check the output frame counts and
+   that every kernel of that path ran (and no kernel of the fused one);
+5. serve two requests (1.2 s and 2.4 s) in the fused-kernel
+   configuration, with the same checks over all eight kernels.
 
 The line before the last is a JSON object with each kernel's launches on
-the served path, its largest error against the plain version and both
+its served path, its largest error against the plain version and both
 times; the last line is the device record.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -40,8 +49,23 @@ SEED = 1247
 # about two bf16 ulps at the output's top binade (the kernels keep f32
 # where the plain versions round to bf16, and sum in another order)
 TOL_REL = 2.0**-6
-# full-width UNet, bf16 GPU vs f32 CPU: relative L2 error of eps
+# full-width UNet, bf16 GPU vs f32 CPU, and fused vs default
+# configuration: relative L2 error of eps
 UNET_TOL = 5e-2
+# the JAX package's opt-in kernel switches; on together they make the
+# fused-kernel configuration of the same served model
+SWITCHES = ("LATENTSYNC_PALLAS_GN", "LATENTSYNC_FUSED_XATTN")
+# (N, C, *spatial), eps, SiLU of every GroupNorm of the served UNet at
+# batch 4 (2 windows × CFG 2), 16 frames, 32² latents, by the kernel the
+# reference's routing gives it: per-frame transformer/motion norms and
+# the cross-frame resnet norms (up-block resnets see concatenated widths)
+GN_SINGLE = [((64, 320, 32, 32), 1e-6, False), ((64, 640, 16, 16), 1e-6, False),
+             ((64, 1280, 8, 8), 1e-6, False), ((64, 1280, 4, 4), 1e-6, False),
+             ((4, 1280, 16, 4, 4), 1e-5, True)]
+GN_STREAMING = [((4, c, 16, 32, 32), 1e-5, True) for c in (960, 640, 320)] \
+    + [((4, c, 16, 16, 16), 1e-5, True) for c in (1920, 1280, 960, 640, 320)] \
+    + [((4, c, 16, 8, 8), 1e-5, True) for c in (2560, 1920, 1280, 640)] \
+    + [((4, 2560, 16, 4, 4), 1e-5, True)]
 
 
 def log(msg: str) -> None:
@@ -53,6 +77,21 @@ def gpu_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def fused_config():
+    """Both switches on for the duration (the port reads them at each call)."""
+    old = {k: os.environ.get(k) for k in SWITCHES}
+    os.environ.update({k: "1" for k in SWITCHES})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def cuda_ms(fn, warmup: int = 2, iters: int = 10) -> float:
@@ -77,8 +116,11 @@ def cuda_ms(fn, warmup: int = 2, iters: int = 10) -> float:
 def kernel_cases():
     """(name, wrapper, plain, source, replaces, [(shape label, make_args)])
     with the shapes of the served path: window batch 2 × CFG 2 → B = 4
-    sequences of 16 frames, 32² latents, channels 320/640/1280, 8 heads."""
-    from latentsync_tpu_torch.ops import attn_block, ffn, temporal_attention as ta
+    sequences of 16 frames, 32² latents, channels 320/640/1280, 8 heads;
+    the VAE encodes up to 64 faces and decodes 32 frames at a time. The
+    largest shape of each kernel comes first."""
+    from latentsync_tpu_torch.ops import attention, attn_block, ffn, groupnorm as gn
+    from latentsync_tpu_torch.ops import temporal_attention as ta
 
     def ffn_args(m, c):
         def make(r):
@@ -99,6 +141,25 @@ def kernel_cases():
             return (r(b, s, hd), r(b, s, hd), r(b, s, hd), 8), {}
         return f"B={b} S={s} heads*D={hd}", make
 
+    def flash_args(b):
+        def make(r):
+            return (r(b, 1024, 1, 512), r(b, 1024, 1, 512), r(b, 1024, 1, 512)), {}
+        return f"B={b} S=1024 H=1 D=512", make
+
+    def cross_args(b, s, c):
+        def make(r):
+            return ((r(b, s, c), 1 + r(c, s=0.1), r(c, s=0.1), r(b, 50, 384),
+                     r(c, c, s=c**-0.5), r(c, 384, s=384**-0.5), r(c, 384, s=384**-0.5),
+                     r(c, c, s=c**-0.5), r(c, s=0.1), 8), {})
+        return f"B={b} S={s} C={c} Sk=50 Cc=384", make
+
+    def gn_args(shape, eps, silu):
+        def make(r):
+            c = shape[1]
+            return (r(*shape) * 2 + 0.5, 1 + r(c, s=0.1), r(c, s=0.1), 32), \
+                {"eps": eps, "silu": silu}
+        return f"{shape} eps={eps} silu={int(silu)}", make
+
     return [
         ("geglu_ffn", ffn.geglu_ffn, ffn.geglu_ffn_reference,
          "latentsync_tpu_torch/csrc/geglu.cu", "latentsync_tpu/ops/ffn.py:82",
@@ -117,6 +178,21 @@ def kernel_cases():
          "latentsync_tpu_torch/csrc/spatial_attention.cu",
          "latentsync_tpu/ops/temporal_attention.py:173",
          [attn_args(64, 1024, 320), attn_args(64, 64, 1280), attn_args(64, 16, 1280)]),
+        ("dot_product_attention", attention.dot_product_attention,
+         attention.dot_product_attention_reference,
+         "latentsync_tpu_torch/csrc/flash_attention.cu", "latentsync_tpu/ops/attention.py:85",
+         [flash_args(64), flash_args(32)]),
+        ("cross_attention_block", attn_block.cross_attention_block,
+         attn_block.cross_attention_block_reference,
+         "latentsync_tpu_torch/csrc/cross_attn_block.cu", "latentsync_tpu/ops/attn_block.py:284",
+         [cross_args(64, 1024, 320), cross_args(64, 256, 640)]),
+        ("group_norm_silu", gn.group_norm_silu, gn.group_norm_silu_reference,
+         "latentsync_tpu_torch/csrc/groupnorm.cu", "latentsync_tpu/ops/groupnorm.py:43",
+         [gn_args(*a) for a in GN_SINGLE]),
+        ("group_norm_silu_streaming", gn.group_norm_silu_streaming,
+         gn.group_norm_silu_reference,
+         "latentsync_tpu_torch/csrc/groupnorm.cu", "latentsync_tpu/ops/groupnorm.py:107",
+         [gn_args(*a) for a in GN_STREAMING]),
     ]
 
 
@@ -135,15 +211,18 @@ def check_kernels(device):
                  "shape": shapes[0][0]}
         for i, (label, make) in enumerate(shapes):
             args, kw = make(r)
-            got = wrapper(*args, **kw)
-            ref = plain(*args, **kw)
-            torch.cuda.synchronize()
-            err = float((got.float() - ref.float()).abs().max())
-            tol = TOL_REL * max(1.0, float(ref.float().abs().max()))
-            finite = bool(torch.isfinite(got).all())
-            ms = cuda_ms(lambda: wrapper(*args, **kw))
-            plain_ms = cuda_ms(lambda: plain(*args, **kw))
-            good = finite and err <= tol
+            with fused_config():  # the cross block launches its kernel only so
+                before = wrapper.launches
+                got = wrapper(*args, **kw)
+                ref = plain(*args, **kw)
+                torch.cuda.synchronize()
+                launched = wrapper.launches == before + 1
+                err = float((got.float() - ref.float()).abs().max())
+                tol = TOL_REL * max(1.0, float(ref.float().abs().max()))
+                finite = bool(torch.isfinite(got).all())
+                ms = cuda_ms(lambda: wrapper(*args, **kw))
+                plain_ms = cuda_ms(lambda: plain(*args, **kw))
+            good = launched and finite and err <= tol
             ok &= good
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
             if i == 0:
@@ -174,33 +253,95 @@ def check_unet(unet, device) -> bool:
         audio = torch.randn((2, 16, 50, cfg.cross_attention_dim), generator=gen)
         t = torch.tensor([981, 451])
         xb, ab = x.to(device, torch.bfloat16), audio.to(device, torch.bfloat16)
-        eps = unet(xb, t.to(device), ab).float()
-        eps0 = unet(xb, t.to(device), torch.zeros_like(ab)).float()
-        torch.cuda.synchronize()
-        finite = bool(torch.isfinite(eps).all() and torch.isfinite(eps0).all())
-        mag = float(eps.abs().mean())
-        dep = float((eps - eps0).norm() / eps.norm())
-        good = finite and eps.shape == (2, cfg.out_channels, 16, 32, 32) and mag > 1e-2 \
-            and dep > 1e-3
+        xs, as_, ts = x[:1, :, :, :8, :8], audio[:1], t[:1]
+        eps, small = {}, {}
+        for conf, ctx in (("default", contextlib.nullcontext), ("fused", fused_config)):
+            with ctx():
+                e = unet(xb, t.to(device), ab).float()
+                e0 = unet(xb, t.to(device), torch.zeros_like(ab)).float()
+                small[conf] = unet(xs.to(device, torch.bfloat16), ts.to(device),
+                                   as_.to(device, torch.bfloat16)).float().cpu()
+            torch.cuda.synchronize()
+            eps[conf] = e
+            finite = bool(torch.isfinite(e).all() and torch.isfinite(e0).all())
+            mag = float(e.abs().mean())
+            dep = float((e - e0).norm() / e.norm())
+            good = finite and e.shape == (2, cfg.out_channels, 16, 32, 32) and mag > 1e-2 \
+                and dep > 1e-3
+            ok &= good
+            log(f"unet {conf} eps (2, 4, 16, 32, 32): finite={finite} mean|eps|={mag:.6g} "
+                f"|eps(audio)-eps(0)|/|eps|={dep:.6g} {'ok' if good else 'FAIL'}")
+        rel = float((eps["fused"] - eps["default"]).norm() / eps["default"].norm())
+        good = rel <= UNET_TOL
         ok &= good
-        log(f"unet eps (2, 4, 16, 32, 32): finite={finite} mean|eps|={mag:.6g} "
-            f"|eps(audio)-eps(0)|/|eps|={dep:.6g} {'ok' if good else 'FAIL'}")
+        log(f"unet fused vs default eps (2, 4, 16, 32, 32): rel_l2={rel:.6g} tol={UNET_TOL} "
+            f"{'ok' if good else 'FAIL'}")
 
         # the same weights in f32 on the CPU run the plain versions
         ref_model = UNet3DConditionModel(cfg)
         ref_model.load_state_dict({k: v.float().cpu() for k, v in unet.state_dict().items()})
-        xs, as_ = x[:1, :, :, :8, :8], audio[:1]
-        ts = t[:1]
-        got = unet(xs.to(device, torch.bfloat16), ts.to(device),
-                   as_.to(device, torch.bfloat16)).float().cpu()
         t0 = time.time()
         ref = ref_model.eval()(xs, ts, as_)
-        rel = float((got - ref).norm() / ref.norm())
-        good = bool(torch.isfinite(got).all()) and rel <= UNET_TOL
-        ok &= good
-        log(f"unet bf16 GPU vs f32 CPU (1, 13, 16, 8, 8): rel_l2={rel:.6g} tol={UNET_TOL} "
-            f"cpu_s={time.time() - t0:.1f} {'ok' if good else 'FAIL'}")
+        cpu_s = time.time() - t0
+        for conf, got in small.items():
+            rel = float((got - ref).norm() / ref.norm())
+            good = bool(torch.isfinite(got).all()) and rel <= UNET_TOL
+            ok &= good
+            log(f"unet {conf} bf16 GPU vs f32 CPU (1, 13, 16, 8, 8): rel_l2={rel:.6g} "
+                f"tol={UNET_TOL} cpu_s={cpu_s:.1f} {'ok' if good else 'FAIL'}")
         del ref_model
+    return ok
+
+
+def time_forwards(unet, device) -> bool:
+    """Median of 5 warm forwards at the served batch 4 in each
+    configuration; the GroupNorm shapes one fused forward gives each
+    kernel must be the ones phase 2 checked."""
+    import statistics
+
+    import torch
+
+    from latentsync_tpu_torch.models import unet3d
+    from latentsync_tpu_torch.ops import groupnorm as gn
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    cfg = unet.config
+    x = torch.randn((4, cfg.in_channels, 16, 32, 32), generator=gen).to(device, torch.bfloat16)
+    audio = torch.randn((4, 16, 50, cfg.cross_attention_dim), generator=gen).to(
+        device, torch.bfloat16)
+    t = torch.full((4,), 501, device=device)
+    seen = {"single": set(), "streaming": set(), None: set()}
+    auto = unet3d.group_norm_silu_auto
+
+    def spy(x, scale, bias, groups, eps=1e-5, silu=True):
+        route = gn.gn_route(math.prod(x.shape[2:]), x.shape[1])
+        seen[route].add((tuple(x.shape), eps, silu))
+        return auto(x, scale, bias, groups, eps, silu)
+
+    with torch.inference_mode():
+        for conf, ctx in (("default", contextlib.nullcontext), ("fused", fused_config)):
+            with ctx():
+                if conf == "fused":
+                    unet3d.group_norm_silu_auto = spy
+                try:
+                    unet(x, t, audio)
+                finally:
+                    unet3d.group_norm_silu_auto = auto
+                times = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    unet(x, t, audio)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+            log(f"unet forward batch 4 ({conf}): median_ms={statistics.median(times):.3f} "
+                f"all_ms={[round(v, 3) for v in times]}")
+    ok = True
+    for route, want in (("single", GN_SINGLE), ("streaming", GN_STREAMING), (None, [])):
+        good = seen[route] == set(want)
+        ok &= good
+        log(f"GroupNorm shapes of one fused forward, {route}: {sorted(seen[route])} "
+            f"{'ok (as phase 2)' if good else 'FAIL (phase 2 checked ' + str(sorted(want)) + ')'}")
     return ok
 
 
@@ -242,7 +383,10 @@ def make_avatar(root: str, n_frames: int = 40, size: int = 576, crop_at: int = 3
     return audios
 
 
-def serve_requests(pipeline, root: str, audios, counters):
+def serve_requests(pipeline, root: str, audios, plan, counters, fused: set):
+    """Serve `plan` [(seconds of audio, frames wanted)] with every count at
+    0 first; each kernel must launch, except those named in `fused` when
+    the fused-kernel configuration is off, which must not."""
     import torch
 
     from latentsync_tpu_torch.serving.api import ServingState, make_handler
@@ -250,8 +394,7 @@ def serve_requests(pipeline, root: str, audios, counters):
     from latentsync_tpu_torch.utils.media import read_video
     from http.server import ThreadingHTTPServer
 
-    # 1.2 s of audio → 31 frames → 2 windows of 16; 2.4 s → 4 windows
-    plan = [(1.2, 32), (2.4, 64), (1.2, 32)]
+    fused_on = all(os.environ.get(k) == "1" for k in SWITCHES)
     state = ServingState(pipeline, AvatarStore(root), os.path.join(root, "out"))
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -298,10 +441,13 @@ def serve_requests(pipeline, root: str, audios, counters):
         server.server_close()
         state.shutdown()
         thread.join(timeout=30)
+    conf = "fused" if fused_on else "default"
     for name, n in launches.items():
-        good = n > 0
+        want_some = fused_on or name not in fused
+        good = n > 0 if want_some else n == 0
         ok &= good
-        log(f"launches on the served path: {name}={n} {'ok' if good else 'FAIL'}")
+        log(f"launches on the served path ({conf}): {name}={n} "
+            f"{'ok' if good else 'FAIL'}{'' if want_some else ' (must be 0)'}")
     return launches, ok
 
 
@@ -317,7 +463,8 @@ def main() -> int:
         return 2
     try:
         from latentsync_tpu_torch.config import LatentSyncConfig
-        from latentsync_tpu_torch.ops import _build, attn_block, ffn
+        from latentsync_tpu_torch.ops import _build, attention, attn_block, ffn
+        from latentsync_tpu_torch.ops import groupnorm as gn
         from latentsync_tpu_torch.ops import temporal_attention as ta
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from the repository root",
@@ -337,7 +484,10 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     counters = [ffn.geglu_ffn, attn_block.self_attention_block, ta.temporal_attention,
-                ta.spatial_attention]
+                ta.spatial_attention, attention.dot_product_attention,
+                attn_block.cross_attention_block, gn.group_norm_silu,
+                gn.group_norm_silu_streaming]
+    fused_only = {"cross_attention_block", "group_norm_silu", "group_norm_silu_streaming"}
     ok = True
     phase = "kernels"
     try:
@@ -361,21 +511,37 @@ def main() -> int:
         n_params = sum(p.numel() for p in unet.parameters())
         log(f"models: unet {n_params / 1e6:.1f}M params, init {time.time() - t0:.1f}s")
         good = check_unet(unet.eval(), device)
+        good &= time_forwards(unet, device)
         ok &= good
-        log(f"phase 3 (full-width UNet): {'ok' if good else 'FAIL'}")
+        log(f"phase 3 (full-width UNet, both configurations): {'ok' if good else 'FAIL'}")
 
         phase = "serving"
         pipeline = LipsyncPipeline(unet, vae, Audio2Feature(whisper), cfg,
                                    dtype=torch.bfloat16, device=device)
         with tempfile.TemporaryDirectory() as root:
             audios = make_avatar(root)
+            # 1.2 s of audio → 31 frames → 2 windows of 16; 2.4 s → 4 windows
             torch.cuda.reset_peak_memory_stats()
-            launches, good = serve_requests(pipeline, root, audios, counters)
-        ok &= good
-        log(f"phase 4 (served path, peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB): {'ok' if good else 'FAIL'}")
+            launches, good = serve_requests(pipeline, root, audios,
+                                            [(1.2, 32), (2.4, 64), (1.2, 32)], counters,
+                                            fused_only)
+            ok &= good
+            log(f"phase 4 (served path, default configuration, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB): "
+                f"{'ok' if good else 'FAIL'}")
+            phase = "serving (fused)"
+            torch.cuda.reset_peak_memory_stats()
+            with fused_config():
+                launches_f, good = serve_requests(pipeline, root, audios,
+                                                  [(1.2, 32), (2.4, 64)], counters, fused_only)
+            ok &= good
+            log(f"phase 5 (served path, fused-kernel configuration, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB): "
+                f"{'ok' if good else 'FAIL'}")
         for k in kernels:
-            k["launches"] = launches.get(k["name"], 0)
+            fused = k["name"] in fused_only
+            k["path"] = "fused" if fused else "default"
+            k["launches"] = (launches_f if fused else launches).get(k["name"], 0)
     except Exception:  # noqa: BLE001 — report the phase, then fail
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} raised", file=sys.stderr)

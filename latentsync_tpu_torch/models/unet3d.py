@@ -1,20 +1,28 @@
 """Audio-conditioned 3D UNet (LatentSync stage 2) in torch.
 
 Counterpart of ``latentsync_tpu/models/unet3d.py`` ``UNet3DConditionModel``
-at reference semantics (no DeepCache, no int8). Layout is torch's
-(B, C, F, H, W); parameter names follow the upstream checkpoint, so
-``state_dict()`` is the upstream key layout that
-``latentsync_tpu.utils.convert.convert_unet`` reads.
+(no DeepCache, no int8). Layout is torch's (B, C, F, H, W); parameter
+names follow the upstream checkpoint, so ``state_dict()`` is the upstream
+key layout that ``latentsync_tpu.utils.convert.convert_unet`` reads.
 
 The self-attention blocks, the audio cross-attention blocks and the GEGLU
 feed-forwards call the fused ops of ``..ops`` with the LayerNorm and the
 residual folded in, exactly as the JAX model calls its Pallas kernels;
 the modules named ``norm1``/``attn1``/``ff``… only hold the weights.
+
+The reference's two opt-in kernel switches configure the same model
+here, read at each call as the reference reads them at trace time:
+``LATENTSYNC_PALLAS_GN=1`` sends the norms that the reference routes
+through ``gn_silu`` to the GroupNorm kernels of ``ops.groupnorm`` (the
+parameters stay nn.GroupNorm's), and ``LATENTSYNC_FUSED_XATTN=1`` turns
+on the fused audio cross-attention kernel (``ops.attn_block``). Both are
+off by default.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -25,6 +33,7 @@ import torch.nn.functional as F
 from ..config import MotionModuleConfig, UNet3DConfig
 from ..ops.attn_block import cross_attention_block, self_attention_block
 from ..ops.ffn import geglu_ffn
+from ..ops.groupnorm import group_norm_silu_auto
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
@@ -60,6 +69,14 @@ def group_norm(x: torch.Tensor, norm: nn.GroupNorm, silu: bool = False) -> torch
     return (F.silu(y) if silu else y).to(x.dtype)
 
 
+def gn_silu(x: torch.Tensor, norm: nn.GroupNorm, silu: bool = False) -> torch.Tensor:
+    """The reference's ``gn_silu``: `group_norm` by default, the GroupNorm
+    kernels (``group_norm_silu_auto``) under ``LATENTSYNC_PALLAS_GN=1``."""
+    if os.environ.get("LATENTSYNC_PALLAS_GN") == "1":
+        return group_norm_silu_auto(x, norm.weight, norm.bias, norm.num_groups, norm.eps, silu)
+    return group_norm(x, norm, silu)
+
+
 def _fold(x: torch.Tensor) -> torch.Tensor:
     """(B, C, F, H, W) → (B·F, C, H, W)."""
     b, c, f, h, w = x.shape
@@ -92,10 +109,10 @@ class ResnetBlock3D(nn.Module):
         self.output_scale_factor = output_scale_factor
 
     def forward(self, x, temb):
-        h = self.conv1(group_norm(x, self.norm1, silu=True))
+        h = self.conv1(gn_silu(x, self.norm1, silu=True))
         t = self.time_emb_proj(F.silu(temb.float()).to(x.dtype))
         h = h + t[:, :, None, None, None]
-        h = self.conv2(group_norm(h, self.norm2, silu=True))
+        h = self.conv2(gn_silu(h, self.norm2, silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return (x + h) / self.output_scale_factor
@@ -181,7 +198,7 @@ class SpatialTransformer(nn.Module):
     def forward(self, x, audio=None):
         b, c, f, hh, ww = x.shape
         x2 = _fold(x)
-        h = self.proj_in(group_norm(x2, self.norm))
+        h = self.proj_in(gn_silu(x2, self.norm))
         inner = h.shape[1]
         h = h.permute(0, 2, 3, 1).reshape(b * f, hh * ww, inner)
         if audio is not None and audio.dim() == 4:
@@ -237,7 +254,7 @@ class TemporalModule(nn.Module):
         b, c, f, hh, ww = x.shape
         s = hh * ww
         x2 = _fold(x)
-        h = group_norm(x2, tt.norm).permute(0, 2, 3, 1).reshape(b * f, s, c)
+        h = gn_silu(x2, tt.norm).permute(0, 2, 3, 1).reshape(b * f, s, c)
         h = tt.proj_in(h)
         inner = h.shape[-1]
         # one layout change for the block stack: (b·f, s, c) → (b·s, f, c)
@@ -385,5 +402,5 @@ class UNet3DConditionModel(nn.Module):
                 x = blk.layer(i, torch.cat([x, skips.pop()], dim=1), emb, audio)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
-        x = group_norm(x, self.conv_norm_out, silu=True)
+        x = gn_silu(x, self.conv_norm_out, silu=True)
         return self.conv_out(x)

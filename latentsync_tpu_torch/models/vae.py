@@ -5,6 +5,12 @@ Counterpart of ``latentsync_tpu/models/vae.py``: GroupNorm(32, eps 1e-6)
 downsample, a single-head mid-block attention, deterministic (mode)
 encoding. Layout is NCHW; parameter names follow diffusers, the layout
 ``latentsync_tpu.utils.convert.convert_vae`` reads.
+
+The mid-block attention (S = 1024 at 256² faces, one head, D = 512)
+goes through the routed ``ops.attention.dot_product_attention``, which
+launches the flash kernel on the card. The GroupNorms stay plain
+``group_norm`` whatever ``LATENTSYNC_PALLAS_GN`` says: the reference's
+VAE never reads that switch.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Build and bind the hand-written Hopper kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc -gencode arch=compute_90a,code=sm_90a
--shared`` into one shared library with a plain C interface under
+Each source compiles with its own ``nvcc -gencode
+arch=compute_90a,code=sm_90a -c``, all started together, and the objects
+link into one shared library with a plain C interface under
 ``latentsync_tpu_torch/_build/``, named by a hash of the sources and
 flags, at first use (never at import). The library is loaded with
 ``ctypes``: pointers and the stream travel as ``c_void_p``. Every entry
@@ -25,12 +26,13 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # entry point -> argtypes (all return int: a cudaError_t)
 _SIGNATURES = {
     "ls_geglu_ffn": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P, _P],
@@ -39,6 +41,12 @@ _SIGNATURES = {
     "ls_temporal_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _P],
     "ls_spatial_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F,
                              _P],
+    "ls_flash_attention": [_P, _P, _P, *[_L] * 9, _P, _I, _I, _I, _I, _F, _P],
+    "ls_cross_attn_block": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F, _P, _P,
+                            _P, _P, _F, _P, _P, _P, _P, _P, _P],
+    "ls_group_norm_silu": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "ls_group_norm_silu_streaming": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _L, _P,
+                                     _P],
 }
 
 _lock = threading.Lock()
@@ -71,19 +79,38 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels if the library for these sources is missing.
-    The compiler's register/spill report is kept beside it as ``.log``."""
+    """Compile the kernels if the library for these sources is missing:
+    one ``nvcc -c`` per source, all at once, then one link. The
+    compiler's register/spill report is kept beside it as ``.log``."""
     so = library_path()
     if so.is_file():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    nvcc = _nvcc()
+    objdir = so.with_suffix(f".{os.getpid()}.obj")
+    objdir.mkdir(exist_ok=True)
+    objs = [objdir / (src.stem + ".o") for src in cu]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(cu, objs)]
+    log, failed = [], []
+    for src, proc in zip(cu, procs):
+        out = proc.communicate()[0]
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out[-4000:]}")
+    if not failed:
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        log.append(f"== link\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    so.with_suffix(".log").write_text("\n".join(log))
+    shutil.rmtree(objdir, ignore_errors=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, so)
     return so
 

@@ -11,8 +11,14 @@ spatial S = 1024 at C = 320), it runs that composition, whose attention
 core is the K3/K4 kernel (``temporal_attention``/``spatial_attention``).
 On a CPU tensor it runs the plain version.
 
-``cross_attention_block`` is plain composed torch: its TPU kernel
-(``_cross_kernel``) was opt-in in the reference and is not ported yet.
+``cross_attention_block`` (K5), the audio cross-attention, follows the
+reference's opt-in switch: with ``LATENTSYNC_FUSED_XATTN=1`` (read at
+each call, as the reference reads it at trace time), on a CUDA tensor,
+it launches the kernel chain of ``csrc/cross_attn_block.cu`` wherever
+the reference ran ``_cross_fused`` (``cross_fused_route``: C = 320 and
+640 on the UNet; C = 1280 is over the 8 MiB weight budget). Everywhere
+else on the card it runs the composed torch of the reference's
+``_xla_cross_block``. On a CPU tensor it runs the plain version.
 
 Weights use the torch ``nn.Linear`` layout: wq/wk/wv (inner, C) without
 bias, wo (C, inner) with bias bo.
@@ -21,13 +27,14 @@ bias, wo (C, inner) with bias bo.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
-from .attention import dot_product_attention
+from .attention import dot_product_attention, dot_product_attention_reference
 from .ffn import layer_norm_f32
 from .temporal_attention import (
     SPATIAL_HEAD_DIMS,
@@ -43,6 +50,8 @@ from .temporal_attention import (
 # and the spatial shapes it fused at the flagship)
 _FUSED_WEIGHT_BYTES = 8 * 2**20
 _FUSED_SPATIAL_MAX_S = 256
+# head widths of the cross blocks on the fused route (C = 320, 640; 8 heads)
+_CROSS_HEAD_DIMS = (40, 80)
 
 
 def fused_route(s: int, c: int, inner: int, temporal: bool) -> bool:
@@ -50,6 +59,23 @@ def fused_route(s: int, c: int, inner: int, temporal: bool) -> bool:
     if (3 * c * inner + inner * c) * 2 > _FUSED_WEIGHT_BYTES:
         return False
     return temporal or s <= _FUSED_SPATIAL_MAX_S
+
+
+def cross_fused_route(b: int, s: int, sk: int, c: int, cc: int, inner: int) -> bool:
+    """Whether the reference ran this cross block as its fused TPU kernel:
+    ``_pick_cross_block(...) > 0`` (weight budget, and a batch block whose
+    VMEM estimate fits 6 MB) and 16 ≤ S ≤ 1024, Sk ≥ 8 (``attn_block.py:341-353,
+    421-429``)."""
+    weights = (c * inner + 2 * cc * inner + inner * c) * 2
+
+    def vmem(blk):
+        xbytes = blk * s * c * (2 + 4) + blk * sk * cc * 2
+        qkv = blk * (s + 2 * sk) * inner * 2 + blk * s * inner * 2
+        return weights + xbytes + qkv + blk * s * sk * 4 * 2
+
+    return (weights <= _FUSED_WEIGHT_BYTES and 16 <= s <= 1024 and sk >= 8
+            and any(b % blk == 0 and vmem(blk) <= 6 * 2**20
+                    for blk in (64, 32, 16, 8, 4, 2, 1)))
 
 
 def self_attention_block_reference(x, ln_scale, ln_bias, wq, wk, wv, wo, bo,
@@ -134,11 +160,27 @@ def self_attention_block(x: torch.Tensor, ln_scale, ln_bias, wq, wk, wv, wo, bo,
 self_attention_block.launches = 0
 
 
-def cross_attention_block(x: torch.Tensor, ln_scale, ln_bias, ctx: torch.Tensor,
-                          wq, wk, wv, wo, bo, heads: int, *,
-                          eps: float = 1e-6) -> torch.Tensor:
-    """x: (B, S, C), ctx: (B, Sk, Cc) → x + OutProj(Attn(Q(LN(x)), K(ctx),
-    V(ctx))); the context is used raw, like the reference."""
+def cross_attention_block_reference(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, bo,
+                                    heads: int, *, eps: float = 1e-6) -> torch.Tensor:
+    """Plain version: f32 LN and products, rounded to x.dtype where the
+    kernel chain rounds (LN(x), q, k, v, probabilities, attention output,
+    block output)."""
+    dt = x.dtype
+    b, s, _ = x.shape
+    sk = ctx.shape[1]
+    inner = wq.shape[0]
+    d = inner // heads
+    h = layer_norm_f32(x, ln_scale, ln_bias, eps).to(dt)
+    cf = ctx.to(dt).float()
+    q = (h.float() @ wq.float().t()).to(dt).reshape(b, s, heads, d)
+    k = (cf @ wk.float().t()).to(dt).reshape(b, sk, heads, d)
+    v = (cf @ wv.float().t()).to(dt).reshape(b, sk, heads, d)
+    o = dot_product_attention_reference(q, k, v).reshape(b, s, inner)
+    return (x.float() + o.float() @ wo.float().t() + bo.float()).to(dt)
+
+
+def _cross_composed(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, bo, heads, eps):
+    """The reference's ``_xla_cross_block``: torch products and attention."""
     dt = x.dtype
     b, s, _ = x.shape
     inner = wq.shape[0]
@@ -151,3 +193,52 @@ def cross_attention_block(x: torch.Tensor, ln_scale, ln_bias, ctx: torch.Tensor,
     v = F.linear(ctx, wv.to(dt)).reshape(b, sk, heads, d)
     o = dot_product_attention(q, k, v).reshape(b, s, inner)
     return x + F.linear(o, wo.to(dt), bo.to(dt))
+
+
+def cross_attention_block(x: torch.Tensor, ln_scale, ln_bias, ctx: torch.Tensor,
+                          wq, wk, wv, wo, bo, heads: int, *,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """x: (B, S, C), ctx: (B, Sk, Cc) → x + OutProj(Attn(Q(LN(x)), K(ctx),
+    V(ctx))); the context is used raw, like the reference."""
+    if x.device.type == "cpu":
+        return cross_attention_block_reference(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, bo,
+                                               heads, eps=eps)
+    b, s, c = x.shape
+    sk, cc = ctx.shape[1:]
+    inner = wq.shape[0]
+    opted_in = os.environ.get("LATENTSYNC_FUSED_XATTN", "0") == "1"
+    if not (opted_in and cross_fused_route(b, s, sk, c, cc, inner)):
+        return _cross_composed(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, bo, heads, eps)
+    d = inner // heads
+    if c % 8 or cc % 8 or inner != heads * d or d not in _CROSS_HEAD_DIMS \
+            or 2 * sk * d * 2 > 227 * 1024:
+        raise ValueError(f"cross_attention_block: no kernel for C={c}, Cc={cc}, "
+                         f"inner={inner}, heads={heads}, Sk={sk}")
+    dt = x.dtype
+    dev = x.device
+    f32 = dict(device=dev, dtype=torch.float32)
+    x = x.contiguous()
+    ctx = ctx.to(dt).contiguous()
+    w_q = wq.to(dt).contiguous()
+    w_kv = torch.cat([wk, wv], dim=0).to(dt).contiguous()
+    w_o = wo.to(dt).contiguous()
+    b_o = bo.to(**f32).contiguous()
+    ln_w = ln_scale.to(**f32).contiguous()
+    ln_b = ln_bias.to(**f32).contiguous()
+    _build.check_cuda("cross_attention_block", x, ctx, w_q, w_kv, w_o)
+    m = b * s
+    stats = torch.empty((m, 2), **f32)
+    q = torch.empty((m, inner), device=dev, dtype=dt)
+    kv = torch.empty((b * sk, 2 * inner), device=dev, dtype=dt)
+    attn = torch.empty((m, inner), device=dev, dtype=dt)
+    out = torch.empty_like(x)
+    _build.call(
+        "ls_cross_attn_block", x.data_ptr(), ctx.data_ptr(), b, s, c, sk, cc, inner, heads,
+        ln_w.data_ptr(), ln_b.data_ptr(), eps, w_q.data_ptr(), w_kv.data_ptr(),
+        w_o.data_ptr(), b_o.data_ptr(), 1.0 / math.sqrt(d), stats.data_ptr(), q.data_ptr(),
+        kv.data_ptr(), attn.data_ptr(), out.data_ptr(), _build.stream(x))
+    cross_attention_block.launches += 1
+    return out
+
+
+cross_attention_block.launches = 0

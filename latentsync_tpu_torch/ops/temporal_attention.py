@@ -23,7 +23,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import dot_product_attention
+from .attention import dot_product_attention_reference
 
 TEMPORAL_FRAMES = 16
 SPATIAL_HEAD_DIMS = (40, 80, 160)
@@ -37,7 +37,7 @@ def temporal_attention_reference(q, k, v, heads: int, scale: Optional[float] = N
     qh = q.reshape(b, f, heads, d)
     kh = k.reshape(b, f, heads, d)
     vh = v.reshape(b, f, heads, d)
-    return dot_product_attention(qh, kh, vh, scale).reshape(b, f, hd)
+    return dot_product_attention_reference(qh, kh, vh, scale).reshape(b, f, hd)
 
 
 def spatial_attention_reference(q, k, v, heads: int, scale: Optional[float] = None):
@@ -45,7 +45,7 @@ def spatial_attention_reference(q, k, v, heads: int, scale: Optional[float] = No
     b, s, hd = q.shape
     d = hd // heads
     scale = 1.0 / math.sqrt(d) if scale is None else scale
-    return dot_product_attention(
+    return dot_product_attention_reference(
         q.reshape(b, s, heads, d), k.reshape(b, s, heads, d),
         v.reshape(b, s, heads, d), scale).reshape(b, s, hd)
 

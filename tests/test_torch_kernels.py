@@ -11,13 +11,15 @@ about two bf16 ulps at the output's top binade (the kernels keep f32
 where the plain versions round to bf16, and sum in another order).
 Shapes are small versions of every mode the serving path uses, with the
 head dims (40, 80, 160) and sequence lengths (16, 64, 256, 1024) of the
-full-width UNet.
+full-width UNet; the kernels of the fused-kernel configuration (cross
+block, GroupNorm) and the VAE's flash attention run at served shapes.
 """
 
 import pytest
 import torch
 
-from latentsync_tpu_torch.ops import attn_block, ffn
+from latentsync_tpu_torch.ops import attention, attn_block, ffn
+from latentsync_tpu_torch.ops import groupnorm as gn
 from latentsync_tpu_torch.ops import temporal_attention as ta
 
 TOL_REL = 2.0**-6
@@ -94,7 +96,73 @@ def test_kernels_read_column_slices_of_a_fused_projection(rand):
 
 
 @pytest.mark.cuda
-def test_cuda_tensors_never_take_the_plain_version(rand):
+@pytest.mark.parametrize("b", [32, 64])  # VAE decode and encode batches
+def test_flash_attention_kernel(rand, b):
+    q, k, v = rand(b, 1024, 1, 512), rand(b, 1024, 1, 512), rand(b, 1024, 1, 512)
+    before = attention.dot_product_attention.launches
+    _check(attention.dot_product_attention(q, k, v),
+           attention.dot_product_attention_reference(q, k, v))
+    assert attention.dot_product_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_plain_attention_cores_launch_no_flash_kernel(rand):
+    """At S = 1024 the plain spatial core's (B, S, heads, D) attention meets
+    the flash route; it must stay plain, or a kernel check would hold one
+    kernel against another."""
+    q, k, v = rand(2, 1024, 320), rand(2, 1024, 320), rand(2, 1024, 320)
+    before = attention.dot_product_attention.launches
+    ta.spatial_attention_reference(q, k, v, 8)
+    ta.temporal_attention_reference(rand(4, 16, 320), rand(4, 16, 320), rand(4, 16, 320), 8)
+    torch.cuda.synchronize()
+    assert attention.dot_product_attention.launches == before
+
+
+def _cross_args(rand, b, s, c):
+    return (rand(b, s, c), 1 + rand(c, s=0.1), rand(c, s=0.1), rand(b, 50, 384),
+            rand(c, c, s=c**-0.5), rand(c, 384, s=384**-0.5), rand(c, 384, s=384**-0.5),
+            rand(c, c, s=c**-0.5), rand(c, s=0.1), 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,c", [(64, 1024, 320), (64, 256, 640)])
+def test_cross_attention_block_kernel(rand, monkeypatch, b, s, c):
+    args = _cross_args(rand, b, s, c)
+    before = attn_block.cross_attention_block.launches
+    monkeypatch.delenv("LATENTSYNC_FUSED_XATTN", raising=False)
+    attn_block.cross_attention_block(*args)  # switch off: the composed torch
+    assert attn_block.cross_attention_block.launches == before
+    monkeypatch.setenv("LATENTSYNC_FUSED_XATTN", "1")
+    _check(attn_block.cross_attention_block(*args),
+           attn_block.cross_attention_block_reference(*args))
+    assert attn_block.cross_attention_block.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,shape,eps,silu", [
+    # served shapes, the kernel the reference's routing gives them
+    (gn.group_norm_silu, (64, 320, 32, 32), 1e-6, False),
+    (gn.group_norm_silu, (4, 1280, 16, 4, 4), 1e-5, True),
+    (gn.group_norm_silu_streaming, (4, 960, 16, 32, 32), 1e-5, True),
+    (gn.group_norm_silu_streaming, (4, 2560, 16, 4, 4), 1e-5, True),
+    # shapes each kernel does not normally get: a large slab in K6, a
+    # small one in K7, and a spatial size that is no multiple of 8
+    (gn.group_norm_silu, (4, 320, 16, 32, 32), 1e-5, True),
+    (gn.group_norm_silu_streaming, (64, 320, 32, 32), 1e-6, False),
+    (gn.group_norm_silu, (3, 64, 5, 7), 1e-5, True),
+    (gn.group_norm_silu_streaming, (3, 64, 5, 7), 1e-5, False),
+])
+def test_group_norm_kernels(rand, fn, shape, eps, silu):
+    c = shape[1]
+    args = (rand(*shape) * 2 + 0.5, 1 + rand(c, s=0.1), rand(c, s=0.1), 32)
+    before = fn.launches
+    _check(fn(*args, eps=eps, silu=silu),
+           gn.group_norm_silu_reference(*args, eps=eps, silu=silu))
+    assert fn.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_never_take_the_plain_version(rand, monkeypatch):
     """An unsupported shape on the card raises; it does not fall back."""
     q = rand(2, 12, 64)  # F = 12: no temporal kernel
     with pytest.raises(ValueError):
@@ -102,3 +170,13 @@ def test_cuda_tensors_never_take_the_plain_version(rand):
     q = rand(2, 64, 320).float()  # the kernels take bf16 only
     with pytest.raises(TypeError):
         ta.spatial_attention(q, q, q, 8)
+    q = rand(2, 256, 8, 40)  # on the flash route, but no flash kernel for D = 40
+    with pytest.raises(ValueError):
+        attention.dot_product_attention(q, q, q)
+    with pytest.raises(TypeError):
+        gn.group_norm_silu(rand(2, 64, 8, 8).float(), rand(64), rand(64), 32)
+    monkeypatch.setenv("LATENTSYNC_FUSED_XATTN", "1")
+    args = list(_cross_args(rand, 2, 64, 320))
+    args[-1] = 16  # d = 20: on the kernel's route, but the kernel has no d = 20
+    with pytest.raises(ValueError):
+        attn_block.cross_attention_block(*args)

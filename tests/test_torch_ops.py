@@ -26,7 +26,9 @@ from latentsync_tpu.ops import temporal_attention as j_ta
 from latentsync_tpu.ops.attention import dot_product_attention as j_dpa
 from latentsync_tpu.ops.ddim import DDIMScheduler as JDDIM
 from latentsync_tpu_torch.ops import attn_block as p_ab
+from latentsync_tpu_torch.ops import attention as p_attn
 from latentsync_tpu_torch.ops import ffn as p_ffn
+from latentsync_tpu_torch.ops import groupnorm as p_gn
 from latentsync_tpu_torch.ops import temporal_attention as p_ta
 from latentsync_tpu_torch.ops.attention import dot_product_attention as p_dpa
 from latentsync_tpu_torch.ops.ddim import DDIMScheduler as PDDIM
@@ -192,16 +194,32 @@ def test_dot_product_attention_matches_jax():
     _close(p_dpa(_t(q), _t(k), _t(v)).numpy(), ref)
 
 
-def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
+def test_cpu_tensors_take_the_plain_versions_and_count_nothing(monkeypatch):
     rng = np.random.default_rng(4)
     counters = (p_ffn.geglu_ffn, p_ab.self_attention_block, p_ta.temporal_attention,
-                p_ta.spatial_attention)
+                p_ta.spatial_attention, p_attn.dot_product_attention,
+                p_ab.cross_attention_block, p_gn.group_norm_silu,
+                p_gn.group_norm_silu_streaming)
     before = [fn.launches for fn in counters]
     q, k, v = _qkv(rng, 2, 16, 16)
     p_ta.temporal_attention(_t(q), _t(k), _t(v), 2)
     p_ta.spatial_attention(_t(q), _t(k), _t(v), 2)
     x, w_up, b_up, w_dn, b_dn, ls, lb = _ffn_inputs(rng, 8, 16)
     _port_ffn(x, w_up, b_up, w_dn, b_dn, ls, lb, True, True)
+    # the new wrappers at shapes their kernels take on the card, with the
+    # fused-kernel switches on
+    monkeypatch.setenv("LATENTSYNC_FUSED_XATTN", "1")
+    monkeypatch.setenv("LATENTSYNC_PALLAS_GN", "1")
+    q, k, v = (_t(a).reshape(2, 256, 1, 16) for a in _qkv(rng, 2, 256, 16))
+    assert p_attn.flash_route(q, k)
+    p_attn.dot_product_attention(q, k, v)
+    xb, ls, lb, ws, bo, _ = _block_inputs(rng, 2, 16, 16)
+    ctx = _t(rng.standard_normal((2, 8, 16)).astype(np.float32))
+    assert p_ab.cross_fused_route(2, 16, 8, 16, 16, 16)
+    p_ab.cross_attention_block(_t(xb), _t(ls), _t(lb), ctx, *(_t(w.T) for w in ws), _t(bo), 2)
+    g = _t(rng.standard_normal((2, 16, 4, 4, 4)).astype(np.float32))
+    p_gn.group_norm_silu(g, torch.ones(16), torch.zeros(16), 4)
+    p_gn.group_norm_silu_streaming(g, torch.ones(16), torch.zeros(16), 4)
     assert [fn.launches for fn in counters] == before
 
 
