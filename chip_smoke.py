@@ -9,21 +9,30 @@ and without CUDA it exits nonzero before doing anything):
 1. print the card's name and power limit; build the CUDA kernels from
    ``latentsync_tpu_torch/csrc`` (one nvcc per source, all at once, sm_90a);
 2. hold every kernel against its plain PyTorch version in bf16 at every
-   shape the serving path gives it, and time both with CUDA events;
+   shape the serving path gives it (K8 at the 15 projection shapes of the
+   int8-dense configuration, printing whether it is bitwise equal), and
+   time both with CUDA events; the int8 convolution route (im2col +
+   ``torch._int_mm``) against its float64 plain version at one UNet shape
+   per width and the VAE's largest ones, with equal int32 accumulators;
 3. the full-width UNet (LatentSync 1.5 stage 2, random seeded non-zero
-   weights), in the default configuration and in the fused-kernel one
-   (``LATENTSYNC_PALLAS_GN=1 LATENTSYNC_FUSED_XATTN=1``): eps is finite,
-   non-zero and depends on the audio, the two configurations agree, and
-   each bf16 GPU forward agrees with the f32 CPU forward of the same
-   weights on a small input; the median of 5 warm batch-4 forwards of
-   each, and the GroupNorm shapes of one fused forward, which must be
-   those phase 2 checked;
+   weights) in four configurations of the reference's switches: default,
+   fused (``LATENTSYNC_PALLAS_GN=1 LATENTSYNC_FUSED_XATTN=1``), int8
+   (``LATENTSYNC_INT8=1``) and int8-dense (``LATENTSYNC_INT8=1
+   LATENTSYNC_INT8_DENSE=pallas``): eps is finite, non-zero and depends on
+   the audio, each agrees with the default, and each bf16 GPU forward
+   agrees with the f32 CPU forward of the same weights and configuration
+   on a small input; the median of 5 warm batch-4 forwards of each, the
+   GroupNorm shapes of one fused forward and the K8 shapes of one
+   int8-dense forward, which must be those phase 2 checked;
 4. serve three requests through the port's HTTP server at full width
    (synthetic 576² avatar, 1.2 s and 2.4 s of audio, 20 DDIM steps, CFG
    1.5) in the default configuration, check the output frame counts and
-   that every kernel of that path ran (and no kernel of the fused one);
+   that every kernel of that path ran (and no kernel of another);
 5. serve two requests (1.2 s and 2.4 s) in the fused-kernel
-   configuration, with the same checks over all eight kernels.
+   configuration, with the same checks;
+6. serve the same two requests in the int8 and in the int8-dense
+   configuration, with the same checks (int8-dense runs K8, the int8
+   convolutions and the K3/K4/flash cores, and no K1/K2/K5).
 
 The line before the last is a JSON object with each kernel's launches on
 its served path, its largest error against the plain version and both
@@ -52,9 +61,27 @@ TOL_REL = 2.0**-6
 # full-width UNet, bf16 GPU vs f32 CPU, and fused vs default
 # configuration: relative L2 error of eps
 UNET_TOL = 5e-2
-# the JAX package's opt-in kernel switches; on together they make the
-# fused-kernel configuration of the same served model
-SWITCHES = ("LATENTSYNC_PALLAS_GN", "LATENTSYNC_FUSED_XATTN")
+# int8 configurations: eps against the default's (quantization error; the
+# reference's own tests allow 0.10-0.12 mean-relative at toy size), and the
+# bf16 GPU forward against the f32 CPU forward of the same configuration
+INT8_TOL = 0.25
+INT8_CPU_TOL = 0.10
+# the reference's switches, by configuration of the same served model
+CONFIGS = {
+    "default": {},
+    "fused": {"LATENTSYNC_PALLAS_GN": "1", "LATENTSYNC_FUSED_XATTN": "1"},
+    "int8": {"LATENTSYNC_INT8": "1"},
+    "int8-dense": {"LATENTSYNC_INT8": "1", "LATENTSYNC_INT8_DENSE": "pallas"},
+}
+SWITCHES = sorted({k for env in CONFIGS.values() for k in env})
+# (M, K, N) of every K8 launch of one int8-dense forward at batch 4, 16
+# frames, 32² latents: the q/k/v/out, GEGLU up and down projections of the
+# spatial and temporal blocks at each level, and the audio context's k/v
+QMM_SHAPES = [(65536, 320, 2560), (65536, 320, 320), (65536, 1280, 320),
+              (16384, 640, 640), (16384, 640, 5120), (16384, 2560, 640),
+              (4096, 1280, 1280), (4096, 1280, 10240), (4096, 5120, 1280),
+              (1024, 1280, 1280), (1024, 1280, 10240), (1024, 5120, 1280),
+              (3200, 384, 320), (3200, 384, 640), (3200, 384, 1280)]
 # (N, C, *spatial), eps, SiLU of every GroupNorm of the served UNet at
 # batch 4 (2 windows × CFG 2), 16 frames, 32² latents, by the kernel the
 # reference's routing gives it: per-frame transformer/motion norms and
@@ -62,6 +89,16 @@ SWITCHES = ("LATENTSYNC_PALLAS_GN", "LATENTSYNC_FUSED_XATTN")
 GN_SINGLE = [((64, 320, 32, 32), 1e-6, False), ((64, 640, 16, 16), 1e-6, False),
              ((64, 1280, 8, 8), 1e-6, False), ((64, 1280, 4, 4), 1e-6, False),
              ((4, 1280, 16, 4, 4), 1e-5, True)]
+# the counted kernels (and the int8 convolution route) that each
+# configuration's served path must launch; every other counted one must not
+_CORES = {"temporal_attention", "spatial_attention", "dot_product_attention"}
+ON_PATH = {
+    "default": _CORES | {"geglu_ffn", "self_attention_block"},
+    "fused": _CORES | {"geglu_ffn", "self_attention_block", "cross_attention_block",
+                       "group_norm_silu", "group_norm_silu_streaming"},
+    "int8": _CORES | {"geglu_ffn", "self_attention_block", "conv_acc"},
+    "int8-dense": _CORES | {"quantized_matmul", "conv_acc"},
+}
 GN_STREAMING = [((4, c, 16, 32, 32), 1e-5, True) for c in (960, 640, 320)] \
     + [((4, c, 16, 16, 16), 1e-5, True) for c in (1920, 1280, 960, 640, 320)] \
     + [((4, c, 16, 8, 8), 1e-5, True) for c in (2560, 1920, 1280, 640)] \
@@ -80,17 +117,17 @@ def gpu_line() -> str:
 
 
 @contextlib.contextmanager
-def fused_config():
-    """Both switches on for the duration (the port reads them at each call)."""
-    old = {k: os.environ.get(k) for k in SWITCHES}
-    os.environ.update({k: "1" for k in SWITCHES})
+def configured(conf: str):
+    """The switches of configuration `conf`, and no other, for the duration
+    (the port reads them at each call)."""
+    old = {k: os.environ.pop(k, None) for k in SWITCHES}
+    os.environ.update(CONFIGS[conf])
     try:
         yield
     finally:
         for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
+            os.environ.pop(k, None)
+            if v is not None:
                 os.environ[k] = v
 
 
@@ -118,8 +155,10 @@ def kernel_cases():
     with the shapes of the served path: window batch 2 × CFG 2 → B = 4
     sequences of 16 frames, 32² latents, channels 320/640/1280, 8 heads;
     the VAE encodes up to 64 faces and decodes 32 frames at a time. The
-    largest shape of each kernel comes first."""
+    first shape of each kernel is the one whose times the JSON line
+    reports."""
     from latentsync_tpu_torch.ops import attention, attn_block, ffn, groupnorm as gn
+    from latentsync_tpu_torch.ops import qmm
     from latentsync_tpu_torch.ops import temporal_attention as ta
 
     def ffn_args(m, c):
@@ -153,6 +192,11 @@ def kernel_cases():
                      r(c, c, s=c**-0.5), r(c, s=0.1), 8), {})
         return f"B={b} S={s} C={c} Sk=50 Cc=384", make
 
+    def qmm_args(m, k, n):
+        def make(r):
+            return (r(m, k), r(n, k, s=k**-0.5), r(n, s=0.1)), {}
+        return f"M={m} K={k} N={n}", make
+
     def gn_args(shape, eps, silu):
         def make(r):
             c = shape[1]
@@ -173,11 +217,14 @@ def kernel_cases():
         ("temporal_attention", ta.temporal_attention, ta.temporal_attention_reference,
          "latentsync_tpu_torch/csrc/temporal_attention.cu",
          "latentsync_tpu/ops/temporal_attention.py:47",
-         [attn_args(256, 16, 1280), attn_args(64, 16, 1280)]),
+         [attn_args(256, 16, 1280), attn_args(64, 16, 1280),
+          # the composed blocks of int8-dense at C = 320 and 640
+          attn_args(4096, 16, 320), attn_args(1024, 16, 640)]),
         ("spatial_attention", ta.spatial_attention, ta.spatial_attention_reference,
          "latentsync_tpu_torch/csrc/spatial_attention.cu",
          "latentsync_tpu/ops/temporal_attention.py:173",
-         [attn_args(64, 1024, 320), attn_args(64, 64, 1280), attn_args(64, 16, 1280)]),
+         [attn_args(64, 1024, 320), attn_args(64, 64, 1280), attn_args(64, 16, 1280),
+          attn_args(64, 256, 640)]),  # int8-dense's spatial block at C = 640
         ("dot_product_attention", attention.dot_product_attention,
          attention.dot_product_attention_reference,
          "latentsync_tpu_torch/csrc/flash_attention.cu", "latentsync_tpu/ops/attention.py:85",
@@ -193,6 +240,9 @@ def kernel_cases():
          gn.group_norm_silu_reference,
          "latentsync_tpu_torch/csrc/groupnorm.cu", "latentsync_tpu/ops/groupnorm.py:107",
          [gn_args(*a) for a in GN_STREAMING]),
+        ("quantized_matmul", qmm.quantized_matmul, qmm.quantized_matmul_reference,
+         "latentsync_tpu_torch/csrc/qmm.cu", "latentsync_tpu/ops/qmm.py:41",
+         [qmm_args(*a) for a in QMM_SHAPES]),
     ]
 
 
@@ -211,7 +261,7 @@ def check_kernels(device):
                  "shape": shapes[0][0]}
         for i, (label, make) in enumerate(shapes):
             args, kw = make(r)
-            with fused_config():  # the cross block launches its kernel only so
+            with configured("fused"):  # the cross block launches its kernel only so
                 before = wrapper.launches
                 got = wrapper(*args, **kw)
                 ref = plain(*args, **kw)
@@ -220,6 +270,7 @@ def check_kernels(device):
                 err = float((got.float() - ref.float()).abs().max())
                 tol = TOL_REL * max(1.0, float(ref.float().abs().max()))
                 finite = bool(torch.isfinite(got).all())
+                bitwise = bool(torch.equal(got, ref))
                 ms = cuda_ms(lambda: wrapper(*args, **kw))
                 plain_ms = cuda_ms(lambda: plain(*args, **kw))
             good = launched and finite and err <= tol
@@ -228,11 +279,58 @@ def check_kernels(device):
             if i == 0:
                 entry["ms"], entry["plain_ms"] = ms, plain_ms
             log(f"kernel {name:22s} {label:28s} max_abs_err={err:.6g} tol={tol:.6g} "
-                f"ms={ms:.4f} plain_ms={plain_ms:.4f} {'ok' if good else 'FAIL'}")
+                f"bitwise={bitwise} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"{'ok' if good else 'FAIL'}")
             del args, kw, got, ref
         results.append(entry)
     torch.cuda.empty_cache()
     return results, ok
+
+
+def check_int8_conv(device) -> bool:
+    """The int8 convolution route (im2col + ``torch._int_mm``) against its
+    float64 plain version: equal int32 accumulators, at one UNet shape per
+    width (64 frames; conv_in has K = 117, padded) and the VAE's 256² × 128
+    convolution and decoder conv_out at the frames of one of the route's
+    chunks; then the whole int8 convolution (quantization and dequant
+    included) against the float bf16 convolution it replaces."""
+    import torch
+    import torch.nn.functional as F
+
+    from latentsync_tpu_torch.ops import qconv
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    ok = True
+    # (label, frames, Cin, H, Cout, frames timed)
+    cases = [("UNet conv_in", 64, 13, 32, 320, 64), ("UNet 32² C=320", 64, 320, 32, 320, 64),
+             ("UNet 16² C=640", 64, 640, 16, 640, 64), ("UNet 8² C=1280", 64, 1280, 8, 1280, 64),
+             ("VAE 256² C=128", None, 128, 256, 128, 32),
+             ("VAE decoder conv_out", None, 128, 256, 3, 32)]
+    for label, n, cin, hw, cout, n_timed in cases:
+        n = n or qconv.chunk_frames(hw, hw, cin * 9, cout)
+        xq = torch.randint(-127, 128, (n, cin, hw, hw), generator=gen, device=device,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (cout, cin, 3, 3), generator=gen, device=device,
+                           dtype=torch.int8)
+        acc = qconv.conv_acc(xq, wq, (1, 1), (1, 1))
+        equal = bool(torch.equal(acc, qconv.conv_acc_reference(xq, wq, (1, 1), (1, 1))))
+        del xq, acc
+        x = torch.randn((n_timed, cin, hw, hw), generator=gen, device=device).to(torch.bfloat16)
+        w = (torch.randn((cout, cin, 3, 3), generator=gen, device=device)
+             * (cin * 9) ** -0.5).to(torch.bfloat16)
+        b = (0.1 * torch.randn(cout, generator=gen, device=device)).to(torch.bfloat16)
+        y = qconv.quantized_conv2d(x, w, b, (1, 1), (1, 1))
+        y_float = F.conv2d(x, w, b, 1, 1)
+        rel = float((y.float() - y_float.float()).norm() / y_float.float().norm())
+        ms = cuda_ms(lambda: qconv.quantized_conv2d(x, w, b, (1, 1), (1, 1)), iters=5)
+        float_ms = cuda_ms(lambda: F.conv2d(x, w, b, 1, 1), iters=5)
+        ok &= equal
+        log(f"int8 conv {label:22s} acc ({n}, {cin}, {hw}, {hw})→{cout}: equal_int32={equal}; "
+            f"({n_timed} frames) ms={ms:.4f} float_bf16_ms={float_ms:.4f} "
+            f"rel_l2_vs_float={rel:.4g} {'ok' if equal else 'FAIL'}")
+        del x, y, y_float
+    torch.cuda.empty_cache()
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -255,8 +353,8 @@ def check_unet(unet, device) -> bool:
         xb, ab = x.to(device, torch.bfloat16), audio.to(device, torch.bfloat16)
         xs, as_, ts = x[:1, :, :, :8, :8], audio[:1], t[:1]
         eps, small = {}, {}
-        for conf, ctx in (("default", contextlib.nullcontext), ("fused", fused_config)):
-            with ctx():
+        for conf in CONFIGS:
+            with configured(conf):
                 e = unet(xb, t.to(device), ab).float()
                 e0 = unet(xb, t.to(device), torch.zeros_like(ab)).float()
                 small[conf] = unet(xs.to(device, torch.bfloat16), ts.to(device),
@@ -271,38 +369,45 @@ def check_unet(unet, device) -> bool:
             ok &= good
             log(f"unet {conf} eps (2, 4, 16, 32, 32): finite={finite} mean|eps|={mag:.6g} "
                 f"|eps(audio)-eps(0)|/|eps|={dep:.6g} {'ok' if good else 'FAIL'}")
-        rel = float((eps["fused"] - eps["default"]).norm() / eps["default"].norm())
-        good = rel <= UNET_TOL
-        ok &= good
-        log(f"unet fused vs default eps (2, 4, 16, 32, 32): rel_l2={rel:.6g} tol={UNET_TOL} "
-            f"{'ok' if good else 'FAIL'}")
+            if conf != "default":
+                tol = INT8_TOL if conf.startswith("int8") else UNET_TOL
+                rel = float((e - eps["default"]).norm() / eps["default"].norm())
+                good = rel <= tol
+                ok &= good
+                log(f"unet {conf} vs default eps (2, 4, 16, 32, 32): rel_l2={rel:.6g} "
+                    f"tol={tol} {'ok' if good else 'FAIL'}")
+            del e0
 
         # the same weights in f32 on the CPU run the plain versions
         ref_model = UNet3DConditionModel(cfg)
         ref_model.load_state_dict({k: v.float().cpu() for k, v in unet.state_dict().items()})
-        t0 = time.time()
-        ref = ref_model.eval()(xs, ts, as_)
-        cpu_s = time.time() - t0
+        ref_model.eval()
         for conf, got in small.items():
+            t0 = time.time()
+            with configured("default" if conf == "fused" else conf):
+                ref = ref_model(xs, ts, as_)
+            cpu_s = time.time() - t0
+            tol = INT8_CPU_TOL if conf.startswith("int8") else UNET_TOL
             rel = float((got - ref).norm() / ref.norm())
-            good = bool(torch.isfinite(got).all()) and rel <= UNET_TOL
+            good = bool(torch.isfinite(got).all()) and rel <= tol
             ok &= good
             log(f"unet {conf} bf16 GPU vs f32 CPU (1, 13, 16, 8, 8): rel_l2={rel:.6g} "
-                f"tol={UNET_TOL} cpu_s={cpu_s:.1f} {'ok' if good else 'FAIL'}")
+                f"tol={tol} cpu_s={cpu_s:.1f} {'ok' if good else 'FAIL'}")
         del ref_model
     return ok
 
 
 def time_forwards(unet, device) -> bool:
     """Median of 5 warm forwards at the served batch 4 in each
-    configuration; the GroupNorm shapes one fused forward gives each
-    kernel must be the ones phase 2 checked."""
+    configuration; the GroupNorm shapes of one fused forward and the K8
+    shapes of one int8-dense forward must be the ones phase 2 checked."""
     import statistics
 
     import torch
 
     from latentsync_tpu_torch.models import unet3d
     from latentsync_tpu_torch.ops import groupnorm as gn
+    from latentsync_tpu_torch.ops import qconv
 
     gen = torch.Generator().manual_seed(SEED + 4)
     cfg = unet.config
@@ -311,22 +416,30 @@ def time_forwards(unet, device) -> bool:
         device, torch.bfloat16)
     t = torch.full((4,), 501, device=device)
     seen = {"single": set(), "streaming": set(), None: set()}
-    auto = unet3d.group_norm_silu_auto
+    seen_qmm = set()
+    auto, qmm_fn = unet3d.group_norm_silu_auto, qconv.quantized_matmul
 
-    def spy(x, scale, bias, groups, eps=1e-5, silu=True):
+    def gn_spy(x, scale, bias, groups, eps=1e-5, silu=True):
         route = gn.gn_route(math.prod(x.shape[2:]), x.shape[1])
         seen[route].add((tuple(x.shape), eps, silu))
         return auto(x, scale, bias, groups, eps, silu)
 
+    def qmm_spy(x2d, w, bias=None):
+        seen_qmm.add((*x2d.shape, w.shape[0]))
+        return qmm_fn(x2d, w, bias)
+
     with torch.inference_mode():
-        for conf, ctx in (("default", contextlib.nullcontext), ("fused", fused_config)):
-            with ctx():
-                if conf == "fused":
-                    unet3d.group_norm_silu_auto = spy
+        for conf in CONFIGS:
+            with configured(conf):
+                unet3d.group_norm_silu_auto, qconv.quantized_matmul = gn_spy, qmm_spy
                 try:
                     unet(x, t, audio)
                 finally:
-                    unet3d.group_norm_silu_auto = auto
+                    unet3d.group_norm_silu_auto, qconv.quantized_matmul = auto, qmm_fn
+                if conf != "int8-dense":
+                    assert not seen_qmm, "K8 ran outside the int8-dense configuration"
+                if conf != "fused":
+                    assert not any(seen.values()), "a GroupNorm kernel ran outside 'fused'"
                 times = []
                 for _ in range(5):
                     torch.cuda.synchronize()
@@ -336,12 +449,20 @@ def time_forwards(unet, device) -> bool:
                     times.append((time.perf_counter() - t0) * 1e3)
             log(f"unet forward batch 4 ({conf}): median_ms={statistics.median(times):.3f} "
                 f"all_ms={[round(v, 3) for v in times]}")
+            if conf == "fused":
+                fused_seen = {k: set(v) for k, v in seen.items()}
+                for v in seen.values():
+                    v.clear()
     ok = True
     for route, want in (("single", GN_SINGLE), ("streaming", GN_STREAMING), (None, [])):
-        good = seen[route] == set(want)
+        good = fused_seen[route] == set(want)
         ok &= good
-        log(f"GroupNorm shapes of one fused forward, {route}: {sorted(seen[route])} "
+        log(f"GroupNorm shapes of one fused forward, {route}: {sorted(fused_seen[route])} "
             f"{'ok (as phase 2)' if good else 'FAIL (phase 2 checked ' + str(sorted(want)) + ')'}")
+    good = seen_qmm == set(QMM_SHAPES)
+    ok &= good
+    log(f"K8 shapes (M, K, N) of one int8-dense forward: {sorted(seen_qmm)} "
+        f"{'ok (as phase 2)' if good else 'FAIL (phase 2 checked ' + str(sorted(QMM_SHAPES)) + ')'}")
     return ok
 
 
@@ -383,10 +504,10 @@ def make_avatar(root: str, n_frames: int = 40, size: int = 576, crop_at: int = 3
     return audios
 
 
-def serve_requests(pipeline, root: str, audios, plan, counters, fused: set):
-    """Serve `plan` [(seconds of audio, frames wanted)] with every count at
-    0 first; each kernel must launch, except those named in `fused` when
-    the fused-kernel configuration is off, which must not."""
+def serve_requests(pipeline, root: str, audios, plan, counters, conf: str):
+    """Serve `plan` [(seconds of audio, frames wanted)] in configuration
+    `conf` with every count at 0 first; the kernels of that configuration
+    (``ON_PATH``) must launch, and every other counted one must not."""
     import torch
 
     from latentsync_tpu_torch.serving.api import ServingState, make_handler
@@ -394,7 +515,6 @@ def serve_requests(pipeline, root: str, audios, plan, counters, fused: set):
     from latentsync_tpu_torch.utils.media import read_video
     from http.server import ThreadingHTTPServer
 
-    fused_on = all(os.environ.get(k) == "1" for k in SWITCHES)
     state = ServingState(pipeline, AvatarStore(root), os.path.join(root, "out"))
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -404,24 +524,9 @@ def serve_requests(pipeline, root: str, audios, plan, counters, fused: set):
     try:
         for fn in counters:
             fn.launches = 0
-        for sec, _ in plan:
-            body = json.dumps({"avatar_id": "avatar", "audio_path": audios[sec]}).encode()
-            req = urllib.request.Request(base + "/process", data=body, method="POST",
-                                         headers={"Content-Type": "application/json"})
-            with urllib.request.urlopen(req, timeout=60) as resp:
-                jobs.append((json.loads(resp.read())["job_id"], time.time()))
-        done = {}
-        deadline = time.time() + 900
-        while len(done) < len(jobs) and time.time() < deadline:
-            for job_id, t_sub in jobs:
-                if job_id in done:
-                    continue
-                with urllib.request.urlopen(f"{base}/jobs/{job_id}", timeout=60) as resp:
-                    job = json.loads(resp.read())
-                if job["status"] in ("completed", "failed"):
-                    job["latency_s"] = time.time() - t_sub
-                    done[job_id] = job
-            time.sleep(0.2)
+        with configured(conf):
+            jobs = submit_all(base, audios, plan)
+            done = wait_all(base, jobs)
         torch.cuda.synchronize()
         launches = {fn.__name__: fn.launches for fn in counters}
         for (job_id, _), (sec, want) in zip(jobs, plan):
@@ -431,8 +536,8 @@ def serve_requests(pipeline, root: str, audios, plan, counters, fused: set):
                 frames = read_video(job["output"], change_fps=False).shape[0]
             good = job["status"] == "completed" and job.get("num_frames") == want == frames
             ok &= good
-            log(f"request audio={sec}s status={job['status']} frames={frames} (want {want}) "
-                f"latency_s={job.get('latency_s', float('nan')):.3f} "
+            log(f"request ({conf}) audio={sec}s status={job['status']} frames={frames} "
+                f"(want {want}) latency_s={job.get('latency_s', float('nan')):.3f} "
                 f"worker_s={job.get('elapsed', float('nan')):.3f} "
                 f"stages={json.dumps(job.get('timings', {}), sort_keys=True)} "
                 f"{'ok' if good else 'FAIL ' + str(job.get('error', ''))}")
@@ -441,14 +546,40 @@ def serve_requests(pipeline, root: str, audios, plan, counters, fused: set):
         server.server_close()
         state.shutdown()
         thread.join(timeout=30)
-    conf = "fused" if fused_on else "default"
     for name, n in launches.items():
-        want_some = fused_on or name not in fused
+        want_some = name in ON_PATH[conf]
         good = n > 0 if want_some else n == 0
         ok &= good
         log(f"launches on the served path ({conf}): {name}={n} "
             f"{'ok' if good else 'FAIL'}{'' if want_some else ' (must be 0)'}")
     return launches, ok
+
+
+def submit_all(base: str, audios, plan):
+    jobs = []
+    for sec, _ in plan:
+        body = json.dumps({"avatar_id": "avatar", "audio_path": audios[sec]}).encode()
+        req = urllib.request.Request(base + "/process", data=body, method="POST",
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            jobs.append((json.loads(resp.read())["job_id"], time.time()))
+    return jobs
+
+
+def wait_all(base: str, jobs, timeout_s: float = 900):
+    done = {}
+    deadline = time.time() + timeout_s
+    while len(done) < len(jobs) and time.time() < deadline:
+        for job_id, t_sub in jobs:
+            if job_id in done:
+                continue
+            with urllib.request.urlopen(f"{base}/jobs/{job_id}", timeout=60) as resp:
+                job = json.loads(resp.read())
+            if job["status"] in ("completed", "failed"):
+                job["latency_s"] = time.time() - t_sub
+                done[job_id] = job
+        time.sleep(0.2)
+    return done
 
 
 def main() -> int:
@@ -463,7 +594,7 @@ def main() -> int:
         return 2
     try:
         from latentsync_tpu_torch.config import LatentSyncConfig
-        from latentsync_tpu_torch.ops import _build, attention, attn_block, ffn
+        from latentsync_tpu_torch.ops import _build, attention, attn_block, ffn, qconv, qmm
         from latentsync_tpu_torch.ops import groupnorm as gn
         from latentsync_tpu_torch.ops import temporal_attention as ta
     except ImportError as e:
@@ -483,17 +614,22 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
 
+    # the int8 convolution route (conv_acc, torch._int_mm) is counted
+    # beside the kernels, though it is no kernel of this repository
     counters = [ffn.geglu_ffn, attn_block.self_attention_block, ta.temporal_attention,
                 ta.spatial_attention, attention.dot_product_attention,
                 attn_block.cross_attention_block, gn.group_norm_silu,
-                gn.group_norm_silu_streaming]
-    fused_only = {"cross_attention_block", "group_norm_silu", "group_norm_silu_streaming"}
+                gn.group_norm_silu_streaming, qmm.quantized_matmul, qconv.conv_acc]
     ok = True
     phase = "kernels"
     try:
         kernels, good = check_kernels(device)
         ok &= good
         log(f"phase 2 (kernels vs plain versions): {'ok' if good else 'FAIL'}")
+        phase = "int8 convolution"
+        good = check_int8_conv(device)
+        ok &= good
+        log(f"phase 2 (int8 convolution route vs plain version): {'ok' if good else 'FAIL'}")
 
         phase = "unet"
         from latentsync_tpu_torch.audio.features import Audio2Feature
@@ -513,35 +649,30 @@ def main() -> int:
         good = check_unet(unet.eval(), device)
         good &= time_forwards(unet, device)
         ok &= good
-        log(f"phase 3 (full-width UNet, both configurations): {'ok' if good else 'FAIL'}")
+        log(f"phase 3 (full-width UNet, four configurations): {'ok' if good else 'FAIL'}")
 
         phase = "serving"
         pipeline = LipsyncPipeline(unet, vae, Audio2Feature(whisper), cfg,
                                    dtype=torch.bfloat16, device=device)
+        launches = {}
         with tempfile.TemporaryDirectory() as root:
             audios = make_avatar(root)
             # 1.2 s of audio → 31 frames → 2 windows of 16; 2.4 s → 4 windows
-            torch.cuda.reset_peak_memory_stats()
-            launches, good = serve_requests(pipeline, root, audios,
-                                            [(1.2, 32), (2.4, 64), (1.2, 32)], counters,
-                                            fused_only)
-            ok &= good
-            log(f"phase 4 (served path, default configuration, peak device memory "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB): "
-                f"{'ok' if good else 'FAIL'}")
-            phase = "serving (fused)"
-            torch.cuda.reset_peak_memory_stats()
-            with fused_config():
-                launches_f, good = serve_requests(pipeline, root, audios,
-                                                  [(1.2, 32), (2.4, 64)], counters, fused_only)
-            ok &= good
-            log(f"phase 5 (served path, fused-kernel configuration, peak device memory "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB): "
-                f"{'ok' if good else 'FAIL'}")
+            for number, conf, plan in ((4, "default", [(1.2, 32), (2.4, 64), (1.2, 32)]),
+                                       (5, "fused", [(1.2, 32), (2.4, 64)]),
+                                       (6, "int8", [(1.2, 32), (2.4, 64)]),
+                                       (6, "int8-dense", [(1.2, 32), (2.4, 64)])):
+                phase = f"serving ({conf})"
+                torch.cuda.reset_peak_memory_stats()
+                launches[conf], good = serve_requests(pipeline, root, audios, plan, counters,
+                                                      conf)
+                ok &= good
+                log(f"phase {number} (served path, {conf} configuration, peak device memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB): "
+                    f"{'ok' if good else 'FAIL'}")
         for k in kernels:
-            fused = k["name"] in fused_only
-            k["path"] = "fused" if fused else "default"
-            k["launches"] = (launches_f if fused else launches).get(k["name"], 0)
+            k["path"] = next(conf for conf in CONFIGS if k["name"] in ON_PATH[conf])
+            k["launches"] = launches[k["path"]][k["name"]]
     except Exception:  # noqa: BLE001 — report the phase, then fail
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} raised", file=sys.stderr)

@@ -1,7 +1,7 @@
 """Audio-conditioned 3D UNet (LatentSync stage 2) in torch.
 
 Counterpart of ``latentsync_tpu/models/unet3d.py`` ``UNet3DConditionModel``
-(no DeepCache, no int8). Layout is torch's (B, C, F, H, W); parameter
+(no DeepCache). Layout is torch's (B, C, F, H, W); parameter
 names follow the upstream checkpoint, so ``state_dict()`` is the upstream
 key layout that ``latentsync_tpu.utils.convert.convert_unet`` reads.
 
@@ -17,10 +17,22 @@ through ``gn_silu`` to the GroupNorm kernels of ``ops.groupnorm`` (the
 parameters stay nn.GroupNorm's), and ``LATENTSYNC_FUSED_XATTN=1`` turns
 on the fused audio cross-attention kernel (``ops.attn_block``). Both are
 off by default.
+
+The reference's int8 switches configure it too (``ops.qconv``):
+``LATENTSYNC_INT8=1`` runs every convolution the reference routes through
+``QConv`` (``InflatedConv2d``: conv_in/out, the resnets' convs and 1×1
+shortcuts, the samplers) as the int8 convolution over the frame-folded
+batch; the transformers' 1×1 proj_in/out, the motion modules' proj_in/out
+and the time embeddings stay float, as there. Under
+``LATENTSYNC_INT8_DENSE`` (or ``LATENTSYNC_FUSED_ATTN=0`` /
+``LATENTSYNC_FUSED_FFN=0``) the transformer and motion blocks run the
+reference's composed forms, every projection through ``dense_with_params``
+(K8 under ``LATENTSYNC_INT8_DENSE=pallas``) around the K3/K4 cores.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Optional
@@ -31,9 +43,16 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import MotionModuleConfig, UNet3DConfig
-from ..ops.attn_block import cross_attention_block, self_attention_block
-from ..ops.ffn import geglu_ffn
+from ..ops.attn_block import (
+    cross_attention_block,
+    cross_attention_composed,
+    fused_attn_block_enabled,
+    self_attention_block,
+    self_attention_composed,
+)
+from ..ops.ffn import fused_ffn_enabled, geglu_ffn, geglu_ffn_composed
 from ..ops.groupnorm import group_norm_silu_auto
+from ..ops.qconv import QConv2d, dense_with_params, int8_dense_enabled
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
@@ -89,8 +108,16 @@ def _unfold(x: torch.Tensor, b: int) -> torch.Tensor:
     return x.reshape(b, bf // b, c, h, w).permute(0, 2, 1, 3, 4)
 
 
-class InflatedConv2d(nn.Conv2d):
-    """2D conv applied per frame on (B, C, F, H, W)."""
+def _fused_blocks() -> bool:
+    """The reference's routing of the attention blocks (``unet3d.py:396``,
+    ``:412``, ``:528``): the fused ops unless ``LATENTSYNC_FUSED_ATTN=0`` or
+    an int8 dense mode is on."""
+    return fused_attn_block_enabled() and not int8_dense_enabled()
+
+
+class InflatedConv2d(QConv2d):
+    """2D conv applied per frame on (B, C, F, H, W) (the int8 convolution
+    under ``LATENTSYNC_INT8=1``, with per-frame scales)."""
 
     def forward(self, x):
         return _unfold(super().forward(_fold(x)), x.shape[0])
@@ -150,11 +177,14 @@ class FeedForward(nn.Module):
                                   nn.Linear(dim * 4, dim)])
 
     def forward(self, x, norm: nn.LayerNorm):
-        """x + FF(LN(x)), one fused op."""
+        """x + FF(LN(x)): one fused op, or the reference's composition."""
         up, down = self.net[0].proj, self.net[2]
-        return geglu_ffn(x, up.weight, up.bias, down.weight, down.bias,
-                         ln_scale=norm.weight, ln_bias=norm.bias, residual=True,
-                         eps=norm.eps)
+        if fused_ffn_enabled() and not int8_dense_enabled():
+            return geglu_ffn(x, up.weight, up.bias, down.weight, down.bias,
+                             ln_scale=norm.weight, ln_bias=norm.bias, residual=True,
+                             eps=norm.eps)
+        return geglu_ffn_composed(x, up.weight, up.bias, down.weight, down.bias, norm.weight,
+                                  norm.bias, norm.eps, dense=dense_with_params)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -173,11 +203,15 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
 
     def forward(self, x, audio=None):
-        x = self_attention_block(x, self.norm1.weight, self.norm1.bias,
-                                 *self.attn1.weights(), self.heads)
+        if _fused_blocks():
+            self_attn, cross_attn = self_attention_block, cross_attention_block
+        else:
+            self_attn = functools.partial(self_attention_composed, dense=dense_with_params)
+            cross_attn = functools.partial(cross_attention_composed, dense=dense_with_params)
+        x = self_attn(x, self.norm1.weight, self.norm1.bias, *self.attn1.weights(), self.heads)
         if self.add_audio_layer and audio is not None:
-            x = cross_attention_block(x, self.norm2.weight, self.norm2.bias, audio,
-                                      *self.attn2.weights(), self.heads)
+            x = cross_attn(x, self.norm2.weight, self.norm2.bias, audio, *self.attn2.weights(),
+                           self.heads)
         return self.ff(x, self.norm3)
 
 
@@ -222,9 +256,11 @@ class TemporalTransformerBlock(nn.Module):
         self.ff_norm = nn.LayerNorm(dim, eps=1e-6)
 
     def forward(self, h, pe):
+        block = self_attention_block if _fused_blocks() else functools.partial(
+            self_attention_composed, dense=dense_with_params)
         for attn, norm in zip(self.attention_blocks, self.norms):
-            h = self_attention_block(h, norm.weight, norm.bias, *attn.weights(),
-                                     self.heads, temporal=True, pe=pe)
+            h = block(h, norm.weight, norm.bias, *attn.weights(), self.heads, temporal=True,
+                      pe=pe)
         return self.ff(h, self.ff_norm)
 
 

@@ -10,7 +10,11 @@ The mid-block attention (S = 1024 at 256² faces, one head, D = 512)
 goes through the routed ``ops.attention.dot_product_attention``, which
 launches the flash kernel on the card. The GroupNorms stay plain
 ``group_norm`` whatever ``LATENTSYNC_PALLAS_GN`` says: the reference's
-VAE never reads that switch.
+VAE never reads that switch. Under ``LATENTSYNC_INT8=1`` exactly the
+reference's ``QConv`` set runs as the int8 convolution (``QConv2d``): the
+resnets' conv1/conv2, the samplers, and the encoder's and decoder's
+conv_in/conv_out; the 1×1 shortcuts, quant_conv, post_quant_conv and the
+attention projections stay float, as there.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch.nn.functional as F
 
 from ..config import VAEConfig
 from ..ops.attention import dot_product_attention
+from ..ops.qconv import QConv2d
 from .unet3d import group_norm
 
 
@@ -28,9 +33,9 @@ class ResnetBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, groups: int):
         super().__init__()
         self.norm1 = nn.GroupNorm(groups, in_ch, eps=1e-6)
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.conv1 = QConv2d(in_ch, out_ch, 3, padding=1)
         self.norm2 = nn.GroupNorm(groups, out_ch, eps=1e-6)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv2 = QConv2d(out_ch, out_ch, 3, padding=1)
         self.conv_shortcut = nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
     def forward(self, x):
@@ -63,7 +68,7 @@ class AttnBlock(nn.Module):
 class _Sampler(nn.Module):
     def __init__(self, ch: int, stride: int):
         super().__init__()
-        self.conv = nn.Conv2d(ch, ch, 3, stride=stride, padding=0 if stride == 2 else 1)
+        self.conv = QConv2d(ch, ch, 3, stride=stride, padding=0 if stride == 2 else 1)
 
 
 def _mid(ch: int, groups: int) -> nn.Module:
@@ -88,7 +93,7 @@ class AutoencoderKL(nn.Module):
         lat = cfg.latent_channels
 
         enc = nn.Module()
-        enc.conv_in = nn.Conv2d(cfg.in_channels, chs[0], 3, padding=1)
+        enc.conv_in = QConv2d(cfg.in_channels, chs[0], 3, padding=1)
         enc.down_blocks = nn.ModuleList()
         ch = chs[0]
         for i, co in enumerate(chs):
@@ -101,12 +106,12 @@ class AutoencoderKL(nn.Module):
             ch = co
         enc.mid_block = _mid(ch, g)
         enc.conv_norm_out = nn.GroupNorm(g, ch, eps=1e-6)
-        enc.conv_out = nn.Conv2d(ch, 2 * lat, 3, padding=1)
+        enc.conv_out = QConv2d(ch, 2 * lat, 3, padding=1)
         self.encoder = enc
 
         dec = nn.Module()
         rev = list(reversed(chs))
-        dec.conv_in = nn.Conv2d(lat, rev[0], 3, padding=1)
+        dec.conv_in = QConv2d(lat, rev[0], 3, padding=1)
         dec.mid_block = _mid(rev[0], g)
         dec.up_blocks = nn.ModuleList()
         ch = rev[0]
@@ -119,7 +124,7 @@ class AutoencoderKL(nn.Module):
             dec.up_blocks.append(blk)
             ch = co
         dec.conv_norm_out = nn.GroupNorm(g, ch, eps=1e-6)
-        dec.conv_out = nn.Conv2d(ch, cfg.out_channels, 3, padding=1)
+        dec.conv_out = QConv2d(ch, cfg.out_channels, 3, padding=1)
         self.decoder = dec
 
         self.quant_conv = nn.Conv2d(2 * lat, 2 * lat, 1)

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -47,6 +47,7 @@ _SIGNATURES = {
     "ls_group_norm_silu": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "ls_group_norm_silu_streaming": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _L, _P,
                                      _P],
+    "ls_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -148,13 +149,19 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels take bf16 CUDA tensors on one device, 16-byte aligned."""
+def check_cuda(name: str, *tensors: torch.Tensor,
+               dtypes: Optional[Sequence[torch.dtype]] = None) -> None:
+    """The kernels take CUDA tensors on one device, 16-byte aligned, of the
+    given per-tensor dtypes (bf16 for all when `dtypes` is None)."""
     dev = tensors[0].device
-    for t in tensors:
+    if dtypes is None:
+        dtypes = (torch.bfloat16,) * len(tensors)
+    if len(dtypes) != len(tensors):
+        raise ValueError(f"{name}: {len(tensors)} tensors, {len(dtypes)} dtypes")
+    for t, dt in zip(tensors, dtypes):
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: expected bfloat16, got {t.dtype}")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: expected {dt}, got {t.dtype}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensor data is not 16-byte aligned")

@@ -20,6 +20,11 @@ the reference ran ``_cross_fused`` (``cross_fused_route``: C = 320 and
 else on the card it runs the composed torch of the reference's
 ``_xla_cross_block``. On a CPU tensor it runs the plain version.
 
+The two compositions, ``self_attention_composed`` and
+``cross_attention_composed``, take the projection as an argument: the
+UNet runs them with ``qconv.dense_with_params`` where the reference runs
+its composed blocks (``LATENTSYNC_FUSED_ATTN=0``, or an int8 dense mode).
+
 Weights use the torch ``nn.Linear`` layout: wq/wk/wv (inner, C) without
 bias, wo (C, inner) with bias bo.
 """
@@ -31,11 +36,10 @@ import os
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from . import _build
 from .attention import dot_product_attention, dot_product_attention_reference
-from .ffn import layer_norm_f32
+from .ffn import layer_norm_f32, linear
 from .temporal_attention import (
     SPATIAL_HEAD_DIMS,
     TEMPORAL_FRAMES,
@@ -52,6 +56,11 @@ _FUSED_WEIGHT_BYTES = 8 * 2**20
 _FUSED_SPATIAL_MAX_S = 256
 # head widths of the cross blocks on the fused route (C = 320, 640; 8 heads)
 _CROSS_HEAD_DIMS = (40, 80)
+
+
+def fused_attn_block_enabled() -> bool:
+    """The reference's switch: on unless ``LATENTSYNC_FUSED_ATTN=0``."""
+    return os.environ.get("LATENTSYNC_FUSED_ATTN", "1") != "0"
 
 
 def fused_route(s: int, c: int, inner: int, temporal: bool) -> bool:
@@ -98,15 +107,19 @@ def self_attention_block_reference(x, ln_scale, ln_bias, wq, wk, wv, wo, bo,
     return (x.float() + o.float() @ wo.float().t() + bo.float()).to(dt)
 
 
-def _composed(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads, temporal, pe, eps):
-    """The reference's ``_xla_block``: torch products around the K3/K4 core."""
+def self_attention_composed(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads: int, *,
+                            temporal: bool = False, pe: Optional[torch.Tensor] = None,
+                            eps: float = 1e-6, dense=linear) -> torch.Tensor:
+    """The reference's ``_xla_block`` (and, with `dense` =
+    ``qconv.dense_with_params``, the UNet's ``_self_attn_composed``):
+    four projections around the K3/K4 core."""
     dt = x.dtype
     h = layer_norm_f32(x, ln_scale, ln_bias, eps).to(dt)
     if pe is not None:
         h = h + pe.to(dt)
-    q, k, v = F.linear(h, wq.to(dt)), F.linear(h, wk.to(dt)), F.linear(h, wv.to(dt))
+    q, k, v = (dense(h, w, None, dt) for w in (wq, wk, wv))
     o = (temporal_attention if temporal else spatial_attention)(q, k, v, heads)
-    return x + F.linear(o, wo.to(dt), bo.to(dt))
+    return x + dense(o, wo, bo, dt)
 
 
 def self_attention_block(x: torch.Tensor, ln_scale, ln_bias, wq, wk, wv, wo, bo,
@@ -122,8 +135,8 @@ def self_attention_block(x: torch.Tensor, ln_scale, ln_bias, wq, wk, wv, wo, bo,
     b, s, c = x.shape
     inner = wq.shape[0]
     if not fused_route(s, c, inner, temporal):
-        return _composed(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads,
-                         temporal, pe, eps)
+        return self_attention_composed(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads,
+                                       temporal=temporal, pe=pe, eps=eps)
     d = inner // heads
     core_ok = (s == TEMPORAL_FRAMES if temporal
                else d in SPATIAL_HEAD_DIMS and spatial_smem_ok(s, d))
@@ -179,8 +192,12 @@ def cross_attention_block_reference(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, b
     return (x.float() + o.float() @ wo.float().t() + bo.float()).to(dt)
 
 
-def _cross_composed(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, bo, heads, eps):
-    """The reference's ``_xla_cross_block``: torch products and attention."""
+def cross_attention_composed(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, bo, heads: int, *,
+                             eps: float = 1e-6, dense=linear) -> torch.Tensor:
+    """The reference's ``_xla_cross_block`` (and, with `dense` =
+    ``qconv.dense_with_params``, the UNet's ``_cross_attn_composed``):
+    four projections around the routed attention; the context is cast to
+    x.dtype."""
     dt = x.dtype
     b, s, _ = x.shape
     inner = wq.shape[0]
@@ -188,11 +205,11 @@ def _cross_composed(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, bo, heads, eps):
     h = layer_norm_f32(x, ln_scale, ln_bias, eps).to(dt)
     ctx = ctx.to(dt)
     sk = ctx.shape[1]
-    q = F.linear(h, wq.to(dt)).reshape(b, s, heads, d)
-    k = F.linear(ctx, wk.to(dt)).reshape(b, sk, heads, d)
-    v = F.linear(ctx, wv.to(dt)).reshape(b, sk, heads, d)
+    q = dense(h, wq, None, dt).reshape(b, s, heads, d)
+    k = dense(ctx, wk, None, dt).reshape(b, sk, heads, d)
+    v = dense(ctx, wv, None, dt).reshape(b, sk, heads, d)
     o = dot_product_attention(q, k, v).reshape(b, s, inner)
-    return x + F.linear(o, wo.to(dt), bo.to(dt))
+    return x + dense(o, wo, bo, dt)
 
 
 def cross_attention_block(x: torch.Tensor, ln_scale, ln_bias, ctx: torch.Tensor,
@@ -208,7 +225,8 @@ def cross_attention_block(x: torch.Tensor, ln_scale, ln_bias, ctx: torch.Tensor,
     inner = wq.shape[0]
     opted_in = os.environ.get("LATENTSYNC_FUSED_XATTN", "0") == "1"
     if not (opted_in and cross_fused_route(b, s, sk, c, cc, inner)):
-        return _cross_composed(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, bo, heads, eps)
+        return cross_attention_composed(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, bo, heads,
+                                        eps=eps)
     d = inner // heads
     if c % 8 or cc % 8 or inner != heads * d or d not in _CROSS_HEAD_DIMS \
             or 2 * sk * d * 2 > 227 * 1024:

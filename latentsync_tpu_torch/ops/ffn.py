@@ -5,6 +5,10 @@ tensor it launches the hand-written kernel chain of ``csrc/geglu.cu``
 (LN stats, up-projection + GEGLU epilogue, down-projection + bias +
 residual epilogue); on a CPU tensor it runs the plain version below.
 
+Where the reference runs its composed FF instead (``LATENTSYNC_FUSED_FFN=0``
+or an int8 dense mode, ``unet3d.py:273``), the UNet calls
+``geglu_ffn_composed`` with the projection it is given.
+
 Weights use the torch ``nn.Linear`` layout: ``w_up`` is (2·inner, C)
 with the value half first and the gate half second (diffusers GEGLU),
 ``w_down`` is (C, inner).
@@ -13,11 +17,23 @@ with the value half first and the gate half second (diffusers GEGLU),
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
+
+
+def fused_ffn_enabled() -> bool:
+    """The reference's switch: on unless ``LATENTSYNC_FUSED_FFN=0``."""
+    return os.environ.get("LATENTSYNC_FUSED_FFN", "1") != "0"
+
+
+def linear(x: torch.Tensor, w, b, dtype: torch.dtype) -> torch.Tensor:
+    """The float projection x @ w^T [+ b] with the weights cast to `dtype`."""
+    return F.linear(x, w.to(dtype), None if b is None else b.to(dtype))
 
 
 def layer_norm_f32(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
@@ -89,3 +105,17 @@ def geglu_ffn(x: torch.Tensor, w_up, b_up, w_down, b_down,
 
 
 geglu_ffn.launches = 0
+
+
+def geglu_ffn_composed(x: torch.Tensor, w_up, b_up, w_down, b_down, ln_scale, ln_bias,
+                       eps: float = 1e-6, dense=linear) -> torch.Tensor:
+    """The reference's composed GEGLU FF (``unet3d.py:278-290``): f32 LN cast
+    to x.dtype, the up-projection, ``value * gelu(gate)`` in x.dtype (exact
+    GELU written as jax's, with erfc), the down-projection, and x + ff.
+    `dense(x, w, b, dtype)` is the projection (``qconv.dense_with_params``
+    in the int8 dense modes)."""
+    dt = x.dtype
+    h = layer_norm_f32(x, ln_scale, ln_bias, eps).to(dt)
+    value, gate = dense(h, w_up, b_up, dt).chunk(2, dim=-1)
+    hidden = value * (0.5 * gate * torch.erfc(-gate * math.sqrt(0.5)))
+    return x + dense(hidden, w_down, b_down, dt)

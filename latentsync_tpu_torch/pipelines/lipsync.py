@@ -9,9 +9,13 @@ every frame, VAE decode, mouth composite and the host inverse-warp
 paste-back of ``native/restore.cpp``. The public API and the
 ``JobState`` fields are the JAX package's; its tensors keep the JAX
 layouts ((W, F, h, w, C) latents, (W, F, S, D) audio) and live on the
-pipeline's device. Not ported yet: face detection (requests without a
-bundle raise), DeepCache and the CFG interval, int8, the onboarding
-latent artifact, and ``run_pipelined``.
+pipeline's device. The reference's int8 switches (``LATENTSYNC_INT8``,
+``LATENTSYNC_INT8_DENSE``) are read by the models at each call, so one
+pipeline serves whichever configuration the environment names at that
+call. Not ported yet: face detection (requests without a bundle raise),
+DeepCache and the CFG interval (their switches raise rather than serve
+another operating point), the onboarding latent artifact, and
+``run_pipelined``.
 """
 
 from __future__ import annotations
@@ -42,6 +46,18 @@ def _bucket(n: int, buckets=(1, 2, 4, 8, 16, 32, 64, 128)) -> int:
         if n <= b:
             return b
     return n
+
+
+def _refuse_unported_switches() -> None:
+    """DeepCache and the CFG interval are not ported: a request under their
+    switches must fail, not run at the reference semantics silently."""
+    dc = os.environ.get("LATENTSYNC_DEEPCACHE", "")
+    if dc not in ("", "0"):
+        raise NotImplementedError(f"LATENTSYNC_DEEPCACHE={dc!r}: DeepCache is not ported yet")
+    ci = os.environ.get("LATENTSYNC_CFG_INTERVAL", "")
+    if ci:
+        raise NotImplementedError(
+            f"LATENTSYNC_CFG_INTERVAL={ci!r}: the CFG interval is not ported yet")
 
 
 def _nearest_indices(n_in: int, n_out: int) -> torch.Tensor:
@@ -128,6 +144,7 @@ class LipsyncPipeline:
                  guidance: float) -> torch.Tensor:
         """One window batch: latents0/mask/masked/ref (W, F, h, w, C), audio
         (W, F, S, D) → denoised latents (W, F, h, w, 4) float32."""
+        _refuse_unported_switches()
         dt = self.dtype
         w = latents0.shape[0]
         do_cfg = guidance > 1.0

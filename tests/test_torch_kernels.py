@@ -13,12 +13,15 @@ Shapes are small versions of every mode the serving path uses, with the
 head dims (40, 80, 160) and sequence lengths (16, 64, 256, 1024) of the
 full-width UNet; the kernels of the fused-kernel configuration (cross
 block, GroupNorm) and the VAE's flash attention run at served shapes.
+The int8 configurations add K8 (against its plain version, ragged edges
+and all-zero rows included) and the int8 convolution route, whose int32
+accumulators must equal the plain float64 ones exactly.
 """
 
 import pytest
 import torch
 
-from latentsync_tpu_torch.ops import attention, attn_block, ffn
+from latentsync_tpu_torch.ops import attention, attn_block, ffn, qconv, qmm
 from latentsync_tpu_torch.ops import groupnorm as gn
 from latentsync_tpu_torch.ops import temporal_attention as ta
 
@@ -180,3 +183,73 @@ def test_cuda_tensors_never_take_the_plain_version(rand, monkeypatch):
     args[-1] = 16  # d = 20: on the kernel's route, but the kernel has no d = 20
     with pytest.raises(ValueError):
         attn_block.cross_attention_block(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(130, 24, 136), (3200, 384, 320), (1024, 1280, 1280),
+                                   (2048, 320, 2560), (512, 5120, 1280), (17, 640, 5120)])
+@pytest.mark.parametrize("bias", [True, False])
+def test_quantized_matmul_kernel(rand, m, k, n, bias):
+    x = rand(m, k)
+    x[::7] = 0  # the CFG pass's all-zero audio context: exactly the bias
+    w, b = rand(n, k, s=k**-0.5), rand(n, s=0.1) if bias else None
+    before = qmm.quantized_matmul.launches
+    got = qmm.quantized_matmul(x, w, b)
+    _check(got, qmm.quantized_matmul_reference(x, w, b))
+    assert qmm.quantized_matmul.launches == before + 1
+    want = torch.zeros(n, device="cuda", dtype=torch.bfloat16) if b is None else b
+    assert torch.equal(got[::7], want.expand_as(got[::7]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout,ksize,stride,pad", [
+    ((64, 13, 32, 32), 320, 3, 1, 1),    # UNet conv_in: K = 117, padded to 120
+    ((64, 320, 32, 32), 320, 3, 1, 1),
+    ((64, 960, 16, 16), 640, 1, 1, 0),   # a 1×1 shortcut
+    ((64, 640, 17, 17), 640, 3, 2, 0),   # stride 2 after the (0, 1) pad
+    ((4, 128, 256, 256), 3, 3, 1, 1),    # VAE decoder conv_out: N = 3, padded to 8
+    ((4, 1280, 4, 4), 1280, 3, 1, 1),    # M = 64
+])
+def test_int8_conv_route_accumulates_exactly(rand, shape, cout, ksize, stride, pad):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xq = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+    wq = torch.randint(-127, 128, (cout, shape[1], ksize, ksize), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    before = qconv.conv_acc.launches
+    acc = qconv.conv_acc(xq, wq, (stride, stride), (pad, pad))
+    assert qconv.conv_acc.launches == before + 1
+    assert torch.equal(acc, qconv.conv_acc_reference(xq, wq, (stride, stride), (pad, pad)))
+
+
+@pytest.mark.cuda
+def test_quantized_conv2d_frame_chunks_equal_the_plain_route(rand, monkeypatch):
+    x, w, b = rand(12, 64, 32, 32), rand(128, 64, 3, 3, s=0.05), rand(128, s=0.1)
+    monkeypatch.setattr(qconv, "_CHUNK_BYTES", 5 * 32 * 32 * (64 * 9 + 4 * 128))
+    assert qconv.chunk_frames(32, 32, 64 * 9, 128) == 5
+    before = qconv.conv_acc.launches
+    got = qconv.quantized_conv2d(x, w, b, (1, 1), (1, 1))
+    assert qconv.conv_acc.launches == before + 3  # 5 + 5 + 2 frames
+    monkeypatch.setattr(qconv, "conv_acc", qconv.conv_acc_reference)
+    assert torch.equal(got, qconv.quantized_conv2d(x, w, b, (1, 1), (1, 1)))
+
+
+@pytest.mark.cuda
+def test_int8_dense_xla_mode_on_the_card(rand, monkeypatch):
+    monkeypatch.setenv("LATENTSYNC_INT8_DENSE", "1")
+    x, w, b = rand(3, 100, 320), rand(640, 320, s=320**-0.5), rand(640, s=0.1)
+    got = qconv.dense_with_params(x, w, b, torch.bfloat16)
+    _check(got.cpu(), qconv.dense_with_params(x.cpu(), w.cpu(), b.cpu(), torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_int8_dense_pallas_mode_launches_k8_or_raises(rand, monkeypatch):
+    monkeypatch.setenv("LATENTSYNC_INT8_DENSE", "pallas")
+    x, w = rand(64, 320), rand(320, 320, s=320**-0.5)
+    before = qmm.quantized_matmul.launches
+    qconv.dense_with_params(x, w, None, torch.bfloat16)
+    assert qmm.quantized_matmul.launches == before + 1
+    with pytest.raises(TypeError):  # the kernel takes bf16 only
+        qconv.dense_with_params(x.float(), w, None, torch.float32)
+    with pytest.raises(ValueError):  # K = 20: no kernel
+        qconv.dense_with_params(rand(64, 20), rand(32, 20), None, torch.bfloat16)
+    assert qmm.quantized_matmul.launches == before + 1
