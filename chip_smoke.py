@@ -10,8 +10,16 @@ and without CUDA it exits nonzero before doing anything):
    ``latentsync_tpu_torch/csrc`` (one nvcc per source, all at once, sm_90a);
 2. hold every kernel against its plain PyTorch version in bf16 at every
    shape the serving path gives it (K8 at the 15 projection shapes of the
-   int8-dense configuration, printing whether it is bitwise equal), and
-   time both with CUDA events; the int8 convolution route (im2col +
+   int8-dense configuration, printing whether it is bitwise equal) and, for
+   the kernels only the kernel probe runs (K9 fused q/k/v projection, K10
+   int8-in/int8-out GEGLU, K11 one-shot attention, K12 streaming attention,
+   and the flash route at head dims 40 and 80), at every shape the probe
+   gives them at its default 4 windows; time both with CUDA events, and
+   beside them the one PyTorch library call that computes the same
+   function, where there is one (it is timed here and used nowhere in the
+   port); compute each kernel's bound, the least time the card could take
+   for the same work, from the bytes of its inputs and outputs and the
+   operations of its shapes; the int8 convolution route (im2col +
    ``torch._int_mm``) against its float64 plain version at one UNet shape
    per width and the VAE's largest ones, with equal int32 accumulators;
 3. the full-width UNet (LatentSync 1.5 stage 2, random seeded non-zero
@@ -32,11 +40,18 @@ and without CUDA it exits nonzero before doing anything):
    configuration, with the same checks;
 6. serve the same two requests in the int8 and in the int8-dense
    configuration, with the same checks (int8-dense runs K8, the int8
-   convolutions and the K3/K4/flash cores, and no K1/K2/K5).
+   convolutions and the K3/K4/flash cores, and no K1/K2/K5);
+7. run the port's kernel probe (``latentsync_tpu_torch.scripts.micro_probe``)
+   in process at full width and its default 4 windows for its modes ffn,
+   ffn8, spat and attn: every measurement it prints must be finite, and
+   K9, K10 and K11 must have launched there; K12, which nothing in either
+   package calls, is driven through its entry point at its three shapes.
 
 The line before the last is a JSON object with each kernel's launches on
-its served path, its largest error against the plain version and both
-times; the last line is the device record.
+its path (``"path"``: the served configuration, ``probe`` or, for K12,
+``kernels``), its largest error against the plain version, its time, the
+plain version's, the library call's (or null) and its bound with the
+resource that sets it; the last line is the device record.
 """
 
 from __future__ import annotations
@@ -91,6 +106,14 @@ GN_SINGLE = [((64, 320, 32, 32), 1e-6, False), ((64, 640, 16, 16), 1e-6, False),
              ((4, 1280, 16, 4, 4), 1e-5, True)]
 # the counted kernels (and the int8 convolution route) that each
 # configuration's served path must launch; every other counted one must not
+# published peaks of one NVIDIA H100 SXM (dense): bytes/s of device memory,
+# operations/s by the type of the operands
+MEM_RATE = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# where the kernels run that no served configuration launches
+PROBE_PATH = {"qkv_proj": "probe", "geglu_ffn_int8io": "probe", "oneshot_attention": "probe",
+              "flash_attention": "kernels"}
+FLASH_KERNEL_SHAPES = [(64, 1024, 512), (32, 1024, 512), (512, 1024, 128)]
 _CORES = {"temporal_attention", "spatial_attention", "dot_product_attention"}
 ON_PATH = {
     "default": _CORES | {"geglu_ffn", "self_attention_block"},
@@ -151,12 +174,18 @@ def cuda_ms(fn, warmup: int = 2, iters: int = 10) -> float:
 
 
 def kernel_cases():
-    """(name, wrapper, plain, source, replaces, [(shape label, make_args)])
-    with the shapes of the served path: window batch 2 × CFG 2 → B = 4
-    sequences of 16 frames, 32² latents, channels 320/640/1280, 8 heads;
-    the VAE encodes up to 64 faces and decodes 32 frames at a time. The
+    """One entry per kernel: name, wrapper, plain version, source, the TPU
+    kernel it replaces, the library call (or None) and its shapes, each
+    (label, make_args, operations, operand type). The served kernels get
+    the shapes of the served path: window batch 2 × CFG 2 → B = 4 sequences
+    of 16 frames, 32² latents, channels 320/640/1280, 8 heads; the VAE
+    encodes up to 64 faces and decodes 32 frames at a time. The probe's
+    kernels get the probe's shapes at 4 windows (bf = 128 frames). The
     first shape of each kernel is the one whose times the JSON line
     reports."""
+    import torch
+    import torch.nn.functional as F
+
     from latentsync_tpu_torch.ops import attention, attn_block, ffn, groupnorm as gn
     from latentsync_tpu_torch.ops import qmm
     from latentsync_tpu_torch.ops import temporal_attention as ta
@@ -165,7 +194,7 @@ def kernel_cases():
         def make(r):
             return (r(m, c), r(8 * c, c, s=c**-0.5), r(8 * c, s=0.1), r(c, 4 * c, s=(4 * c) ** -0.5),
                     r(c, s=0.1), 1 + r(c, s=0.1), r(c, s=0.1)), {"residual": True}
-        return f"M={m} C={c}", make
+        return f"M={m} C={c}", make, 24 * m * c * c, "bf16"
 
     def block_args(b, s, c, temporal):
         def make(r):
@@ -173,77 +202,188 @@ def kernel_cases():
             return ((r(b, s, c), 1 + r(c, s=0.1), r(c, s=0.1), *ws, r(c, s=0.1), 8),
                     {"temporal": temporal, "pe": r(s, c) if temporal else None})
         mode = "temporal" if temporal else "spatial"
-        return f"{mode} B={b} S={s} C={c}", make
+        return f"{mode} B={b} S={s} C={c}", make, 8 * b * s * c * c + 4 * b * s * s * c, "bf16"
 
     def attn_args(b, s, hd):
         def make(r):
             return (r(b, s, hd), r(b, s, hd), r(b, s, hd), 8), {}
-        return f"B={b} S={s} heads*D={hd}", make
+        return f"B={b} S={s} heads*D={hd}", make, 4 * b * s * s * hd, "bf16"
 
-    def flash_args(b):
+    def flash_args(b, s=1024, h=1, d=512):
         def make(r):
-            return (r(b, 1024, 1, 512), r(b, 1024, 1, 512), r(b, 1024, 1, 512)), {}
-        return f"B={b} S=1024 H=1 D=512", make
+            return (r(b, s, h, d), r(b, s, h, d), r(b, s, h, d)), {}
+        return f"B={b} S={s} H={h} D={d}", make, 4 * b * h * s * s * d, "bf16"
 
     def cross_args(b, s, c):
         def make(r):
             return ((r(b, s, c), 1 + r(c, s=0.1), r(c, s=0.1), r(b, 50, 384),
                      r(c, c, s=c**-0.5), r(c, 384, s=384**-0.5), r(c, 384, s=384**-0.5),
                      r(c, c, s=c**-0.5), r(c, s=0.1), 8), {})
-        return f"B={b} S={s} C={c} Sk=50 Cc=384", make
+        ops = 4 * b * s * c * c + 4 * b * 50 * 384 * c + 4 * b * s * 50 * c
+        return f"B={b} S={s} C={c} Sk=50 Cc=384", make, ops, "bf16"
 
     def qmm_args(m, k, n):
         def make(r):
             return (r(m, k), r(n, k, s=k**-0.5), r(n, s=0.1)), {}
-        return f"M={m} K={k} N={n}", make
+        return f"M={m} K={k} N={n}", make, 2 * m * k * n, "int8"
 
     def gn_args(shape, eps, silu):
         def make(r):
             c = shape[1]
             return (r(*shape) * 2 + 0.5, 1 + r(c, s=0.1), r(c, s=0.1), 32), \
                 {"eps": eps, "silu": silu}
-        return f"{shape} eps={eps} silu={int(silu)}", make
+        # about ten f32 operations an element (statistics, normalise, SiLU)
+        return f"{shape} eps={eps} silu={int(silu)}", make, 10 * math.prod(shape), "f32"
+
+    def qkv_args(m, c):
+        def make(r):
+            return (r(m, c), *[r(c, c, s=c**-0.5) for _ in range(3)]), {}
+        return f"M={m} C={c} inner={c}", make, 6 * m * c * c, "bf16"
+
+    def i8_args(m, c):
+        def make(r):
+            return (*ffn.quantize_rowwise(r(m, c)), r(8 * c, c, s=c**-0.5), r(8 * c, s=0.1).float(),
+                    r(c, 4 * c, s=(4 * c) ** -0.5), r(c, s=0.1).float()), {}
+        return f"M={m} C={c}", make, 24 * m * c * c, "bf16"
+
+    def bsd_args(b, s, d):
+        def make(r):
+            return (r(b, s, d), r(b, s, d), r(b, s, d)), {}
+        return f"B={b} S={s} D={d}", make, 4 * b * s * s * d, "bf16"
+
+    # the one PyTorch call for the same function, where there is one
+    def sdpa_bshd(q, k, v):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2)).transpose(1, 2)
+
+    def sdpa_rows(q, k, v, heads):
+        b, s, hd = q.shape
+        q, k, v = (t.reshape(b, s, heads, hd // heads) for t in (q, k, v))
+        return sdpa_bshd(q, k, v).reshape(b, s, hd)
+
+    def sdpa_bsd(q, k, v):
+        return F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None])[:, 0]
+
+    def library_gn(x, scale, bias, groups, eps, silu):
+        y = F.group_norm(x, groups, scale, bias, eps)
+        return F.silu(y) if silu else y
+
+    cat_cache = {}
+
+    def library_qkv(x, wq, wk, wv):
+        key = (wq.data_ptr(), wk.data_ptr(), wv.data_ptr())
+        if key not in cat_cache:  # concatenated once a shape, in the warm-up
+            cat_cache.clear()
+            cat_cache[key] = torch.cat([wq, wk, wv])
+        return F.linear(x, cat_cache[key]).chunk(3, dim=-1)
+
+    def case(name, wrapper, plain, source, replaces, shapes, library=None):
+        return dict(name=name, wrapper=wrapper, plain=plain, source=source, replaces=replaces,
+                    shapes=shapes, library=library)
 
     return [
-        ("geglu_ffn", ffn.geglu_ffn, ffn.geglu_ffn_reference,
-         "latentsync_tpu_torch/csrc/geglu.cu", "latentsync_tpu/ops/ffn.py:82",
-         [ffn_args(65536, 320), ffn_args(16384, 640), ffn_args(4096, 1280),
-          ffn_args(1024, 1280)]),
-        ("self_attention_block", attn_block.self_attention_block,
-         attn_block.self_attention_block_reference,
-         "latentsync_tpu_torch/csrc/attn_block.cu", "latentsync_tpu/ops/attn_block.py:76",
-         [block_args(4096, 16, 320, True), block_args(1024, 16, 640, True),
-          block_args(64, 256, 640, False)]),
-        ("temporal_attention", ta.temporal_attention, ta.temporal_attention_reference,
-         "latentsync_tpu_torch/csrc/temporal_attention.cu",
-         "latentsync_tpu/ops/temporal_attention.py:47",
-         [attn_args(256, 16, 1280), attn_args(64, 16, 1280),
-          # the composed blocks of int8-dense at C = 320 and 640
-          attn_args(4096, 16, 320), attn_args(1024, 16, 640)]),
-        ("spatial_attention", ta.spatial_attention, ta.spatial_attention_reference,
-         "latentsync_tpu_torch/csrc/spatial_attention.cu",
-         "latentsync_tpu/ops/temporal_attention.py:173",
-         [attn_args(64, 1024, 320), attn_args(64, 64, 1280), attn_args(64, 16, 1280),
-          attn_args(64, 256, 640)]),  # int8-dense's spatial block at C = 640
-        ("dot_product_attention", attention.dot_product_attention,
-         attention.dot_product_attention_reference,
-         "latentsync_tpu_torch/csrc/flash_attention.cu", "latentsync_tpu/ops/attention.py:85",
-         [flash_args(64), flash_args(32)]),
-        ("cross_attention_block", attn_block.cross_attention_block,
-         attn_block.cross_attention_block_reference,
-         "latentsync_tpu_torch/csrc/cross_attn_block.cu", "latentsync_tpu/ops/attn_block.py:284",
-         [cross_args(64, 1024, 320), cross_args(64, 256, 640)]),
-        ("group_norm_silu", gn.group_norm_silu, gn.group_norm_silu_reference,
-         "latentsync_tpu_torch/csrc/groupnorm.cu", "latentsync_tpu/ops/groupnorm.py:43",
-         [gn_args(*a) for a in GN_SINGLE]),
-        ("group_norm_silu_streaming", gn.group_norm_silu_streaming,
-         gn.group_norm_silu_reference,
-         "latentsync_tpu_torch/csrc/groupnorm.cu", "latentsync_tpu/ops/groupnorm.py:107",
-         [gn_args(*a) for a in GN_STREAMING]),
-        ("quantized_matmul", qmm.quantized_matmul, qmm.quantized_matmul_reference,
-         "latentsync_tpu_torch/csrc/qmm.cu", "latentsync_tpu/ops/qmm.py:41",
-         [qmm_args(*a) for a in QMM_SHAPES]),
+        case("geglu_ffn", ffn.geglu_ffn, ffn.geglu_ffn_reference,
+             "latentsync_tpu_torch/csrc/geglu.cu", "latentsync_tpu/ops/ffn.py:82",
+             [ffn_args(65536, 320), ffn_args(16384, 640), ffn_args(4096, 1280),
+              ffn_args(1024, 1280)]),
+        case("self_attention_block", attn_block.self_attention_block,
+             attn_block.self_attention_block_reference,
+             "latentsync_tpu_torch/csrc/attn_block.cu", "latentsync_tpu/ops/attn_block.py:76",
+             [block_args(4096, 16, 320, True), block_args(1024, 16, 640, True),
+              block_args(64, 256, 640, False)]),
+        case("temporal_attention", ta.temporal_attention, ta.temporal_attention_reference,
+             "latentsync_tpu_torch/csrc/temporal_attention.cu",
+             "latentsync_tpu/ops/temporal_attention.py:47",
+             [attn_args(256, 16, 1280), attn_args(64, 16, 1280),
+              # the composed blocks of int8-dense at C = 320 and 640
+              attn_args(4096, 16, 320), attn_args(1024, 16, 640)], sdpa_rows),
+        case("spatial_attention", ta.spatial_attention, ta.spatial_attention_reference,
+             "latentsync_tpu_torch/csrc/spatial_attention.cu",
+             "latentsync_tpu/ops/temporal_attention.py:173",
+             [attn_args(64, 1024, 320), attn_args(64, 64, 1280), attn_args(64, 16, 1280),
+              attn_args(64, 256, 640)], sdpa_rows),  # the last: int8-dense's block at C = 640
+        case("dot_product_attention", attention.dot_product_attention,
+             attention.dot_product_attention_reference,
+             "latentsync_tpu_torch/csrc/flash_attention.cu", "latentsync_tpu/ops/attention.py:85",
+             [flash_args(64), flash_args(32),
+              # the probe's spatial shapes at 4 windows, 8 heads of D = 40 and 80
+              flash_args(128, 1024, 8, 40), flash_args(128, 256, 8, 80)], sdpa_bshd),
+        case("cross_attention_block", attn_block.cross_attention_block,
+             attn_block.cross_attention_block_reference,
+             "latentsync_tpu_torch/csrc/cross_attn_block.cu", "latentsync_tpu/ops/attn_block.py:284",
+             [cross_args(64, 1024, 320), cross_args(64, 256, 640)]),
+        case("group_norm_silu", gn.group_norm_silu, gn.group_norm_silu_reference,
+             "latentsync_tpu_torch/csrc/groupnorm.cu", "latentsync_tpu/ops/groupnorm.py:43",
+             [gn_args(*a) for a in GN_SINGLE], library_gn),
+        case("group_norm_silu_streaming", gn.group_norm_silu_streaming,
+             gn.group_norm_silu_reference,
+             "latentsync_tpu_torch/csrc/groupnorm.cu", "latentsync_tpu/ops/groupnorm.py:107",
+             [gn_args(*a) for a in GN_STREAMING], library_gn),
+        case("quantized_matmul", qmm.quantized_matmul, qmm.quantized_matmul_reference,
+             "latentsync_tpu_torch/csrc/qmm.cu", "latentsync_tpu/ops/qmm.py:41",
+             [qmm_args(*a) for a in QMM_SHAPES]),
+        case("qkv_proj", ffn.qkv_proj, ffn.qkv_proj_reference,
+             "latentsync_tpu_torch/csrc/qkv_proj.cu", "latentsync_tpu/ops/ffn.py:269",
+             [qkv_args(131072, 320), qkv_args(32768, 640), qkv_args(8192, 1280)], library_qkv),
+        case("geglu_ffn_int8io", ffn.geglu_ffn_int8io, ffn.geglu_ffn_int8io_reference,
+             "latentsync_tpu_torch/csrc/geglu_i8.cu", "latentsync_tpu/ops/ffn.py:338",
+             [i8_args(131072, 320), i8_args(32768, 640)]),
+        case("oneshot_attention", attention.oneshot_attention,
+             attention.oneshot_attention_reference,
+             "latentsync_tpu_torch/csrc/oneshot_attention.cu",
+             "latentsync_tpu/ops/attention.py:109",
+             [bsd_args(1024, 1024, 40), bsd_args(1024, 256, 80)], sdpa_bsd),
+        case("flash_attention", attention.flash_attention, attention.flash_attention_reference,
+             "latentsync_tpu_torch/csrc/flash_kernel.cu", "latentsync_tpu/ops/attention.py:145",
+             [bsd_args(*a) for a in FLASH_KERNEL_SHAPES], sdpa_bsd),
     ]
+
+
+def _tensors(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensors(v)]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _tensors(v)]
+    return []
+
+
+def bound(args, kw, out, ops: float, kind: str):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    each input read once and each output written once at the memory rate,
+    against `ops` operations at the peak rate for operands of `kind`."""
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors((args, kw, out)))
+    by_bytes, by_ops = nbytes / MEM_RATE * 1e3, ops / PEAK_OPS[kind] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def compare(name: str, got, ref):
+    """(max abs err, tolerance, within tolerance, finite, bitwise equal) of a
+    kernel's result against its plain version's."""
+    import torch
+
+    if name == "geglu_ffn_int8io":
+        # scales within 2^-6 relative, codes within 1 (another summation
+        # order can move a value across a rounding boundary), the
+        # dequantized output within TOL_REL · max(1, max|plain|) plus one
+        # output quantum
+        (gi, gs), (ri, rs) = got, ref
+        plain = ri.float() * rs
+        err = (gi.float() * gs - plain).abs()
+        tol = TOL_REL * max(1.0, float(plain.abs().max())) + rs
+        good = bool((err <= tol).all()) and float(((gs - rs).abs() / rs).max()) <= TOL_REL \
+            and int((gi.int() - ri.int()).abs().max()) <= 1
+        return float(err.max()), float(tol.max()), good, bool(torch.isfinite(gs).all()), \
+            torch.equal(gi, ri) and torch.equal(gs, rs)
+    got, ref = _tensors(got), _tensors(ref)
+    err = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
+    tol = TOL_REL * max(1.0, *(float(r.float().abs().max()) for r in ref))
+    return err, tol, len(got) == len(ref) and err <= tol, \
+        all(bool(torch.isfinite(g).all()) for g in got), \
+        all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
 def check_kernels(device):
@@ -255,11 +395,13 @@ def check_kernels(device):
         return (torch.randn(shape, generator=gen) * s).to(device, torch.bfloat16)
 
     results, ok = [], True
-    for name, wrapper, plain, source, replaces, shapes in kernel_cases():
-        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
-                 "shape": shapes[0][0]}
-        for i, (label, make) in enumerate(shapes):
+    for case in kernel_cases():
+        name, wrapper, plain, library = (case[k] for k in ("name", "wrapper", "plain", "library"))
+        entry = {"name": name, "route": "cuda", "source": case["source"],
+                 "replaces": case["replaces"], "launches": 0, "max_abs_err": 0.0, "ms": None,
+                 "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None,
+                 "shape": case["shapes"][0][0]}
+        for i, (label, make, ops, kind) in enumerate(case["shapes"]):
             args, kw = make(r)
             with configured("fused"):  # the cross block launches its kernel only so
                 before = wrapper.launches
@@ -267,23 +409,27 @@ def check_kernels(device):
                 ref = plain(*args, **kw)
                 torch.cuda.synchronize()
                 launched = wrapper.launches == before + 1
-                err = float((got.float() - ref.float()).abs().max())
-                tol = TOL_REL * max(1.0, float(ref.float().abs().max()))
-                finite = bool(torch.isfinite(got).all())
-                bitwise = bool(torch.equal(got, ref))
+                err, tol, close, finite, bitwise = compare(name, got, ref)
+                bound_ms, bound_by = bound(args, kw, got, ops, kind)
+                del ref
                 ms = cuda_ms(lambda: wrapper(*args, **kw))
                 plain_ms = cuda_ms(lambda: plain(*args, **kw))
-            good = launched and finite and err <= tol
+                library_ms = None
+                if library is not None:
+                    library_ms = cuda_ms(lambda: library(*args, *kw.values()))
+            good = launched and finite and close
             ok &= good
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
             if i == 0:
-                entry["ms"], entry["plain_ms"] = ms, plain_ms
+                entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
+            lib = "none" if library_ms is None else f"{library_ms:.4f}"
             log(f"kernel {name:22s} {label:28s} max_abs_err={err:.6g} tol={tol:.6g} "
-                f"bitwise={bitwise} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"{'ok' if good else 'FAIL'}")
-            del args, kw, got, ref
+                f"bitwise={bitwise} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} "
+                f"bound_ms={bound_ms:.4f} ({bound_by}) {'ok' if good else 'FAIL'}")
+            del args, kw, got
+            torch.cuda.empty_cache()
         results.append(entry)
-    torch.cuda.empty_cache()
     return results, ok
 
 
@@ -582,6 +728,50 @@ def wait_all(base: str, jobs, timeout_s: float = 900):
     return done
 
 
+def run_probe(device, counters):
+    """Phase 7: the port's kernel probe in process, at full width and its
+    default 4 windows, for the modes that run K9 (ffn), K10 (ffn8), K11
+    (spat) and the flash route at head dims 40 and 80 (spat, attn); then
+    K12 through its entry point at its three shapes. Every count is set to
+    0 first and read after."""
+    import torch
+
+    from latentsync_tpu_torch.ops import attention
+    from latentsync_tpu_torch.scripts import micro_probe
+
+    for fn in counters:
+        fn.launches = 0
+    probe = micro_probe.Probe(device, w=4, iters=20,
+                              emit=lambda rec: log("probe " + json.dumps(rec)))
+    for which in ("ffn", "ffn8", "spat", "attn"):
+        micro_probe.run(probe, which)
+    ok = True
+    for rec in probe.results:
+        nums = [v for v in rec.values() if isinstance(v, (int, float))]
+        good = "ms" in rec and all(math.isfinite(v) and v > 0 for v in nums)
+        ok &= good
+        if not good:
+            log(f"probe measurement {rec.get('name')}: FAIL (not finite and positive)")
+    good = len(probe.results) == 31
+    ok &= good
+    log(f"probe: {len(probe.results)} measurements (want 31) {'ok' if good else 'FAIL'}")
+    with torch.inference_mode():
+        for b, s, d in FLASH_KERNEL_SHAPES:
+            q = probe.randn(b, s, d)
+            o = attention.flash_attention(q, q, q)
+            torch.cuda.synchronize()
+            good = o.shape == q.shape and bool(torch.isfinite(o).all())
+            ok &= good
+            log(f"flash_attention ({b}, {s}, {d}) through its entry point: "
+                f"{'ok' if good else 'FAIL'}")
+    launches = {fn.__name__: fn.launches for fn in counters}
+    for name, n in launches.items():
+        good = n > 0 or name not in PROBE_PATH
+        ok &= good
+        log(f"launches on the probe path: {name}={n} {'ok' if good else 'FAIL (must launch)'}")
+    return launches, ok
+
+
 def main() -> int:
     try:
         import torch
@@ -619,7 +809,9 @@ def main() -> int:
     counters = [ffn.geglu_ffn, attn_block.self_attention_block, ta.temporal_attention,
                 ta.spatial_attention, attention.dot_product_attention,
                 attn_block.cross_attention_block, gn.group_norm_silu,
-                gn.group_norm_silu_streaming, qmm.quantized_matmul, qconv.conv_acc]
+                gn.group_norm_silu_streaming, qmm.quantized_matmul, qconv.conv_acc,
+                ffn.qkv_proj, ffn.geglu_ffn_int8io, attention.oneshot_attention,
+                attention.flash_attention]
     ok = True
     phase = "kernels"
     try:
@@ -670,7 +862,15 @@ def main() -> int:
                 log(f"phase {number} (served path, {conf} configuration, peak device memory "
                     f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB): "
                     f"{'ok' if good else 'FAIL'}")
+        phase = "probe"
+        probe_launches, good = run_probe(device, counters)
+        ok &= good
+        log(f"phase 7 (kernel probe at full width: ffn, ffn8, spat, attn; K12's entry point): "
+            f"{'ok' if good else 'FAIL'}")
         for k in kernels:
+            if k["name"] in PROBE_PATH:
+                k["path"], k["launches"] = PROBE_PATH[k["name"]], probe_launches[k["name"]]
+                continue
             k["path"] = next(conf for conf in CONFIGS if k["name"] in ON_PATH[conf])
             k["launches"] = launches[k["path"]][k["name"]]
     except Exception:  # noqa: BLE001 — report the phase, then fail

@@ -8,6 +8,10 @@
 //   epi     = + bias[n]                         (bias may be null)
 //           | (acc + bias) * gelu(acc2 + bias2) (dual: B2 is the gate half)
 //           then + residual[m, n]               (residual may be null)
+//   AQ      : A arrives as int8 codes with one f32 scale a row and is
+//             dequantized to bf16(code * scale) while it is staged (K10)
+//   F32OUT  : C is written as f32, unrounded (K10's down-projection, whose
+//             rows are quantized by a later pass)
 //
 // B is a torch nn.Linear weight, (N, K) row-major, i.e. the column-major
 // (K, N) operand, so weights are used as stored.
@@ -59,13 +63,16 @@ struct Args {
   int pe_rows;
   const bf16* res;  // residual (m, n) with row pitch ldr, or null
   int ldr;
+  const int8_t* a_q;     // AQ: int8 A (m, k) with row pitch lda, instead of a
+  const float* a_scale;  // AQ: one dequantization scale a row
+  float* c_f32;          // F32OUT: f32 C with row pitch ldc, instead of c
 };
 
 static __device__ __forceinline__ float gelu_erf(float g) {
   return 0.5f * g * (1.0f + erff(g * 0.70710678118654752f));
 }
 
-template <bool LN, bool DUAL>
+template <bool LN, bool DUAL, bool AQ = false, bool F32OUT = false>
 __global__ void __launch_bounds__(THREADS) gemm_kernel(const Args p) {
   constexpr int NB = DUAL ? 2 : 1;
   constexpr int TILE_BYTES = (BM * LDT + NB * BN * LDT) * (int)sizeof(bf16);
@@ -121,7 +128,16 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(const Args p) {
       const int gr = m0 + r;
       const int gk = k0 + cv;
       uint4 v = make_uint4(0, 0, 0, 0);
-      if (gr < p.m && gk < p.k) {
+      if (AQ) {
+        if (gr < p.m && gk < p.k) {
+          const uint2 qv = *reinterpret_cast<const uint2*>(p.a_q + (size_t)gr * p.lda + gk);
+          const signed char* qb = reinterpret_cast<const signed char*>(&qv);
+          const float sc = p.a_scale[gr];
+          bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+          for (int t = 0; t < 8; ++t) e[t] = __float2bfloat16((float)qb[t] * sc);
+        }
+      } else if (gr < p.m && gk < p.k) {
         v = *reinterpret_cast<const uint4*>(p.a + (size_t)gr * p.lda + gk);
         if (LN) {
           const float2 st = sstats[r];
@@ -207,7 +223,10 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(const Args p) {
       v0 += rv.x;
       v1 += rv.y;
     }
-    *reinterpret_cast<bf162*>(p.c + (size_t)gr * p.ldc + gc) = __floats2bfloat162_rn(v0, v1);
+    if (F32OUT)
+      *reinterpret_cast<float2*>(p.c_f32 + (size_t)gr * p.ldc + gc) = make_float2(v0, v1);
+    else
+      *reinterpret_cast<bf162*>(p.c + (size_t)gr * p.ldc + gc) = __floats2bfloat162_rn(v0, v1);
   }
 }
 
@@ -247,6 +266,21 @@ static inline cudaError_t gemm(const Args& p, cudaStream_t s) {
   else if (ln) gemm_kernel<true, false><<<grid, THREADS, 0, s>>>(p);
   else if (dual) gemm_kernel<false, true><<<grid, THREADS, 0, s>>>(p);
   else gemm_kernel<false, false><<<grid, THREADS, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+// The GEGLU up-projection on an int8 A with row scales (p.a_q, p.a_scale,
+// p.b2 set), and a plain projection with bias that leaves its result in f32
+// (p.c_f32 set).
+static inline cudaError_t gemm_dequant_geglu(const Args& p, cudaStream_t s) {
+  const dim3 grid((p.n + BN - 1) / BN, (p.m + BM - 1) / BM);
+  gemm_kernel<false, true, true, false><<<grid, THREADS, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+static inline cudaError_t gemm_f32out(const Args& p, cudaStream_t s) {
+  const dim3 grid((p.n + BN - 1) / BN, (p.m + BM - 1) / BM);
+  gemm_kernel<false, false, false, true><<<grid, THREADS, 0, s>>>(p);
   return cudaGetLastError();
 }
 

@@ -48,10 +48,17 @@ _SIGNATURES = {
     "ls_group_norm_silu_streaming": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _L, _P,
                                      _P],
     "ls_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "ls_qkv_proj": [*[_P] * 7, _I, _I, _I, _P],
+    "ls_geglu_ffn_int8io": [_P, _P, _I, _I, *[_P] * 9],
+    "ls_oneshot_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "ls_flash_kernel": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# called as observer(entry point, args) before each launch when set (the
+# kernel probe counts the operations of a model forward this way)
+observer = None
 
 
 def _nvcc() -> str:
@@ -135,6 +142,8 @@ def call(name: str, *args) -> None:
     """Launch entry point `name` on the current stream (the caller passes
     `stream()` last) and raise if CUDA refused or failed the launch."""
     cdll = lib()
+    if observer is not None:
+        observer(name, args)
     code = getattr(cdll, name)(*args)
     if code != 0:
         msg = cdll.ls_error_string(code).decode()

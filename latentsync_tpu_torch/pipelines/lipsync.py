@@ -103,9 +103,15 @@ class LipsyncPipeline:
                  device: Optional[torch.device] = None):
         self.config = config
         self.dtype = dtype
-        self.device = torch.device(device) if device is not None else unet.conv_in.weight.device
+        # the pipeline runs on the card unless the caller asks for another
+        # device: models built on the CPU are moved, never followed there
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("LipsyncPipeline: no CUDA device (torch.cuda.is_available() is "
+                               "false); pass device='cpu' to run on the CPU")
         self.unet = unet.to(self.device, dtype).eval()
         self.vae = vae.to(self.device, dtype).eval()
+        audio_encoder.model.to(self.device)
         self.audio_encoder = audio_encoder
         self.scheduler = DDIMScheduler.create(config.scheduler)
         # build the paste-back library now: a missing toolchain fails here,

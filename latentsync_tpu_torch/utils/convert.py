@@ -114,6 +114,12 @@ def whisper_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
     return _convert(params, lambda p: _apply(_WHISPER_RULES, p))
 
 
+def linear_weight(kernel) -> torch.Tensor:
+    """A JAX dense kernel (in, out) → the ``nn.Linear`` weight (out, in) the
+    port's ops take (``qkv_proj``'s wq/wk/wv, ``geglu_ffn``'s w_up/w_down)."""
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(kernel).T))
+
+
 _BIAS_STD = 0.02
 _NORM_STD = 0.1
 

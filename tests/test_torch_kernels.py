@@ -15,7 +15,9 @@ full-width UNet; the kernels of the fused-kernel configuration (cross
 block, GroupNorm) and the VAE's flash attention run at served shapes.
 The int8 configurations add K8 (against its plain version, ragged edges
 and all-zero rows included) and the int8 convolution route, whose int32
-accumulators must equal the plain float64 ones exactly.
+accumulators must equal the plain float64 ones exactly. The kernel probe
+adds K9-K12 (fused q/k/v projection, int8-in/int8-out GEGLU, one-shot and
+streaming attention) and the flash route's head dims 40 and 80.
 """
 
 import pytest
@@ -173,8 +175,8 @@ def test_cuda_tensors_never_take_the_plain_version(rand, monkeypatch):
     q = rand(2, 64, 320).float()  # the kernels take bf16 only
     with pytest.raises(TypeError):
         ta.spatial_attention(q, q, q, 8)
-    q = rand(2, 256, 8, 40)  # on the flash route, but no flash kernel for D = 40
-    with pytest.raises(ValueError):
+    q = rand(2, 256, 8, 24)  # on the flash route, but no flash kernel for D = 24
+    with pytest.raises(ValueError, match="head dims"):
         attention.dot_product_attention(q, q, q)
     with pytest.raises(TypeError):
         gn.group_norm_silu(rand(2, 64, 8, 8).float(), rand(64), rand(64), 32)
@@ -253,3 +255,153 @@ def test_int8_dense_pallas_mode_launches_k8_or_raises(rand, monkeypatch):
     with pytest.raises(ValueError):  # K = 20: no kernel
         qconv.dense_with_params(rand(64, 20), rand(32, 20), None, torch.bfloat16)
     assert qmm.quantized_matmul.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d", [(2, 256, 8, 40), (2, 256, 8, 80), (8, 1024, 8, 40),
+                                     (8, 256, 8, 80), (3, 384, 2, 40)])
+def test_flash_route_head_dims_of_the_probe(rand, b, s, h, d):
+    q, k, v = rand(b, s, h, d), rand(b, s, h, d), rand(b, s, h, d)
+    before = attention.dot_product_attention.launches
+    _check(attention.dot_product_attention(q, k, v),
+           attention.dot_product_attention_reference(q, k, v))
+    assert attention.dot_product_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,c,inner", [((256,), 64, 64), ((4, 100), 320, 320),
+                                          ((1000,), 640, 640), ((130,), 1280, 1280),
+                                          ((77,), 320, 200), ((8192,), 320, 320)])
+def test_qkv_proj_kernel(rand, lead, c, inner):
+    """K9, ragged M and a ragged column block (inner = 200) included."""
+    x = rand(*lead, c)
+    ws = [rand(inner, c, s=c**-0.5) for _ in range(3)]
+    before = ffn.qkv_proj.launches
+    got = ffn.qkv_proj(x, *ws)
+    assert ffn.qkv_proj.launches == before + 1
+    for g, r in zip(got, ffn.qkv_proj_reference(x, *ws)):
+        assert g.shape == (*lead, inner)
+        _check(g, r)
+
+
+def _i8_args(rand, m, c):
+    x = rand(m, c)
+    return (*ffn.quantize_rowwise(x), rand(8 * c, c, s=c**-0.5), rand(8 * c, s=0.1).float(),
+            rand(c, 4 * c, s=(4 * c) ** -0.5), rand(c, s=0.1).float())
+
+
+def check_int8io(got, ref):
+    """K10 against its plain version: scales within 2^-6 relative, codes
+    within 1 (the exact-erf GELU's bf16 ulp, or another summation order,
+    can move a code across a rounding boundary), and the dequantized
+    output within TOL_REL · max(1, max|plain|) plus one output quantum."""
+    torch.cuda.synchronize()
+    (gi, gs), (ri, rs) = got, ref
+    assert gi.dtype == torch.int8 and gs.dtype == torch.float32
+    assert gi.shape == ri.shape and gs.shape == rs.shape == (gi.shape[0], 1)
+    assert bool(torch.isfinite(gs).all())
+    assert float(((gs - rs).abs() / rs).max()) <= TOL_REL
+    assert int((gi.int() - ri.int()).abs().max()) <= 1
+    plain = ri.float() * rs
+    err = (gi.float() * gs - plain).abs()
+    tol = TOL_REL * max(1.0, float(plain.abs().max())) + rs
+    assert bool((err <= tol).all()), float((err - tol).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", [(256, 128), (1000, 320), (130, 640), (4096, 320)])
+def test_geglu_ffn_int8io_kernel(rand, m, c):
+    """K10, ragged M included; its int8 output is a usable next input."""
+    args = _i8_args(rand, m, c)
+    before = ffn.geglu_ffn_int8io.launches
+    got = ffn.geglu_ffn_int8io(*args)
+    assert ffn.geglu_ffn_int8io.launches == before + 1
+    check_int8io(got, ffn.geglu_ffn_int8io_reference(*args))
+    again = ffn.geglu_ffn_int8io(*got, *args[2:])
+    check_int8io(again, ffn.geglu_ffn_int8io_reference(*got, *args[2:]))
+
+
+@pytest.mark.cuda
+def test_geglu_ffn_int8io_all_zero_rows(rand):
+    """A zero row with zero biases gives scale 1e-12 and zero codes; with the
+    biases it gives the same codes as any other zero row."""
+    xi, xs, w_up, b_up, w_dn, b_dn = _i8_args(rand, 300, 320)
+    xi[::7] = 0
+    oi, os_ = ffn.geglu_ffn_int8io(xi, xs, w_up, torch.zeros_like(b_up), w_dn,
+                                   torch.zeros_like(b_dn))
+    torch.cuda.synchronize()
+    assert not bool(oi[::7].any()) and bool((os_[::7] == 1e-12).all())
+    got = ffn.geglu_ffn_int8io(xi, xs, w_up, b_up, w_dn, b_dn)
+    check_int8io(got, ffn.geglu_ffn_int8io_reference(xi, xs, w_up, b_up, w_dn, b_dn))
+    assert torch.equal(got[0][::7], got[0][:1].expand_as(got[0][::7]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d", [(4, 128, 40), (3, 64, 80), (16, 256, 80), (16, 1024, 40),
+                                   (2, 768, 80), (1024, 256, 80)])
+def test_oneshot_attention_kernel(rand, b, s, d):
+    q, k, v = rand(b, s, d), rand(b, s, d), rand(b, s, d)
+    before = attention.oneshot_attention.launches
+    _check(attention.oneshot_attention(q, k, v), attention.oneshot_attention_reference(q, k, v))
+    assert attention.oneshot_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,d", [(2, 256, 256, 128), (3, 256, 512, 128), (4, 1024, 1024, 512),
+                                       (64, 1024, 1024, 128)])
+def test_flash_kernel(rand, b, sq, sk, d):
+    """K12, self- and cross-shaped; held to its own unrounded plain version."""
+    q, k, v = rand(b, sq, d), rand(b, sk, d), rand(b, sk, d)
+    before = attention.flash_attention.launches
+    _check(attention.flash_attention(q, k, v), attention.flash_attention_reference(q, k, v))
+    assert attention.flash_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_flash_kernel_is_within_one_output_ulp_of_f64(rand):
+    """K12 rounds nothing but its bf16 output: against an f64 attention every
+    element is within one bf16 ulp (2^-8 relative) plus 1e-5 for the f32
+    sums where the output cancels to near zero."""
+    q, k, v = rand(4, 512, 128), rand(4, 512, 128), rand(4, 512, 128)
+    exact = torch.softmax(q.double() @ k.double().transpose(1, 2) / 128**0.5, -1) @ v.double()
+    got = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert bool(((got.double() - exact).abs() <= 2.0**-8 * exact.abs() + 1e-5).all())
+
+
+@pytest.mark.cuda
+def test_probe_kernels_raise_on_what_they_do_not_take(rand):
+    q = rand(4, 100, 40)  # S = 100: no multiple of 64
+    with pytest.raises(ValueError):
+        attention.oneshot_attention(q, q, q)
+    q = rand(4, 128, 48)  # no instantiation for D = 48
+    with pytest.raises(ValueError, match="head dims"):
+        attention.oneshot_attention(q, q, q)
+    q = rand(2, 256, 80)  # the reference's composed lowering: no kernel
+    with pytest.raises(ValueError):
+        attention.flash_attention(q, q, q)
+    q = rand(2, 128, 128)  # S = 128 does not tile blocks of 256
+    with pytest.raises(ValueError):
+        attention.flash_attention(q, q, q)
+    with pytest.raises(TypeError):
+        ffn.qkv_proj(rand(64, 320).float(), *[rand(320, 320) for _ in range(3)])
+    with pytest.raises(ValueError):  # C = 20 is no multiple of 8
+        ffn.qkv_proj(rand(64, 20), *[rand(24, 20) for _ in range(3)])
+    with pytest.raises(TypeError):  # codes must be int8
+        ffn.geglu_ffn_int8io(rand(64, 320), torch.ones(64, 1, device="cuda"),
+                             *_i8_args(rand, 64, 320)[2:])
+
+
+@pytest.mark.cuda
+def test_plain_versions_of_the_probe_kernels_launch_nothing(rand):
+    fns = [ffn.qkv_proj, ffn.geglu_ffn_int8io, attention.oneshot_attention,
+           attention.flash_attention, attention.dot_product_attention, ffn.geglu_ffn]
+    before = [f.launches for f in fns]
+    x = rand(256, 320)
+    ffn.qkv_proj_reference(x, *[rand(320, 320) for _ in range(3)])
+    ffn.geglu_ffn_int8io_reference(*_i8_args(rand, 256, 320))
+    q = rand(4, 256, 128)
+    attention.oneshot_attention_reference(q, q, q)
+    attention.flash_attention_reference(q, q, q)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == before

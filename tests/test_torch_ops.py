@@ -11,7 +11,9 @@ The kernels themselves are held against these plain versions on the card
 by ``tests/test_torch_kernels.py``.
 """
 
+import ast
 import math
+import pathlib
 import subprocess
 import sys
 
@@ -253,8 +255,77 @@ def test_ddim_tables_and_step_match_jax():
     _close(PDDIM.step(_t(eps), _t(x), at[3], ap[3]).numpy(), ref, atol=1e-6)
 
 
+_FOREIGN = ("jax", "flax", "latentsync_tpu")
+
+
 def test_port_imports_no_jax():
+    """Importing the port's entry points (pipeline, server, probe) loads no
+    module of jax, flax or the JAX package."""
     code = ("import sys, latentsync_tpu_torch.serving.api, latentsync_tpu_torch.pipelines."
-            "lipsync; bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax')]; "
+            "lipsync, latentsync_tpu_torch.scripts.micro_probe; "
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {_FOREIGN!r}]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def _port_sources():
+    root = pathlib.Path(p_ffn.__file__).resolve().parents[2]
+    return [root / "chip_smoke.py", *sorted((root / "latentsync_tpu_torch").rglob("*.py"))]
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
+def test_port_source_imports_nothing_of_the_jax_package(path):
+    """No import statement anywhere in the port's sources or in
+    ``chip_smoke.py``, at any depth (imports inside functions included),
+    names jax, flax or ``latentsync_tpu``."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if n.split(".")[0] in _FOREIGN]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_native_binding_matches_the_jax_package_bit_for_bit():
+    """The port's own ctypes binding of ``native/restore.cpp`` against the
+    JAX package's, on the same seeded frames: all three functions."""
+    from latentsync_tpu.utils import native as j_native
+    from latentsync_tpu_torch.utils import native as p_native
+
+    assert p_native.restore_lib() is p_native
+    assert j_native.get_lib() is not None
+    rng = np.random.default_rng(11)
+    frames = rng.integers(0, 256, (3, 96, 80, 3), dtype=np.uint8)
+    faces = rng.integers(0, 256, (3, 64, 64, 3), dtype=np.uint8)
+    mats = np.stack([np.array([[0.9, 0.05, -6.0 + i], [-0.04, 1.1, -9.0]]) for i in range(3)])
+    np.testing.assert_array_equal(p_native.resize_frames_native(frames, (40, 56)),
+                                  j_native.resize_frames_native(frames, (40, 56)))
+    np.testing.assert_array_equal(p_native.restore_frames_native(frames, faces, mats),
+                                  j_native.restore_frames_native(frames, faces, mats))
+    got = p_native.restore_frames_const_native(frames, faces, mats[0])
+    np.testing.assert_array_equal(got, j_native.restore_frames_const_native(frames, faces,
+                                                                            mats[0]))
+    # the cached plan gives the same frames again, and copy=False pastes in place
+    scratch = frames.copy()
+    assert p_native.restore_frames_const_native(scratch, faces, mats[0], copy=False) is scratch
+    np.testing.assert_array_equal(scratch, got)
+    assert not np.array_equal(got, frames)
+
+
+def test_pipeline_without_a_device_means_cuda(monkeypatch):
+    """``LipsyncPipeline(device=None)`` runs on the card or raises: models
+    built on the CPU do not pull the pipeline there."""
+    from latentsync_tpu_torch.pipelines import lipsync
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    class Unused:
+        def __getattr__(self, name):
+            raise AssertionError("the pipeline touched a model before checking the device")
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lipsync.LipsyncPipeline(Unused(), Unused(), Unused())
