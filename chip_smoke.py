@@ -19,7 +19,9 @@ and without CUDA it exits nonzero before doing anything):
    function, where there is one (it is timed here and used nowhere in the
    port); compute each kernel's bound, the least time the card could take
    for the same work, from the bytes of its inputs and outputs and the
-   operations of its shapes; the int8 convolution route (im2col +
+   operations of its shapes, and for the attention kernels the time their
+   exponentials alone need on the special-function units
+   (``exp_bound_ms``); the int8 convolution route (im2col +
    ``torch._int_mm``) against its float64 plain version at one UNet shape
    per width and the VAE's largest ones, with equal int32 accumulators;
 3. the full-width UNet (LatentSync 1.5 stage 2, random seeded non-zero
@@ -110,6 +112,8 @@ GN_SINGLE = [((64, 320, 32, 32), 1e-6, False), ((64, 640, 16, 16), 1e-6, False),
 # operations/s by the type of the operands
 MEM_RATE = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# exponentials a clock an SM (the special-function units of one Hopper SM)
+EXP_PER_CLOCK_SM = 16
 # where the kernels run that no served configuration launches
 PROBE_PATH = {"qkv_proj": "probe", "geglu_ffn_int8io": "probe", "oneshot_attention": "probe",
               "flash_attention": "kernels"}
@@ -132,11 +136,23 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def gpu_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60)
+def gpu_query(fields: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def gpu_line() -> str:
+    return gpu_query("name,power.limit")
+
+
+def exp_rate() -> float:
+    """Exponentials a second the card can do at most: 16 a clock on each SM
+    at the highest SM clock ``nvidia-smi`` reports for it."""
+    import torch
+
+    mhz = float(gpu_query("clocks.max.sm").split()[0])
+    return EXP_PER_CLOCK_SM * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
 
 
 @contextlib.contextmanager
@@ -176,7 +192,9 @@ def cuda_ms(fn, warmup: int = 2, iters: int = 10) -> float:
 def kernel_cases():
     """One entry per kernel: name, wrapper, plain version, source, the TPU
     kernel it replaces, the library call (or None) and its shapes, each
-    (label, make_args, operations, operand type). The served kernels get
+    (label, make_args, operations, operand type) and, for an attention
+    kernel, the exponentials of its softmax (one a logit: the least the
+    function needs, whatever the kernel spends). The served kernels get
     the shapes of the served path: window batch 2 × CFG 2 → B = 4 sequences
     of 16 frames, 32² latents, channels 320/640/1280, 8 heads; the VAE
     encodes up to 64 faces and decodes 32 frames at a time. The probe's
@@ -204,15 +222,19 @@ def kernel_cases():
         mode = "temporal" if temporal else "spatial"
         return f"{mode} B={b} S={s} C={c}", make, 8 * b * s * c * c + 4 * b * s * s * c, "bf16"
 
-    def attn_args(b, s, hd):
+    def attn_args(b, s, hd, sliced=False):
         def make(r):
+            if sliced:  # q/k/v as column slices of one (rows, 3·inner) projection
+                qkv = r(b, s, 3 * hd)
+                return (qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:], 8), {}
             return (r(b, s, hd), r(b, s, hd), r(b, s, hd), 8), {}
-        return f"B={b} S={s} heads*D={hd}", make, 4 * b * s * s * hd, "bf16"
+        label = f"B={b} S={s} heads*D={hd}" + (" sliced" if sliced else "")
+        return label, make, 4 * b * s * s * hd, "bf16", b * 8 * s * s
 
     def flash_args(b, s=1024, h=1, d=512):
         def make(r):
             return (r(b, s, h, d), r(b, s, h, d), r(b, s, h, d)), {}
-        return f"B={b} S={s} H={h} D={d}", make, 4 * b * h * s * s * d, "bf16"
+        return f"B={b} S={s} H={h} D={d}", make, 4 * b * h * s * s * d, "bf16", b * h * s * s
 
     def cross_args(b, s, c):
         def make(r):
@@ -249,7 +271,7 @@ def kernel_cases():
     def bsd_args(b, s, d):
         def make(r):
             return (r(b, s, d), r(b, s, d), r(b, s, d)), {}
-        return f"B={b} S={s} D={d}", make, 4 * b * s * s * d, "bf16"
+        return f"B={b} S={s} D={d}", make, 4 * b * s * s * d, "bf16", b * s * s
 
     # the one PyTorch call for the same function, where there is one
     def sdpa_bshd(q, k, v):
@@ -301,7 +323,10 @@ def kernel_cases():
              "latentsync_tpu_torch/csrc/spatial_attention.cu",
              "latentsync_tpu/ops/temporal_attention.py:173",
              [attn_args(64, 1024, 320), attn_args(64, 64, 1280), attn_args(64, 16, 1280),
-              attn_args(64, 256, 640)], sdpa_rows),  # the last: int8-dense's block at C = 640
+              attn_args(64, 256, 640),  # int8-dense's block at C = 640
+              # a length that is no multiple of the key tile, and K2's spatial
+              # mode: q/k/v pitched inside one fused projection
+              attn_args(2, 100, 320), attn_args(64, 256, 640, sliced=True)], sdpa_rows),
         case("dot_product_attention", attention.dot_product_attention,
              attention.dot_product_attention_reference,
              "latentsync_tpu_torch/csrc/flash_attention.cu", "latentsync_tpu/ops/attention.py:85",
@@ -395,13 +420,14 @@ def check_kernels(device):
         return (torch.randn(shape, generator=gen) * s).to(device, torch.bfloat16)
 
     results, ok = [], True
+    exps_per_s = exp_rate()
     for case in kernel_cases():
         name, wrapper, plain, library = (case[k] for k in ("name", "wrapper", "plain", "library"))
         entry = {"name": name, "route": "cuda", "source": case["source"],
                  "replaces": case["replaces"], "launches": 0, "max_abs_err": 0.0, "ms": None,
                  "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None,
                  "shape": case["shapes"][0][0]}
-        for i, (label, make, ops, kind) in enumerate(case["shapes"]):
+        for i, (label, make, ops, kind, *exps) in enumerate(case["shapes"]):
             args, kw = make(r)
             with configured("fused"):  # the cross block launches its kernel only so
                 before = wrapper.launches
@@ -420,13 +446,16 @@ def check_kernels(device):
             good = launched and finite and close
             ok &= good
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            exp_bound = f" exp_bound_ms={exps[0] / exps_per_s * 1e3:.4f}" if exps else ""
             if i == 0:
                 entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                              bound_by=bound_by)
+                if exps:
+                    entry["exp_bound_ms"] = exps[0] / exps_per_s * 1e3
             lib = "none" if library_ms is None else f"{library_ms:.4f}"
             log(f"kernel {name:22s} {label:28s} max_abs_err={err:.6g} tol={tol:.6g} "
                 f"bitwise={bitwise} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} "
-                f"bound_ms={bound_ms:.4f} ({bound_by}) {'ok' if good else 'FAIL'}")
+                f"bound_ms={bound_ms:.4f} ({bound_by}){exp_bound} {'ok' if good else 'FAIL'}")
             del args, kw, got
             torch.cuda.empty_cache()
         results.append(entry)
@@ -794,6 +823,8 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     log(gpu_line())
+    log(f"SM clocks (highest, now): {gpu_query('clocks.max.sm,clocks.sm')}; "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.time()

@@ -9,8 +9,9 @@
 // weight with the LN (+PE) prologue, the attention core reading q/k/v as
 // column slices of that (M, 3 inner) buffer, and the output projection
 // with bias and residual epilogue. LN(x) never reaches device memory.
-// Bound: the projections are tensor-core bound, the temporal core memory
-// bound and the spatial core FMA bound (see gemm.cuh, attention.cuh).
+// Bound: the projections and the spatial core are tensor-core bound (the
+// core's exponentials first at D = 40), the temporal core memory bound
+// (see gemm.cuh, attention.cuh, attn_core.cuh).
 #include "attention.cuh"
 #include "gemm.cuh"
 

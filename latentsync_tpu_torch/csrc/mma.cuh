@@ -1,7 +1,7 @@
 // mma.sync m16n8k16 (bf16 in, f32 out) with explicit fragments, for the
 // attention kernels that rescale or reduce accumulator rows themselves
-// (flash.cuh, oneshot_attention.cu). Thread (g = lane >> 2, t = lane & 3)
-// of a warp holds rows g and g + 8 of the 16-row A and C tiles.
+// (flash.cuh; attn_core.cuh takes only ld32). Thread (g = lane >> 2,
+// t = lane & 3) of a warp holds rows g and g + 8 of the 16-row A and C tiles.
 #pragma once
 
 #include "common.cuh"

@@ -40,7 +40,7 @@ _SIGNATURES = {
                       _F, _P, _P, _P, _P, _P],
     "ls_temporal_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _P],
     "ls_spatial_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F,
-                             _P],
+                             _I, _P],
     "ls_flash_attention": [_P, _P, _P, *[_L] * 9, _P, _I, _I, _I, _I, _F, _P],
     "ls_cross_attn_block": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F, _P, _P,
                             _P, _P, _F, _P, _P, _P, _P, _P, _P],
@@ -125,6 +125,8 @@ def build() -> Path:
 
 def lib() -> ctypes.CDLL:
     global _lib
+    if _lib is not None:  # bound already: no lock on the launch path
+        return _lib
     with _lock:
         if _lib is None:
             cdll = ctypes.CDLL(str(build()))

@@ -20,8 +20,9 @@ Two more kernels of the reference live here, in its (B, S, D) layout with
 B folding batch and heads; only the kernel probe calls them:
 
 - ``oneshot_attention`` (K11, ``csrc/oneshot_attention.cu``): whole-row
-  attention for S ≤ 1024, exact max / exp / divide softmax, the
-  probabilities rounded to the input dtype before the value product;
+  attention for S ≤ 1024, the probabilities normalised by the whole
+  row's max and sum and then rounded to the input dtype before the value
+  product (two sweeps over the keys on the core of ``csrc/attn_core.cuh``);
 - ``flash_attention`` (K12, ``csrc/flash_kernel.cu``): streaming-softmax
   attention for D a multiple of 128 whose probabilities are never
   rounded. Nothing in the reference calls it, so nothing here does.
@@ -138,6 +139,8 @@ def oneshot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)} (head dims {ONESHOT_HEAD_DIMS}, S a multiple of "
                          f"64 up to {ONESHOT_MAX_SEQ})")
     scale = 1.0 / math.sqrt(d) if scale is None else scale
+    if not scale > 0:
+        raise ValueError(f"oneshot_attention: the kernel needs scale > 0, got {scale}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
     _build.check_cuda("oneshot_attention", q, k, v, o)

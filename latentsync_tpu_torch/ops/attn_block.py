@@ -45,7 +45,6 @@ from .temporal_attention import (
     TEMPORAL_FRAMES,
     spatial_attention,
     spatial_attention_reference,
-    spatial_smem_ok,
     temporal_attention,
     temporal_attention_reference,
 )
@@ -138,8 +137,7 @@ def self_attention_block(x: torch.Tensor, ln_scale, ln_bias, wq, wk, wv, wo, bo,
         return self_attention_composed(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads,
                                        temporal=temporal, pe=pe, eps=eps)
     d = inner // heads
-    core_ok = (s == TEMPORAL_FRAMES if temporal
-               else d in SPATIAL_HEAD_DIMS and spatial_smem_ok(s, d))
+    core_ok = s == TEMPORAL_FRAMES if temporal else d in SPATIAL_HEAD_DIMS
     if c % 8 or d % 8 or inner != heads * d or not core_ok:
         raise ValueError(f"self_attention_block: no kernel for S={s}, C={c}, "
                          f"inner={inner}, heads={heads}, temporal={temporal}")

@@ -5,7 +5,9 @@ Counterparts of ``latentsync_tpu/ops/temporal_attention.py``:
 - ``temporal_attention``: attention across the F = 16 frames of each
   sequence (``csrc/temporal_attention.cu``);
 - ``spatial_attention``: per-head attention over the S tokens of each
-  frame, S ≤ ~1400 (``csrc/spatial_attention.cu``).
+  frame, any S ≥ 1, head dims 40, 80 and 160
+  (``csrc/spatial_attention.cu`` on the ``wgmma`` core of
+  ``csrc/attn_core.cuh``).
 
 On a CUDA tensor each launches its hand-written kernel; on a CPU tensor
 it runs the plain version. q/k/v may be column slices of one fused
@@ -27,6 +29,8 @@ from .attention import dot_product_attention_reference
 
 TEMPORAL_FRAMES = 16
 SPATIAL_HEAD_DIMS = (40, 80, 160)
+# query rows a block of the spatial kernel can own (a warpgroup owns 64)
+SPATIAL_BLOCK_QS = (64, 128)
 
 
 def temporal_attention_reference(q, k, v, heads: int, scale: Optional[float] = None):
@@ -59,9 +63,10 @@ def _rows(t: torch.Tensor, name: str) -> int:
     return t.stride(1)
 
 
-def spatial_smem_ok(s: int, d: int) -> bool:
-    """K and V of one head must fit the 227 KB of shared memory a block may use."""
-    return 2 * s * d * 2 <= 227 * 1024
+def spatial_block_q(s: int) -> int:
+    """The query rows a block that the kernel picks for sequence length `s`
+    (``pick_block_q`` in ``csrc/attn_core.cuh``)."""
+    return 128 if s >= 256 else 64
 
 
 def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -84,20 +89,34 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      heads: int, scale: Optional[float] = None) -> torch.Tensor:
-    """q, k, v: (B, S, heads·D) → (B, S, heads·D)."""
+                      heads: int, scale: Optional[float] = None,
+                      block_q: Optional[int] = None) -> torch.Tensor:
+    """q, k, v: (B, S, heads·D) → (B, S, heads·D).
+
+    `block_q` is the query rows one block owns, one of
+    ``SPATIAL_BLOCK_QS`` (the reference's argument of the same name tiles
+    its grid the same way); by default the kernel picks it from S
+    (``spatial_block_q``). The plain version has no tiles and ignores it."""
     if q.device.type == "cpu":
         return spatial_attention_reference(q, k, v, heads, scale)
     b, s, hd = q.shape
     d = hd // heads
-    if d not in SPATIAL_HEAD_DIMS or hd != heads * d or not spatial_smem_ok(s, d):
-        raise ValueError(f"spatial_attention: no kernel for D={d}, S={s}")
+    if d not in SPATIAL_HEAD_DIMS or hd != heads * d or s < 1:
+        raise ValueError(f"spatial_attention: no kernel for D={d}, S={s} (head dims "
+                         f"{SPATIAL_HEAD_DIMS})")
+    if block_q is not None and block_q not in SPATIAL_BLOCK_QS:
+        raise ValueError(f"spatial_attention: block_q={block_q} is not one of "
+                         f"{SPATIAL_BLOCK_QS}")
     scale = 1.0 / math.sqrt(d) if scale is None else scale
+    if not scale > 0:
+        raise ValueError(f"spatial_attention: the kernel needs scale > 0, got {scale}")
     o = torch.empty(q.shape, device=q.device, dtype=q.dtype)
     _build.check_cuda("spatial_attention", q, k, v, o)
+    if b == 0:
+        return o
     _build.call("ls_spatial_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 _rows(q, "q"), _rows(k, "k"), _rows(v, "v"), o.data_ptr(), _rows(o, "o"),
-                b, s, heads, d, scale, _build.stream(q))
+                b, s, heads, d, scale, block_q or 0, _build.stream(q))
     spatial_attention.launches += 1
     return o
 

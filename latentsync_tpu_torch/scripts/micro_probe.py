@@ -21,10 +21,12 @@ the card's published dense peak the line names: 989e12 bf16 FLOP/s or
 versions on the CPU at whatever shapes it is given (the tests' use): its
 lines carry ``cpu_ms`` and no share, since a CPU time is no device metric.
 
-Modes: attn, spat, conv, gn, gn2, gn3, int8, ffn, ffn8, qmm, unet, ablate,
-tmod, denoise, vae, and all (every one of these). Not ported yet, and
-raising ``NotImplementedError``: dcread (needs DeepCache), spatq and tempq
-(they sweep TPU block sizes the Hopper kernels do not take).
+Modes: attn, spat, spatq, conv, gn, gn2, gn3, int8, ffn, ffn8, qmm, unet,
+ablate, tmod, denoise, vae, and all (every one of these). ``spatq`` sweeps
+the query-tile sizes the spatial kernel K4 is instantiated for, as the
+reference's sweeps its ``block_q``. Not ported yet, and raising
+``NotImplementedError``: dcread (needs DeepCache) and tempq (it sweeps a TPU
+block size the temporal kernel K3 does not take).
 """
 
 from __future__ import annotations
@@ -51,7 +53,6 @@ PEAKS = {"bf16": 989e12, "int8": 1979e12}
 SHARE_KEYS = {"bf16": "share_of_bf16_peak_989e12", "int8": "share_of_int8_peak_1979e12"}
 UNPORTED = {
     "dcread": "ROADMAP §1.4 (DeepCache and the CFG interval)",
-    "spatq": "ROADMAP §1.12 (block-size sweeps return with the redesign of K4)",
     "tempq": "ROADMAP §1.12 (block-size sweeps return with the redesign of K3)",
 }
 
@@ -243,6 +244,18 @@ def probe_spat(p: Probe, shapes=None):
             return sdpa(yh, yh, yh).reshape(b, f, h * d)
 
         p.bench(f"temporal_library_sdpa_F{f}_C{h * d}", t_sdpa, q, ops)
+
+
+def probe_spatq(p: Probe, shapes=None):
+    """K4 at each query-tile size it is instantiated for, at the UNet's
+    largest spatial shape (the reference sweeps ``block_q`` there)."""
+    shapes = shapes or attention_shapes(p)["spatial"][:1]
+    for b, s, h, d in shapes:
+        q = p.randn(b, s, h * d)
+        for block_q in ta.SPATIAL_BLOCK_QS:
+            p.bench(f"spat_bq{block_q}_S{s}",
+                    lambda y: ta.spatial_attention(y, y, y, h, block_q=block_q), q,
+                    4 * b * h * s * s * d)
 
 
 def level_shapes(p: Probe, levels=((32, 320), (16, 640), (8, 1280))):
@@ -532,9 +545,9 @@ def probe_vae(p: Probe, cfg: Optional[LatentSyncConfig] = None, batches=(32, 64)
 
 
 MODES = {
-    "attn": probe_attn, "spat": probe_spat, "conv": probe_conv, "gn": probe_gn,
-    "gn2": probe_gn2, "gn3": probe_gn3, "int8": probe_int8, "ffn": probe_ffn,
-    "ffn8": probe_ffn8, "qmm": probe_qmm, "unet": probe_unet,
+    "attn": probe_attn, "spat": probe_spat, "spatq": probe_spatq, "conv": probe_conv,
+    "gn": probe_gn, "gn2": probe_gn2, "gn3": probe_gn3, "int8": probe_int8,
+    "ffn": probe_ffn, "ffn8": probe_ffn8, "qmm": probe_qmm, "unet": probe_unet,
     "ablate": lambda p, *a, **kw: probe_unet(p, *a, ablate=True, **kw), "tmod": probe_tmod,
     "denoise": probe_denoise, "vae": probe_vae,
 }

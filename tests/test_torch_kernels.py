@@ -92,11 +92,84 @@ def test_spatial_attention_kernel(rand, b, s, hd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hd", [(1, 1400, 320), (1, 1400, 640), (1, 1400, 1280),
+                                    (3, 8, 1280), (5, 1, 320), (2, 130, 640)])
+def test_spatial_attention_kernel_any_length(rand, b, s, hd):
+    """Lengths that are no multiple of the 64-key tile, down to one token and
+    up to S = 1400 at every head dim (no limit from shared memory: K/V
+    stream through it)."""
+    q, k, v = rand(b, s, hd), rand(b, s, hd), rand(b, s, hd)
+    before = ta.spatial_attention.launches
+    _check(ta.spatial_attention(q, k, v, 8), ta.spatial_attention_reference(q, k, v, 8))
+    assert ta.spatial_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,hd", [(1024, 320), (256, 640), (100, 320), (64, 1280), (16, 1280)])
+def test_spatial_attention_block_q(rand, s, hd):
+    """Every query-tile size gives the result of the one picked by shape."""
+    q, k, v = rand(2, s, hd), rand(2, s, hd), rand(2, s, hd)
+    ref = ta.spatial_attention_reference(q, k, v, 8)
+    picked = ta.spatial_attention(q, k, v, 8)
+    _check(picked, ref)
+    assert torch.equal(picked, ta.spatial_attention(q, k, v, 8,
+                                                    block_q=ta.spatial_block_q(s)))
+    for block_q in ta.SPATIAL_BLOCK_QS:
+        _check(ta.spatial_attention(q, k, v, 8, block_q=block_q), ref)
+    with pytest.raises(ValueError, match="block_q"):
+        ta.spatial_attention(q, k, v, 8, block_q=32)
+
+
+def _attention_f64(q, k, v):
+    """(B, S, D) attention in float64, nothing rounded."""
+    q, k, v = q.double(), k.double(), v.double()
+    w = torch.softmax(q @ k.transpose(1, 2) / q.shape[-1] ** 0.5, -1)
+    return w @ v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d", [(1024, 40), (256, 80), (100, 40), (64, 160)])
+def test_spatial_attention_large_logits(rand, s, d):
+    """Inputs × 30: logits in the thousands, so the running maximum moves by
+    large steps, in some tiles and not in others; against an f64 attention."""
+    b, heads = 2, 8
+    q, k, v = (30 * rand(b, s, heads * d) for _ in range(3))
+    got = ta.spatial_attention(q, k, v, heads)
+
+    def fold(t):
+        return t.reshape(b, s, heads, d).transpose(1, 2).reshape(b * heads, s, d)
+
+    exact = _attention_f64(fold(q), fold(k), fold(v))
+    _check(fold(got), exact.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d", [(1024, 40), (256, 80), (64, 40)])
+def test_oneshot_attention_large_logits(rand, s, d):
+    q, k, v = (30 * rand(6, s, d) for _ in range(3))
+    _check(attention.oneshot_attention(q, k, v), _attention_f64(q, k, v).float())
+
+
+@pytest.mark.cuda
+def test_oneshot_attention_split_batch(rand):
+    """No state crosses blocks: B in two calls gives the same bits."""
+    q, k, v = rand(48, 512, 40), rand(48, 512, 40), rand(48, 512, 40)
+    whole = attention.oneshot_attention(q, k, v)
+    parts = torch.cat([attention.oneshot_attention(q[:20], k[:20], v[:20]),
+                       attention.oneshot_attention(q[20:], k[20:], v[20:])])
+    torch.cuda.synchronize()
+    assert torch.equal(whole, parts)
+
+
+@pytest.mark.cuda
 def test_kernels_read_column_slices_of_a_fused_projection(rand):
     """The cores take q/k/v as column views of one (rows, 3·inner) buffer."""
     qkv = rand(32, 16, 3 * 1280)
     q, k, v = qkv[..., :1280], qkv[..., 1280:2560], qkv[..., 2560:]
     _check(ta.temporal_attention(q, k, v, 8), ta.temporal_attention_reference(q, k, v, 8))
+    _check(ta.spatial_attention(q, k, v, 8), ta.spatial_attention_reference(q, k, v, 8))
+    qkv = rand(64, 256, 3 * 640)  # K2's spatial mode: one (rows, 3·inner) buffer
+    q, k, v = qkv[..., :640], qkv[..., 640:1280], qkv[..., 1280:]
     _check(ta.spatial_attention(q, k, v, 8), ta.spatial_attention_reference(q, k, v, 8))
 
 
@@ -175,6 +248,11 @@ def test_cuda_tensors_never_take_the_plain_version(rand, monkeypatch):
     q = rand(2, 64, 320).float()  # the kernels take bf16 only
     with pytest.raises(TypeError):
         ta.spatial_attention(q, q, q, 8)
+    q = rand(2, 64, 320)
+    with pytest.raises(ValueError, match="scale"):  # the kernels fold scale into a base-2 exponent
+        ta.spatial_attention(q, q, q, 8, scale=-1.0)
+    with pytest.raises(ValueError, match="scale"):
+        attention.oneshot_attention(rand(2, 64, 40), rand(2, 64, 40), rand(2, 64, 40), scale=0.0)
     q = rand(2, 256, 8, 24)  # on the flash route, but no flash kernel for D = 24
     with pytest.raises(ValueError, match="head dims"):
         attention.dot_product_attention(q, q, q)

@@ -227,6 +227,7 @@ def _tiny_config():
 _MODE_ARGS = {
     "attn": (lambda: ((_ATT,), {}), 3),
     "spat": (lambda: ((_ATT,), {}), 6),
+    "spatq": (lambda: ((_ATT["spatial"],), {}), 2),
     "conv": (lambda: ((_LEVELS,), {}), 1),
     "gn": (lambda: ((_LEVELS,), {}), 1),
     "gn2": (lambda: ((_LEVELS,), {}), 2),
