@@ -14,7 +14,9 @@ and without CUDA it exits nonzero before doing anything):
    the kernels only the kernel probe runs (K9 fused q/k/v projection, K10
    int8-in/int8-out GEGLU, K11 one-shot attention, K12 streaming attention,
    and the flash route at head dims 40 and 80), at every shape the probe
-   gives them at its default 4 windows; time both with CUDA events, and
+   gives them at its default 4 windows; K1, K2 and K9 also at one shape
+   whose K is no multiple of the GEMM template's 64-deep k-tile and whose M
+   and N are ragged; time both with CUDA events, and
    beside them the one PyTorch library call that computes the same
    function, where there is one (it is timed here and used nowhere in the
    port); compute each kernel's bound, the least time the card could take
@@ -214,10 +216,10 @@ def kernel_cases():
                     r(c, s=0.1), 1 + r(c, s=0.1), r(c, s=0.1)), {"residual": True}
         return f"M={m} C={c}", make, 24 * m * c * c, "bf16"
 
-    def block_args(b, s, c, temporal):
+    def block_args(b, s, c, temporal, heads=8):
         def make(r):
             ws = [r(c, c, s=c**-0.5) for _ in range(4)]
-            return ((r(b, s, c), 1 + r(c, s=0.1), r(c, s=0.1), *ws, r(c, s=0.1), 8),
+            return ((r(b, s, c), 1 + r(c, s=0.1), r(c, s=0.1), *ws, r(c, s=0.1), heads),
                     {"temporal": temporal, "pe": r(s, c) if temporal else None})
         mode = "temporal" if temporal else "spatial"
         return f"{mode} B={b} S={s} C={c}", make, 8 * b * s * c * c + 4 * b * s * s * c, "bf16"
@@ -307,12 +309,16 @@ def kernel_cases():
         case("geglu_ffn", ffn.geglu_ffn, ffn.geglu_ffn_reference,
              "latentsync_tpu_torch/csrc/geglu.cu", "latentsync_tpu/ops/ffn.py:82",
              [ffn_args(65536, 320), ffn_args(16384, 640), ffn_args(4096, 1280),
-              ffn_args(1024, 1280)]),
+              ffn_args(1024, 1280),
+              # K no multiple of the 64-deep k-tile, ragged M and N: the
+              # zero-filled last tile and the masks
+              ffn_args(200, 72)]),
         case("self_attention_block", attn_block.self_attention_block,
              attn_block.self_attention_block_reference,
              "latentsync_tpu_torch/csrc/attn_block.cu", "latentsync_tpu/ops/attn_block.py:76",
              [block_args(4096, 16, 320, True), block_args(1024, 16, 640, True),
-              block_args(64, 256, 640, False)]),
+              block_args(64, 256, 640, False),
+              block_args(13, 16, 72, True, heads=9)]),  # M = 208, K = 72: ragged
         case("temporal_attention", ta.temporal_attention, ta.temporal_attention_reference,
              "latentsync_tpu_torch/csrc/temporal_attention.cu",
              "latentsync_tpu/ops/temporal_attention.py:47",
@@ -349,10 +355,13 @@ def kernel_cases():
              [qmm_args(*a) for a in QMM_SHAPES]),
         case("qkv_proj", ffn.qkv_proj, ffn.qkv_proj_reference,
              "latentsync_tpu_torch/csrc/qkv_proj.cu", "latentsync_tpu/ops/ffn.py:269",
-             [qkv_args(131072, 320), qkv_args(32768, 640), qkv_args(8192, 1280)], library_qkv),
+             [qkv_args(131072, 320), qkv_args(32768, 640), qkv_args(8192, 1280),
+              qkv_args(200, 72)],  # ragged M, N and last k-tile
+             library_qkv),
         case("geglu_ffn_int8io", ffn.geglu_ffn_int8io, ffn.geglu_ffn_int8io_reference,
              "latentsync_tpu_torch/csrc/geglu_i8.cu", "latentsync_tpu/ops/ffn.py:338",
-             [i8_args(131072, 320), i8_args(32768, 640)]),
+             [i8_args(131072, 320), i8_args(32768, 640),
+              i8_args(200, 72)]),  # ragged M, N and last k-tile
         case("oneshot_attention", attention.oneshot_attention,
              attention.oneshot_attention_reference,
              "latentsync_tpu_torch/csrc/oneshot_attention.cu",

@@ -56,10 +56,12 @@
 #pragma once
 
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace ls_core {
 
 using ls_mma::ld32;
+using namespace ls_wg;
 
 constexpr int KT = 64;     // keys of one tile
 constexpr int STAGES = 3;  // ring of K/V tiles in shared memory
@@ -80,25 +82,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const bf162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// cp.async of 16 bytes to a shared-memory address already in its window
-__device__ __forceinline__ void cp_async16s(unsigned smem_dst, const void* gmem_src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_dst), "l"(gmem_src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(LS_FULL_MASK, x, 1));
   return fmaxf(x, __shfl_xor_sync(LS_FULL_MASK, x, 2));
@@ -109,36 +92,7 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(LS_FULL_MASK, x, 2);
 }
 
-// ---------------------------------------------------------------------------
-// wgmma: D (f32, registers) = or += A (bf16, registers) x B (bf16, shared
-// memory). The four warps of a warpgroup start it together; it runs behind
-// them: fence before the first of a batch (registers and shared memory
-// written by ordinary instructions are then seen), commit after the last,
-// wait before the accumulators are read.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Descriptor of an unswizzled B operand made of 128-byte core matrices.
-// lbo / sbo: byte steps between core matrices; which dimension each walks
-// depends on the operand's major-ness (see the two uses below).
-__device__ __forceinline__ uint64_t wg_desc(unsigned smem_addr, unsigned lbo, unsigned sbo) {
-  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
-// what to add to a descriptor to move its start `bytes` (a multiple of 16) on
-__device__ __forceinline__ uint64_t wg_step(int bytes) { return (uint64_t)(bytes >> 4); }
+// wgmma with A from registers (fences, descriptors: wgmma.cuh)
 
 // s (64 x 64) = or += a (64 x 16, registers) x K^T: B is 64 keys x 16 of d, K-major
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
@@ -231,11 +185,6 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[
   if constexpr (D == 160) wgmma_n160(d, a, desc, 1);
 }
 
-// a compile-time value passed as a lambda argument
-template <int V>
-struct Tag {
-  static constexpr int value = V;
-};
 enum { ONLINE, STATS, NORMALISED };  // what a sweep does (see softmax_pv)
 
 template <int D>
@@ -465,9 +414,7 @@ __global__ void __launch_bounds__(128 * NWG)
   int stage = 0;
   auto tile_step = [&](int step, int valid, auto mode, auto masked) {
     cp_async_wait<STAGES - 2>();  // this thread's copies of tile `step` have landed
-    // (the matrix unit reads shared memory by another path than the one the
-    // copies and the zeros were written through)
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_async_proxy();  // the copies and the zeros, for the matrix unit
     __syncthreads();  // everyone's have, and tile step - 1 has been read
     float s[32];
     qk(stage, s, valid, masked);

@@ -4,8 +4,8 @@
 // (pallas_call at attn_block.py:370). On the TPU one program kept LN(x),
 // q/k/v and the attention output in VMEM; here it is a chain of five
 // launches on one stream, reusing the GEMM template of gemm.cuh:
-//   1. LayerNorm row statistics of x;
-//   2. q = bf16(LN(x)) Wq^T, the LN applied while x is staged (prologue);
+//   1. the LayerNorm row pass: bf16(LN(x)) written once to a scratch buffer;
+//   2. q = bf16(LN(x)) Wq^T;
 //   3. [k | v] = ctx [Wk; Wv]^T, one product on the raw context;
 //   4. the attention core below;
 //   5. out = x + o Wo^T + bo, bias and residual added to the f32
@@ -139,20 +139,20 @@ extern "C" int ls_cross_attn_block(const void* x, const void* ctx, int batch, in
                                    int sk, int cc, int inner, int heads, const float* ln_w,
                                    const float* ln_b, float eps, const void* w_q,
                                    const void* w_kv, const void* w_o, const float* b_o,
-                                   float scale, void* stats, void* q, void* kv, void* attn,
+                                   float scale, void* normed, void* q, void* kv, void* attn,
                                    void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = batch * seq;
   const bf16* xb = static_cast<const bf16*>(x);
-  float2* st = static_cast<float2*>(stats);
+  bf16* nb = static_cast<bf16*>(normed);
   bf16* qb = static_cast<bf16*>(q);
   bf16* kvb = static_cast<bf16*>(kv);
   bf16* ob = static_cast<bf16*>(attn);
-  cudaError_t e = ls_gemm::row_stats(xb, m, c, c, eps, st, s);
+  cudaError_t e = ls_gemm::ln_rows(xb, m, c, c, eps, ln_w, ln_b, nullptr, 0, nb, s);
   if (e != cudaSuccess) return (int)e;
 
   ls_gemm::Args pq = {};
-  pq.a = xb;
+  pq.a = nb;
   pq.lda = c;
   pq.b = static_cast<const bf16*>(w_q);
   pq.ldb = c;
@@ -161,9 +161,6 @@ extern "C" int ls_cross_attn_block(const void* x, const void* ctx, int batch, in
   pq.m = m;
   pq.n = inner;
   pq.k = c;
-  pq.stats = st;
-  pq.ln_w = ln_w;
-  pq.ln_b = ln_b;
   e = ls_gemm::gemm(pq, s);
   if (e != cudaSuccess) return (int)e;
 

@@ -3,33 +3,35 @@
 // Replaces the TPU kernel latentsync_tpu/ops/ffn.py _geglu_kernel
 // (pallas_call at ffn.py:156). The TPU kept the (M, 4C) hidden in VMEM
 // across an inner grid axis; Hopper has no sequential grid, so the
-// product becomes a chain of three launches on one stream: LayerNorm row
-// statistics, the up-projection with the LN prologue and a fused
-// value * GELU(gate) epilogue (the (M, 8C) pre-activation never reaches
-// device memory, only the bf16 (M, 4C) hidden does), and the
-// down-projection with bias and residual epilogue. Bound: tensor-core
-// throughput of the two GEMMs (see gemm.cuh).
+// product becomes a chain of three launches on one stream: the LayerNorm
+// row pass (bf16(LN(x)) written once to a scratch buffer), the
+// up-projection with a fused value * GELU(gate) epilogue on 64 value and
+// 64 gate columns a block (the (M, 8C) pre-activation never reaches device
+// memory, only the bf16 (M, 4C) hidden does), and the down-projection with
+// bias and residual epilogue. Bound: tensor-core throughput of the two
+// products, on wgmma behind a shared-memory ring (see gemm.cuh).
 #include "gemm.cuh"
 
 extern "C" int ls_geglu_ffn(const void* x, int m, int c, const void* w_up, const float* b_up,
                             const void* w_down, const float* b_down, const float* ln_w,
-                            const float* ln_b, float eps, int residual, void* stats, void* hidden,
+                            const float* ln_b, float eps, int residual, void* normed, void* hidden,
                             void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int inner = 4 * c;
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* wu = static_cast<const bf16*>(w_up);
-  float2* st = ln_w != nullptr ? static_cast<float2*>(stats) : nullptr;
+  const bf16* a = xb;
   cudaError_t e = cudaSuccess;
-  if (st != nullptr) {
-    e = ls_gemm::row_stats(xb, m, c, c, eps, st, s);
+  if (ln_w != nullptr) {
+    e = ls_gemm::ln_rows(xb, m, c, c, eps, ln_w, ln_b, nullptr, 0, static_cast<bf16*>(normed), s);
     if (e != cudaSuccess) return (int)e;
+    a = static_cast<const bf16*>(normed);
   }
   ls_gemm::Args up = {};
-  up.a = xb;
+  up.a = a;
   up.lda = c;
-  up.b = wu;                      // value rows [0, inner)
-  up.b2 = wu + (size_t)inner * c;  // gate rows [inner, 2 inner)
+  up.b = wu;                          // value rows [0, inner)
+  up.b_gate = wu + (size_t)inner * c;  // gate rows [inner, 2 inner)
   up.ldb = c;
   up.c = static_cast<bf16*>(hidden);
   up.ldc = inner;
@@ -37,10 +39,7 @@ extern "C" int ls_geglu_ffn(const void* x, int m, int c, const void* w_up, const
   up.n = inner;
   up.k = c;
   up.bias = b_up;
-  up.bias2 = b_up + inner;
-  up.stats = st;
-  up.ln_w = ln_w;
-  up.ln_b = ln_b;
+  up.bias_gate = b_up + inner;
   e = ls_gemm::gemm(up, s);
   if (e != cudaSuccess) return (int)e;
   ls_gemm::Args down = {};

@@ -8,20 +8,21 @@
 // the f32 result of a row block in VMEM across an inner grid axis.
 //
 // Hopper has no sequential grid, so this is geglu.cu's chain with other
-// ends: the up-projection dequantizes its int8 A tile while staging it
-// (gemm.cuh AQ, as qmm.cu quantizes while staging), so no float x reaches
-// device memory; the down-projection leaves its (M, C) result in an f32
-// scratch buffer (gemm.cuh F32OUT), because a block of the GEMM owns 64
-// of a row's C columns and the output scale needs the whole row; a third
-// pass, one warp a row, takes the row's amax and writes the int8 codes and
-// the scale. The scratch stays inside the chain: what leaves is int8 + f32
-// scales. The codes use IEEE division and round half to even and need no
-// clamp (|res| / os <= 127 by construction), as the TPU kernel's; an
-// all-zero row gives os = 1e-12 and zero codes.
+// ends: a row pass dequantizes x once into a bf16 scratch buffer (gemm.cuh
+// dequant_rows, in the place of geglu.cu's LayerNorm pass), the
+// up-projection reads it like any A; the down-projection leaves its (M, C)
+// result in an f32 scratch buffer (gemm.cuh F32OUT), because a block of the
+// GEMM owns part of a row's C columns and the output scale needs the whole
+// row; a last pass, one warp a row, takes the row's amax and writes the int8
+// codes and the scale. The scratch buffers stay inside the chain: what
+// leaves is int8 + f32 scales. The codes use IEEE division and round half to
+// even and need no clamp (|res| / os <= 127 by construction), as the TPU
+// kernel's; an all-zero row gives os = 1e-12 and zero codes.
 //
 // Bound: operations, the 24 M C^2 FLOP of the two GEMMs on the tensor cores
 // (see gemm.cuh); the int8 ends halve the activation bytes that enter and
-// leave, which the bf16 hidden and the f32 scratch outweigh in this version.
+// leave, which the bf16 x and hidden and the f32 scratch outweigh in this
+// version.
 #include "gemm.cuh"
 
 namespace {
@@ -55,17 +56,19 @@ __global__ void row_quantize_kernel(const float* __restrict__ res, int m, int c,
 
 extern "C" int ls_geglu_ffn_int8io(const void* xi, const float* xs, int m, int c, const void* w_up,
                                    const float* b_up, const void* w_down, const float* b_down,
-                                   void* hidden, float* res, void* out_codes, float* out_scales,
-                                   void* stream) {
+                                   void* xdq, void* hidden, float* res, void* out_codes,
+                                   float* out_scales, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int inner = 4 * c;
   const bf16* wu = static_cast<const bf16*>(w_up);
+  cudaError_t e = ls_gemm::dequant_rows(static_cast<const int8_t*>(xi), xs, m, c,
+                                        static_cast<bf16*>(xdq), s);
+  if (e != cudaSuccess) return (int)e;
   ls_gemm::Args up = {};
-  up.a_q = static_cast<const int8_t*>(xi);
-  up.a_scale = xs;
+  up.a = static_cast<const bf16*>(xdq);
   up.lda = c;
-  up.b = wu;                      // value rows [0, inner)
-  up.b2 = wu + (size_t)inner * c;  // gate rows [inner, 2 inner)
+  up.b = wu;                          // value rows [0, inner)
+  up.b_gate = wu + (size_t)inner * c;  // gate rows [inner, 2 inner)
   up.ldb = c;
   up.c = static_cast<bf16*>(hidden);
   up.ldc = inner;
@@ -73,8 +76,8 @@ extern "C" int ls_geglu_ffn_int8io(const void* xi, const float* xs, int m, int c
   up.n = inner;
   up.k = c;
   up.bias = b_up;
-  up.bias2 = b_up + inner;
-  cudaError_t e = ls_gemm::gemm_dequant_geglu(up, s);
+  up.bias_gate = b_up + inner;
+  e = ls_gemm::gemm(up, s);
   if (e != cudaSuccess) return (int)e;
   ls_gemm::Args down = {};
   down.a = static_cast<const bf16*>(hidden);
@@ -87,7 +90,7 @@ extern "C" int ls_geglu_ffn_int8io(const void* xi, const float* xs, int m, int c
   down.n = c;
   down.k = inner;
   down.bias = b_down;
-  e = ls_gemm::gemm_f32out(down, s);
+  e = ls_gemm::gemm(down, s);
   if (e != cudaSuccess) return (int)e;
   const int rows_per_block = 8;
   row_quantize_kernel<<<(m + rows_per_block - 1) / rows_per_block, 32 * rows_per_block, 0, s>>>(

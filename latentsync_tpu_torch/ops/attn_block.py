@@ -153,7 +153,7 @@ def self_attention_block(x: torch.Tensor, ln_scale, ln_bias, wq, wk, wv, wo, bo,
     pe_b = None if pe is None else pe.to(device=dev, dtype=dt).contiguous()
     _build.check_cuda("self_attention_block", x, w_qkv, w_o)
     m = b * s
-    stats = torch.empty((m, 2), **f32)
+    normed = torch.empty((m, c), device=dev, dtype=dt)  # scratch: bf16(LN(x) [+ pe])
     qkv = torch.empty((m, 3 * inner), device=dev, dtype=dt)
     attn = torch.empty((m, inner), device=dev, dtype=dt)
     out = torch.empty_like(x)
@@ -162,7 +162,7 @@ def self_attention_block(x: torch.Tensor, ln_scale, ln_bias, wq, wk, wv, wo, bo,
         "ls_attn_block", x.data_ptr(), b, s, c, inner, heads, int(temporal),
         ln_w.data_ptr(), ln_b.data_ptr(), eps, _build.ptr(pe_b),
         w_qkv.data_ptr(), w_o.data_ptr(), b_o.data_ptr(), scale,
-        stats.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
+        normed.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
         _build.stream(x))
     self_attention_block.launches += 1
     return out
@@ -243,7 +243,7 @@ def cross_attention_block(x: torch.Tensor, ln_scale, ln_bias, ctx: torch.Tensor,
     ln_b = ln_bias.to(**f32).contiguous()
     _build.check_cuda("cross_attention_block", x, ctx, w_q, w_kv, w_o)
     m = b * s
-    stats = torch.empty((m, 2), **f32)
+    normed = torch.empty((m, c), device=dev, dtype=dt)  # scratch: bf16(LN(x))
     q = torch.empty((m, inner), device=dev, dtype=dt)
     kv = torch.empty((b * sk, 2 * inner), device=dev, dtype=dt)
     attn = torch.empty((m, inner), device=dev, dtype=dt)
@@ -251,7 +251,7 @@ def cross_attention_block(x: torch.Tensor, ln_scale, ln_bias, ctx: torch.Tensor,
     _build.call(
         "ls_cross_attn_block", x.data_ptr(), ctx.data_ptr(), b, s, c, sk, cc, inner, heads,
         ln_w.data_ptr(), ln_b.data_ptr(), eps, w_q.data_ptr(), w_kv.data_ptr(),
-        w_o.data_ptr(), b_o.data_ptr(), 1.0 / math.sqrt(d), stats.data_ptr(), q.data_ptr(),
+        w_o.data_ptr(), b_o.data_ptr(), 1.0 / math.sqrt(d), normed.data_ptr(), q.data_ptr(),
         kv.data_ptr(), attn.data_ptr(), out.data_ptr(), _build.stream(x))
     cross_attention_block.launches += 1
     return out

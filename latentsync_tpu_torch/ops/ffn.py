@@ -3,8 +3,9 @@ fused q/k/v projection (K9) and the int8-in/int8-out GEGLU (K10).
 
 Counterpart of ``latentsync_tpu/ops/ffn.py`` ``geglu_ffn``. On a CUDA
 tensor it launches the hand-written kernel chain of ``csrc/geglu.cu``
-(LN stats, up-projection + GEGLU epilogue, down-projection + bias +
-residual epilogue); on a CPU tensor it runs the plain version below.
+(the LayerNorm row pass into a scratch buffer, up-projection + GEGLU
+epilogue, down-projection + bias + residual epilogue); on a CPU tensor it
+runs the plain version below.
 
 Where the reference runs its composed FF instead (``LATENTSYNC_FUSED_FFN=0``
 or an int8 dense mode, ``unet3d.py:273``), the UNet calls
@@ -32,7 +33,8 @@ import torch.nn.functional as F
 
 from . import _build
 
-# the GEMM grids have one row of blocks per 128 rows (gridDim.y ≤ 65535)
+# rows the wrappers take; the GEMM template itself refuses a product whose
+# row offsets (rows x pitch) pass 32 bits, and the wrapper then raises
 _MAX_ROWS = 65535 * 128
 
 
@@ -102,13 +104,14 @@ def geglu_ffn(x: torch.Tensor, w_up, b_up, w_down, b_down,
     # every buffer the kernels read stays referenced until after the launch
     b_up = b_up.to(**f32).contiguous()
     b_down = b_down.to(**f32).contiguous()
-    stats = torch.empty((m, 2), **f32) if has_ln else None
+    # scratch of the chain: bf16(LN(x)), written once by the row pass
+    normed = torch.empty_like(x2) if has_ln else None
     hidden = torch.empty((m, inner), device=x.device, dtype=x.dtype)
     out = torch.empty_like(x2)
     _build.call(
         "ls_geglu_ffn", x2.data_ptr(), m, c, w_up.data_ptr(), b_up.data_ptr(),
         w_down.data_ptr(), b_down.data_ptr(), _build.ptr(ln_w),
-        _build.ptr(ln_b), eps, int(residual), _build.ptr(stats),
+        _build.ptr(ln_b), eps, int(residual), _build.ptr(normed),
         hidden.data_ptr(), out.data_ptr(), _build.stream(x))
     geglu_ffn.launches += 1
     return out.reshape(x.shape)
@@ -221,8 +224,10 @@ def geglu_ffn_int8io(x_i8: torch.Tensor, x_scale: torch.Tensor, w_up, b_up, w_do
     w_down = w_down.to(bf).contiguous()
     b_up = b_up.to(device=dev, dtype=f32).contiguous()
     b_down = b_down.to(device=dev, dtype=f32).contiguous()
+    # scratch of the chain: the dequantized x, the hidden, the f32 result
+    xdq = torch.empty((m, c), device=dev, dtype=bf)
     hidden = torch.empty((m, inner), device=dev, dtype=bf)
-    res = torch.empty((m, c), device=dev, dtype=f32)  # scratch of the chain
+    res = torch.empty((m, c), device=dev, dtype=f32)
     out = torch.empty((m, c), device=dev, dtype=i8)
     out_scale = torch.empty((m, 1), device=dev, dtype=f32)
     _build.check_cuda("geglu_ffn_int8io", x_i8, xs, w_up, b_up, w_down, b_down, hidden, res,
@@ -230,8 +235,9 @@ def geglu_ffn_int8io(x_i8: torch.Tensor, x_scale: torch.Tensor, w_up, b_up, w_do
     if m == 0:
         return out, out_scale
     _build.call("ls_geglu_ffn_int8io", x_i8.data_ptr(), xs.data_ptr(), m, c, w_up.data_ptr(),
-                b_up.data_ptr(), w_down.data_ptr(), b_down.data_ptr(), hidden.data_ptr(),
-                res.data_ptr(), out.data_ptr(), out_scale.data_ptr(), _build.stream(x_i8))
+                b_up.data_ptr(), w_down.data_ptr(), b_down.data_ptr(), xdq.data_ptr(),
+                hidden.data_ptr(), res.data_ptr(), out.data_ptr(), out_scale.data_ptr(),
+                _build.stream(x_i8))
     geglu_ffn_int8io.launches += 1
     return out, out_scale
 

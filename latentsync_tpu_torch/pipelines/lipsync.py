@@ -6,10 +6,20 @@ bundle) at reference semantics: 16-frame windows denoised in batches
 with classifier-free guidance folded into the batch (unconditional =
 zero audio first, conditional second), DDIM, one noise frame shared by
 every frame, VAE decode, mouth composite and the host inverse-warp
-paste-back of ``native/restore.cpp``. The public API and the
-``JobState`` fields are the JAX package's; its tensors keep the JAX
-layouts ((W, F, h, w, C) latents, (W, F, S, D) audio) and live on the
-pipeline's device. The reference's int8 switches (``LATENTSYNC_INT8``,
+paste-back of ``native/restore.cpp``. The public API, the ``JobState``
+fields and the keys of ``JobState.timings`` are the JAX package's; its
+tensors keep the JAX layouts ((W, F, h, w, C) latents, (W, F, S, D)
+audio) and live on the pipeline's device.
+
+Stage timers. The host-side keys read the host's clock, and launches on a
+CUDA device return before the work is done: ``vae_encode`` and
+``denoise_dispatch`` are the time to enqueue their stage, and ``vae_decode``
+is the time ``finish`` waits for decoded chunks, the device's tail
+included. Beside them, on a CUDA device only (absent on the CPU, not
+zero), ``device_vae_encode``, ``device_denoise`` and ``device_vae_decode``
+are device seconds between CUDA events recorded around each stage on the
+current stream and read once, after the request's last fetch: no
+synchronisation is added inside the request. The reference's int8 switches (``LATENTSYNC_INT8``,
 ``LATENTSYNC_INT8_DENSE``) are read by the models at each call, so one
 pipeline serves whichever configuration the environment names at that
 call. Not ported yet: face detection (requests without a bundle raise),
@@ -20,10 +30,11 @@ another operating point), the onboarding latent artifact, and
 
 from __future__ import annotations
 
+import contextlib
 import os
 import tempfile
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -79,7 +90,7 @@ class JobState:
     masked_lat_w: torch.Tensor
     ref_lat_w: torch.Tensor
     audio_w: torch.Tensor      # (W, F, S, D)
-    frames: np.ndarray
+    frames: Optional[np.ndarray]  # None once finish has pasted into them
     boxes: list
     matrices: list
     masks: np.ndarray
@@ -93,6 +104,8 @@ class JobState:
     processor: object
     timings: dict
     start_time: float
+    # device stage -> [(start, end) CUDA events]; empty on a CPU device
+    device_events: dict = field(default_factory=dict)
 
 
 class LipsyncPipeline:
@@ -121,6 +134,22 @@ class LipsyncPipeline:
     # ------------------------------------------------------------------
     # device stages
     # ------------------------------------------------------------------
+
+    @contextlib.contextmanager
+    def _device_stage(self, events: dict, name: str):
+        """Record a CUDA event before and after the block on the current
+        stream and keep the pair under `name`; nothing on a CPU device."""
+        if self.device.type != "cuda":
+            yield
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            yield
+        finally:
+            end.record()
+            events.setdefault(name, []).append((start, end))
 
     @torch.inference_mode()
     def _vae_encode_pair(self, faces_u8: np.ndarray, keep: np.ndarray, chunk: int = 64):
@@ -188,7 +217,7 @@ class LipsyncPipeline:
         t_start = time.time()
         cfg = self.config
         res = height or cfg.data.resolution
-        timings = {}
+        timings, device_events = {}, {}
 
         t0 = time.time()
         mask_image = load_fixed_mask(res, mask_image_path)
@@ -225,7 +254,8 @@ class LipsyncPipeline:
         masks = np.ascontiguousarray(
             np.broadcast_to(keep[..., :1], pixel_values.shape[:3] + (1,)))
         lat_hw = res // cfg.vae.scale_factor
-        masked_lat, ref_lat = self._vae_encode_pair(faces_rs, keep)
+        with self._device_stage(device_events, "vae_encode"):
+            masked_lat, ref_lat = self._vae_encode_pair(faces_rs, keep)
         idx = _nearest_indices(keep.shape[1], lat_hw)
         keep_small = torch.from_numpy(keep[:, :, :, :1])[:, idx][:, :, idx].to(self.device)
         mask_small = keep_small.expand(total, lat_hw, lat_hw, 1)
@@ -249,7 +279,7 @@ class LipsyncPipeline:
             pixel_values=pixel_values, audio_samples=audio_samples, num_frames=num_frames,
             num_windows=num_windows, video_fps=video_fps,
             audio_sample_rate=audio_sample_rate, lat_hw=lat_hw, processor=processor,
-            timings=timings, start_time=t_start)
+            timings=timings, start_time=t_start, device_events=device_events)
 
     def denoise_decode_chunks(self, state: JobState, num_inference_steps: int = 20,
                               guidance_scale: float = 1.5, window_batch: int = 2):
@@ -270,12 +300,15 @@ class LipsyncPipeline:
                     return part
                 return torch.cat([part, part[-1:].expand((wb - n,) + tuple(part.shape[1:]))])
 
-            lat = self._denoise(padw(state.latents0), padw(state.mask_w),
-                                padw(state.masked_lat_w), padw(state.ref_lat_w),
-                                padw(state.audio_w), num_inference_steps, guidance_scale)
-            dev = self._decode_u8(lat.reshape(wb * nf, hw, hw, 4))
+            with self._device_stage(state.device_events, "denoise"):
+                lat = self._denoise(padw(state.latents0), padw(state.mask_w),
+                                    padw(state.masked_lat_w), padw(state.ref_lat_w),
+                                    padw(state.audio_w), num_inference_steps, guidance_scale)
+            with self._device_stage(state.device_events, "vae_decode"):
+                dev = self._decode_u8(lat.reshape(wb * nf, hw, hw, 4))
             pieces.append((slice(i * nf, (i + n) * nf), dev))
-        state.timings["denoise_decode"] = time.time() - t0
+        # launches are asynchronous: this is the time to enqueue the stage
+        state.timings["denoise_dispatch"] = time.time() - t0
         return pieces
 
     @staticmethod
@@ -291,34 +324,60 @@ class LipsyncPipeline:
     def finish(self, state: JobState, latents: Optional[torch.Tensor],
                video_out_path: str, pieces=None) -> PipelineOutput:
         """Stages 6-8: decode (unless `pieces` is given), composite, restore
-        and write. On any failure the partial output is removed."""
+        and write. On any failure the partial output is removed. It consumes
+        `state`: the faces are pasted into `state.frames` itself, which is
+        then dropped from the state, so a second finish of one state raises."""
+        if state.frames is None:
+            raise RuntimeError("finish: this JobState was finished already "
+                               "(its frames were pasted in place)")
         timings = state.timings
         nf = state.num_frames
         total = state.num_windows * nf
+        t0 = time.time()
         if pieces is None:
             hw = state.lat_hw
             lat = latents.reshape(total, hw, hw, 4)
-            pieces = [(slice(i, min(i + 64, total)), self._decode_u8(lat[i:i + 64]))
-                      for i in range(0, total, 64)]
+            pieces = []
+            for i in range(0, total, 64):
+                with self._device_stage(state.device_events, "vae_decode"):
+                    pieces.append((slice(i, min(i + 64, total)), self._decode_u8(lat[i:i + 64])))
         m_all = state.masks[..., :1].astype(np.float32)
         pix_u8 = np.clip((state.pixel_values + 1.0) * 127.5, 0, 255)
         mats = np.stack([np.asarray(m, np.float64) for m in state.matrices[:total]])
         crop_hws = [(int(b[3] - b[1]), int(b[2] - b[0])) for b in state.boxes[:total]]
+        # finish owns the JobState: the faces are pasted INTO its decoded
+        # frame array, which is not copied first
         frames = np.asarray(state.frames)
+        state.frames = None
         n_src = len(frames)
+        out_frames = frames[: min(total, n_src)]
+        if not out_frames.flags.writeable:
+            out_frames = out_frames.copy()
         # frames past the source clip (audio padded to whole windows) wrap
-        # around to its start
-        out_frames = frames[np.arange(total) % n_src] if total > n_src else frames[:total].copy()
+        # around to its start: only those are copied, into a small tail buffer
+        tail = frames[np.arange(n_src, total) % n_src] if total > n_src else out_frames[:0]
 
-        t0 = time.time()
+        def seg_views(gsl):
+            """A global frame slice as (buffer, buffer slice, offset into the
+            chunk) segments over the main and the tail array."""
+            segs = []
+            if gsl.start < n_src:
+                segs.append((out_frames, slice(gsl.start, min(gsl.stop, n_src)), 0))
+            if gsl.stop > n_src:
+                lo = max(gsl.start, n_src)
+                segs.append((tail, slice(lo - n_src, gsl.stop - n_src), lo - gsl.start))
+            return segs
+
         audio_keep = int(total / state.video_fps * state.audio_sample_rate)
         restore_s = fetch_s = 0.0
         with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(video_out_path))) \
                 as tmp:
+            t0w = time.time()
             wav_path = os.path.join(tmp, "audio.wav")
             write_audio(wav_path, state.audio_samples[:audio_keep], state.audio_sample_rate)
             writer = StreamingVideoWriter(video_out_path, fps=state.video_fps,
                                           frame_hw=out_frames.shape[1:3], audio_path=wav_path)
+            audio_write_s = time.time() - t0w
             try:
                 for sl, dev in pieces:
                     tc = time.time()
@@ -327,24 +386,48 @@ class LipsyncPipeline:
                     tc = time.time()
                     m = m_all[sl]
                     combined = (dec_u8 * (1.0 - m) + pix_u8[sl] * m).astype(np.uint8)
+                    # each face is resized to ITS OWN box: group by crop size
                     groups = {}
                     for idx in range(sl.start, sl.stop):
                         groups.setdefault(crop_hws[idx], []).append(idx)
                     for crop_hw, idxs in groups.items():
+                        if len(groups) == 1:
+                            # one crop size (the served case): restore the chunk
+                            # in place through slice views, no fancy-index copies
+                            for buf, bsl, off in seg_views(sl):
+                                n = bsl.stop - bsl.start
+                                view = buf[bsl]
+                                restored = self._restore_group(
+                                    view, combined[off:off + n],
+                                    mats[sl.start + off:sl.start + off + n], crop_hw)
+                                if restored is not view:
+                                    buf[bsl] = restored
+                            continue
                         idxs = np.asarray(idxs)
-                        out_frames[idxs] = self._restore_group(
-                            out_frames[idxs], combined[idxs - sl.start], mats[idxs], crop_hw)
+                        in_main = idxs < n_src
+                        for buf, gidx, base in ((out_frames, idxs[in_main], 0),
+                                                (tail, idxs[~in_main], n_src)):
+                            if len(gidx):
+                                buf[gidx - base] = self._restore_group(
+                                    buf[gidx - base], combined[gidx - sl.start], mats[gidx],
+                                    crop_hw)
                     restore_s += time.time() - tc
-                    writer.append(out_frames[sl])
+                    # the chunk's frames are final: main segment, then wrapped tail
+                    for buf, bsl, _ in seg_views(sl):
+                        writer.append(buf[bsl])
+                # every fetch has returned, so every stage's events are complete
+                for name, pairs in state.device_events.items():
+                    timings["device_" + name] = sum(s.elapsed_time(e) for s, e in pairs) / 1e3
+                timings["vae_decode"] = fetch_s
+                timings["restore"] = restore_s
+                timings["decode_restore_total"] = time.time() - t0
                 t1 = time.time()
                 video_out_path = writer.close()
             except BaseException:
                 writer.abort()
                 raise
-        timings["vae_decode_fetch"] = fetch_s
-        timings["restore"] = restore_s
+        timings["write"] = writer.busy_s + audio_write_s
         timings["write_wait"] = time.time() - t1
-        timings["decode_restore_total"] = time.time() - t0
         timings["total"] = time.time() - state.start_time
         return PipelineOutput(video_path=video_out_path, num_frames=total, elapsed=timings)
 

@@ -17,7 +17,11 @@ The int8 configurations add K8 (against its plain version, ragged edges
 and all-zero rows included) and the int8 convolution route, whose int32
 accumulators must equal the plain float64 ones exactly. The kernel probe
 adds K9-K12 (fused q/k/v projection, int8-in/int8-out GEGLU, one-shot and
-streaming attention) and the flash route's head dims 40 and 80.
+streaming attention) and the flash route's head dims 40 and 80. The
+kernels on the GEMM template (K1, K2, K5, K9, K10) also run at widths
+that are no multiple of its 64-deep k-tile (72, 200), at M = 1 and 129,
+at column counts that are no multiple of a tile, and with every column
+tile forced in turn.
 """
 
 import pytest
@@ -483,3 +487,118 @@ def test_plain_versions_of_the_probe_kernels_launch_nothing(rand):
     attention.flash_attention_reference(q, q, q)
     torch.cuda.synchronize()
     assert [f.launches for f in fns] == before
+
+
+# ---------------------------------------------------------------------------
+# the GEMM template (csrc/gemm.cuh) at ragged shapes. The host picks the
+# column tile from the shape (pick_bn): 160 columns where N is a multiple of
+# 160 and 128-row panels x column tiles x operands reach 132 blocks, else 64.
+# The shapes marked "wide" below are the smallest ragged ones that take 160.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", [(1, 72), (129, 72), (200, 72), (129, 200), (1, 320), (129, 64),
+                                 (8321, 320),    # wide down-projection, last panel of one row
+                                 (16769, 160)])  # wide, and K = 160 ends in a short k-tile
+@pytest.mark.parametrize("with_ln", [True, False])
+def test_geglu_ffn_kernel_ragged(rand, m, c, with_ln):
+    """K1 where K is no multiple of the 64-deep k-tile (zero-filled last
+    tile), M = 1 and 129, and N = 4C or C no multiple of a column tile."""
+    args = (rand(m, c), rand(8 * c, c, s=c**-0.5), rand(8 * c, s=0.1),
+            rand(c, 4 * c, s=(4 * c) ** -0.5), rand(c, s=0.1))
+    ln = (1 + rand(c, s=0.1), rand(c, s=0.1)) if with_ln else (None, None)
+    _check(ffn.geglu_ffn(*args, *ln, residual=True),
+           ffn.geglu_ffn_reference(*args, *ln, residual=True))
+
+
+@pytest.mark.cuda
+def test_geglu_ffn_residual_aliases_no_output(rand):
+    """The residual is read from x while the output is written elsewhere: x
+    is unchanged, and a second call on the same x gives the same bits."""
+    c = 320
+    x = rand(300, c)
+    keep = x.clone()
+    args = (rand(8 * c, c, s=c**-0.5), rand(8 * c, s=0.1), rand(c, 4 * c, s=(4 * c) ** -0.5),
+            rand(c, s=0.1), 1 + rand(c, s=0.1), rand(c, s=0.1))
+    out = ffn.geglu_ffn(x, *args, residual=True)
+    again = ffn.geglu_ffn(x, *args, residual=True)
+    torch.cuda.synchronize()
+    assert out.data_ptr() != x.data_ptr() and torch.equal(x, keep) and torch.equal(out, again)
+    no_res = ffn.geglu_ffn(x, *args, residual=False)
+    _check(no_res, ffn.geglu_ffn_reference(x, *args, residual=False))
+    assert not torch.equal(no_res, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,inner", [(1, 72, 72), (129, 200, 72), (200, 72, 200),
+                                       (129, 64, 136), (1000, 320, 960),
+                                       (2689, 200, 320),   # wide, short last k-tile
+                                       (5505, 72, 160)])   # wide, one column tile an operand
+def test_qkv_proj_kernel_ragged(rand, m, c, inner):
+    """K9 with inner != C: each of the three outputs against its own product."""
+    x = rand(m, c)
+    ws = [rand(inner, c, s=c**-0.5) for _ in range(3)]
+    refs = ffn.qkv_proj_reference(x, *ws)
+    got = ffn.qkv_proj(x, *ws)
+    assert len(got) == 3
+    for g, r in zip(got, refs):
+        assert g.shape == (m, inner)
+        _check(g, r)
+    assert not torch.equal(got[0], got[1]) and not torch.equal(got[1], got[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", [(1000, 320), (129, 200), (2048, 1280)])
+def test_qkv_proj_large_inputs_against_f64(rand, m, c):
+    """Inputs x 30 against a float64 product: f32 accumulation over the whole
+    K and one rounding to bf16."""
+    x = 30 * rand(m, c)
+    ws = [30 * rand(c, c, s=c**-0.5) for _ in range(3)]
+    for g, w in zip(ffn.qkv_proj(x, *ws), ws):
+        _check(g, (x.double() @ w.double().t()).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temporal,b,s,c,heads", [(True, 13, 16, 72, 9), (True, 8, 16, 200, 5),
+                                                  (False, 3, 43, 200, 5), (False, 1, 1, 40, 1),
+                                                  (False, 1, 129, 80, 2),
+                                                  # wide q/k/v and output projections,
+                                                  # M = 16784, K = 160 (short last k-tile)
+                                                  (True, 1049, 16, 160, 4)])
+def test_self_attention_block_kernel_ragged(rand, temporal, b, s, c, heads):
+    """K2's two projections at K = 72, 200, 40, 80 and 160, M = 1, 129, 208
+    and 16784."""
+    assert attn_block.fused_route(s, c, c, temporal)
+    args = (rand(b, s, c), 1 + rand(c, s=0.1), rand(c, s=0.1),
+            *[rand(c, c, s=c**-0.5) for _ in range(4)], rand(c, s=0.1), heads)
+    pe = rand(s, c) if temporal else None
+    _check(attn_block.self_attention_block(*args, temporal=temporal, pe=pe),
+           attn_block.self_attention_block_reference(*args, temporal=temporal, pe=pe))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,c,cc,heads", [(2, 65, 200, 72, 5), (1, 129, 80, 384, 2),
+                                            (3, 16, 320, 200, 8),
+                                            (9, 1024, 320, 200, 8)])  # wide q and output
+def test_cross_attention_block_kernel_ragged(rand, monkeypatch, b, s, c, cc, heads):
+    """K5's three projections at widths and context widths off the k-tile."""
+    monkeypatch.setenv("LATENTSYNC_FUSED_XATTN", "1")
+    assert attn_block.cross_fused_route(b, s, 50, c, cc, c)
+    args = (rand(b, s, c), 1 + rand(c, s=0.1), rand(c, s=0.1), rand(b, 50, cc),
+            rand(c, c, s=c**-0.5), rand(c, cc, s=cc**-0.5), rand(c, cc, s=cc**-0.5),
+            rand(c, c, s=c**-0.5), rand(c, s=0.1), heads)
+    ref = attn_block.cross_attention_block_reference(*args)
+    before = attn_block.cross_attention_block.launches
+    _check(attn_block.cross_attention_block(*args), ref)
+    assert attn_block.cross_attention_block.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", [(1, 72), (129, 200), (200, 72), (129, 64),
+                                 (8321, 320)])  # wide f32 down-projection
+def test_geglu_ffn_int8io_kernel_ragged(rand, m, c):
+    """K10 where K ends in a short k-tile (72, 200) and where it does not
+    (64, 320)."""
+    args = _i8_args(rand, m, c)
+    check_int8io(ffn.geglu_ffn_int8io(*args), ffn.geglu_ffn_int8io_reference(*args))

@@ -5,7 +5,11 @@ non-zero weights (the port's ``init_random_`` carried into flax by the
 JAX package's converters), the same avatar bundle and the same injected
 initial noise x_T go through both ``LipsyncPipeline``s. The decoded
 mouth crops are compared in uint8 and the written videos by pixel delta.
-A second test serves one request through the port's HTTP server.
+A second test serves one request through the port's HTTP server. The
+``finish`` tests hold its in-place paste (main frame array plus a small
+wrapped tail, slice views for a chunk of one crop size) bitwise against a
+copy-everything version written here, and the timing-key test holds
+``JobState.timings`` to the JAX package's key set.
 """
 
 import json
@@ -30,7 +34,8 @@ from latentsync_tpu_torch.audio.features import Audio2Feature
 from latentsync_tpu_torch.models.unet3d import UNet3DConditionModel
 from latentsync_tpu_torch.models.vae import AutoencoderKL
 from latentsync_tpu_torch.models.whisper import WhisperEncoder
-from latentsync_tpu_torch.pipelines.lipsync import LipsyncPipeline
+from latentsync_tpu_torch.pipelines import lipsync as plipsync
+from latentsync_tpu_torch.pipelines.lipsync import JobState, LipsyncPipeline
 from latentsync_tpu_torch.serving.api import ServingState, make_handler
 from latentsync_tpu_torch.serving.artifacts import AvatarStore
 from latentsync_tpu_torch.utils.convert import init_random_
@@ -126,9 +131,17 @@ def test_serving_slice_matches_jax(slice_setup):
     lat0 = port._denoise(*args, torch.zeros_like(p_state.audio_w), STEPS, 1.5)
     assert (lat - lat0).abs().mean() > 1e-2 * lat.abs().mean()
 
+    # finish consumes its JobState (it pastes into state.frames and drops
+    # them): the second finish below gets the source frames again
+    src_frames = p_state.frames.copy()
     j_out = jax_pipe.finish(j_state, None, str(root / "jax.mp4"), pieces=j_pieces)
     p_out = port.finish(p_state, None, str(root / "port.mp4"), pieces=p_pieces)
     assert p_out.num_frames == j_out.num_frames == 32
+    # the stage keys are the JAX package's; on the CPU no device-time key exists
+    assert set(p_out.elapsed) == set(j_out.elapsed) == REFERENCE_TIMING_KEYS
+    with pytest.raises(RuntimeError, match="finished already"):
+        port.finish(p_state, None, str(root / "again.mp4"), pieces=p_pieces)
+    p_state.frames = src_frames
     j_video = read_video(j_out.video_path, change_fps=False).astype(np.int32)
     p_video = read_video(p_out.video_path, change_fps=False).astype(np.int32)
     assert p_video.shape == j_video.shape == (32, FRAME_HW, FRAME_HW, 3)
@@ -140,6 +153,128 @@ def test_serving_slice_matches_jax(slice_setup):
     src = read_video(str(root / "avatar.mp4"), change_fps=False).astype(np.int32)
     mouth = np.s_[:N_FRAMES, CROP_AT + 40:CROP_AT + 56, CROP_AT + 20:CROP_AT + 44]
     assert np.abs(p_video[mouth] - src[mouth]).mean() > 5
+
+
+# JobState.timings of a bundle-path request in the JAX package
+# (latentsync_tpu/pipelines/lipsync.py prepare, denoise_decode_chunks, finish)
+REFERENCE_TIMING_KEYS = {"faces", "audio_device", "audio", "vae_encode", "denoise_dispatch",
+                         "vae_decode", "restore", "decode_restore_total", "write", "write_wait",
+                         "total"}
+
+
+def test_timing_keys_of_a_cpu_request(slice_setup, tmp_path):
+    """A whole request through ``__call__`` on the CPU: the reference's
+    stage keys, each a non-negative float, and no ``device_*`` key (those
+    come from CUDA events and are absent, not zero, without a card)."""
+    root, port, _ = slice_setup
+    out = port(str(root / "avatar.mp4"), str(root / "speech.wav"), str(tmp_path / "o.mp4"),
+               num_inference_steps=1, data_path=str(root / "avatar.npz"),
+               mask_image_path=str(root / "mask.png"))
+    assert set(out.elapsed) == REFERENCE_TIMING_KEYS
+    assert not any(k.startswith("device_") for k in out.elapsed)
+    assert all(isinstance(v, float) and v >= 0.0 for v in out.elapsed.values())
+    assert out.elapsed["total"] >= out.elapsed["decode_restore_total"]
+
+
+class _RecordingWriter:
+    """Stands in for StreamingVideoWriter: keeps a copy of what is appended."""
+
+    instances = []
+
+    def __init__(self, path, fps, frame_hw, audio_path=None):
+        self.path, self.frame_hw, self.chunks, self.busy_s = path, tuple(frame_hw), [], 0.0
+        _RecordingWriter.instances.append(self)
+
+    def append(self, frames):
+        assert frames.shape[1:3] == self.frame_hw
+        self.chunks.append(np.array(frames, copy=True))
+
+    def close(self):
+        return self.path
+
+    def abort(self):
+        pass
+
+
+def _finish_copy_everything(state, pieces):
+    """finish's frames, the straightforward way: the whole (wrapped) frame
+    array copied first, each crop-size group through a fancy index."""
+    total = state.num_windows * state.num_frames
+    frames = np.asarray(state.frames)
+    out = frames[np.arange(total) % len(frames)].copy()
+    m_all = state.masks[..., :1].astype(np.float32)
+    pix_u8 = np.clip((state.pixel_values + 1.0) * 127.5, 0, 255)
+    mats = np.stack([np.asarray(m, np.float64) for m in state.matrices[:total]])
+    crop_hws = [(int(b[3] - b[1]), int(b[2] - b[0])) for b in state.boxes[:total]]
+    for sl, dev in pieces:
+        dec = dev.numpy()[: sl.stop - sl.start]
+        m = m_all[sl]
+        combined = (dec * (1.0 - m) + pix_u8[sl] * m).astype(np.uint8)
+        groups = {}
+        for idx in range(sl.start, sl.stop):
+            groups.setdefault(crop_hws[idx], []).append(idx)
+        for crop_hw, idxs in groups.items():
+            idxs = np.asarray(idxs)
+            out[idxs] = LipsyncPipeline._restore_group(out[idxs], combined[idxs - sl.start],
+                                                       mats[idxs], crop_hw)
+    return out
+
+
+@pytest.mark.parametrize("n_src,nf,nw,chunk,mixed", [
+    (10, 8, 2, 8, False),   # wraps: the second chunk straddles the clip's end
+    (10, 8, 2, 8, True),    # the same with two crop sizes a chunk
+    (5, 4, 3, 8, False),    # wraps twice over a 5-frame clip; padded last chunk
+    (20, 8, 2, 8, False),   # no wrap: pasted into the frame array itself
+    (16, 8, 2, 16, True),   # no wrap, one chunk, two crop sizes
+    (16, 4, 3, 4, False),   # no wrap, a clip longer than the output
+])
+def test_finish_in_place_matches_copy_everything(slice_setup, tmp_path, monkeypatch,
+                                                 n_src, nf, nw, chunk, mixed):
+    _, port, _ = slice_setup
+    rng = np.random.default_rng(n_src * 100 + nf * 10 + nw + int(mixed))
+    total, res, hw = nf * nw, 32, 48
+    frames = rng.integers(0, 256, (n_src, hw, hw, 3), dtype=np.uint8)
+    boxes = [[0, 0, 32, 32] if not (mixed and i % 3 == 1) else [2, 4, 26, 30]
+             for i in range(total)]
+    mats = [np.array([[1.0, 0.0, -8.0 - (i % 2 if mixed else 0)], [0.0, 1.0, -8.0]])
+            for i in range(total)]
+    masks = (rng.random((total, res, res, 1)) > 0.5).astype(np.float32)
+    pixel_values = rng.uniform(-1, 1, (total, res, res, 3)).astype(np.float32)
+    pieces = []
+    for i in range(0, total, chunk):
+        sl = slice(i, min(i + chunk, total))
+        # a short last batch arrives padded to the full chunk
+        pieces.append((sl, torch.from_numpy(
+            rng.integers(0, 256, (chunk, res, res, 3), dtype=np.uint8))))
+
+    def make_state():
+        return JobState(
+            latents0=None, mask_w=None, masked_lat_w=None, ref_lat_w=None, audio_w=None,
+            frames=frames.copy(), boxes=boxes, matrices=mats, masks=masks,
+            pixel_values=pixel_values, audio_samples=np.zeros(16000, np.float32),
+            num_frames=nf, num_windows=nw, video_fps=25, audio_sample_rate=16000, lat_hw=4,
+            processor=None, timings={}, start_time=time.time())
+
+    want = _finish_copy_everything(make_state(), pieces)
+    monkeypatch.setattr(plipsync, "StreamingVideoWriter", _RecordingWriter)
+    _RecordingWriter.instances.clear()
+    state = make_state()
+    own = state.frames
+    out = port.finish(state, None, str(tmp_path / "x.mp4"), pieces=pieces)
+    assert out.num_frames == total
+    (writer,) = _RecordingWriter.instances
+    got = np.concatenate(writer.chunks)
+    assert got.shape == want.shape == (total, hw, hw, 3)
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, frames[np.arange(total) % n_src])  # faces were pasted
+    # the main segment was pasted into the state's own frame array, not a
+    # copy, and the state no longer holds it: it cannot be finished twice
+    n_main = min(total, n_src)
+    np.testing.assert_array_equal(own[:n_main], want[:n_main])
+    if n_src > total:
+        np.testing.assert_array_equal(own[total:], frames[total:])
+    assert state.frames is None
+    assert "write" in out.elapsed and "vae_decode" in out.elapsed
 
 
 def test_http_server_serves_one_request(slice_setup, tmp_path):

@@ -27,6 +27,7 @@ from latentsync_tpu.ops import ffn as j_ffn
 from latentsync_tpu_torch import config as pcfg
 from latentsync_tpu_torch.ops import attention as p_attn
 from latentsync_tpu_torch.ops import ffn as p_ffn
+from latentsync_tpu_torch.scripts import gemm_split, profile_forward
 from latentsync_tpu_torch.scripts import micro_probe as mp
 from latentsync_tpu_torch.utils.convert import linear_weight
 
@@ -305,3 +306,41 @@ def test_count_ops_counts_products_and_kernel_launches():
     # a kernel launch is counted from its arguments (here: K9's m, c, inner)
     ops = mp._KERNEL_OPS["ls_qkv_proj"]((0,) * 7 + (128, 320, 320, 0))
     assert ops == 6 * 128 * 320 * 320
+
+
+# ---------------------------------------------------------------------------
+# the forward profile and the GEMM chains' split
+# ---------------------------------------------------------------------------
+
+
+def test_profile_forward_on_the_cpu():
+    """At a toy config on the CPU the profile runs end to end and reports a
+    host time only: no device metric comes from a CPU run."""
+    recs = []
+    profile_forward.profile_forward("cpu", "default", 1, _tiny_config(), warmup=1,
+                                    emit=recs.append)
+    assert len(recs) == 1 and recs[0]["device"] == "cpu" and recs[0]["cpu_ms"] > 0
+    assert not any(k.startswith("device_") or k == "ms" for k in recs[0])
+
+
+def test_profile_forward_sorts_kernels_into_families_and_unions_busy_time():
+    fam = profile_forward.family_of
+    assert fam("void ls_gemm::gemm_kernel<160, false, false>(ls_gemm::Args, int)") == \
+        "gemm_template"
+    assert fam("ls_gemm::ln_rows_kernel(__nv_bfloat16 const*, int)") == "gemm_template"
+    assert fam("void ls_core::attn_kernel<40, 2, false>(...)") == "k4_spatial_core"
+    assert fam("ls_attn::temporal_kernel(...)") == "k3_temporal_core"
+    assert fam("sm90_xmma_fprop_implicit_gemm_bf16bf16") == "library_convolution"
+    assert fam("nvjet_tst_320x128_64x3") == "other"
+    assert fam("void at::native::vectorized_elementwise_kernel<4, ...>") == "elementwise"
+    # overlapping and nested intervals count once, gaps not at all
+    assert profile_forward._busy([(0.0, 2.0), (1.0, 3.0), (5.0, 6.0), (5.2, 5.4)]) == 4.0
+    assert set(profile_forward.CONFIGS) == {"default", "fused", "int8", "int8-dense"}
+
+
+@pytest.mark.parametrize("script", [profile_forward, gemm_split])
+def test_card_scripts_without_a_card_exit_nonzero(script, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert script.main([]) != 0
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
