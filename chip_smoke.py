@@ -36,10 +36,15 @@ and without CUDA it exits nonzero before doing anything):
    on a small input; the median of 5 warm batch-4 forwards of each, the
    GroupNorm shapes of one fused forward and the K8 shapes of one
    int8-dense forward, which must be those phase 2 checked;
-4. serve three requests through the port's HTTP server at full width
-   (synthetic 576² avatar, 1.2 s and 2.4 s of audio, 20 DDIM steps, CFG
-   1.5) in the default configuration, check the output frame counts and
-   that every kernel of that path ran (and no kernel of another);
+4. hold ``finish`` with its decoded chunks as host copies behind CUDA
+   events (pinned memory, fetched on a thread) bitwise against the same
+   chunks fetched in turn; serve three requests through the port's HTTP
+   server at full width (synthetic 576² avatar, 1.2 s and 2.4 s of audio,
+   20 DDIM steps, CFG 1.5) in the default configuration, check the output
+   frame counts and that every kernel of that path ran (and no kernel of
+   another); each request line prints ``overlap_s`` = ``vae_decode`` +
+   ``restore`` - ``decode_restore_total`` (the fetch thread's and the
+   restoring thread's busy time against the wall time of both);
 5. serve two requests (1.2 s and 2.4 s) in the fused-kernel
    configuration, with the same checks;
 6. serve the same two requests in the int8 and in the int8-dense
@@ -688,6 +693,74 @@ def make_avatar(root: str, n_frames: int = 40, size: int = 576, crop_at: int = 3
     return audios
 
 
+def check_finish_fetch(pipeline, device) -> bool:
+    """``finish`` on the card: decoded chunks handed over as host copies
+    behind CUDA events (as ``denoise_decode_chunks`` hands them) give bitwise
+    the frames of the same chunks fetched in turn with ``.cpu()``. A small
+    synthetic clip that wraps past its end, the writer replaced by one that
+    keeps the frames."""
+    import numpy as np
+    import torch
+
+    from latentsync_tpu_torch.pipelines import lipsync
+
+    kept = []
+
+    class KeepFrames:
+        def __init__(self, path, fps, frame_hw, audio_path=None):
+            self.path, self.busy_s = path, 0.0
+
+        def append(self, frames):
+            kept.append(np.array(frames, copy=True))
+
+        def close(self):
+            return self.path
+
+        def abort(self):
+            pass
+
+    rng = np.random.default_rng(SEED)
+    nf, nw, res, hw, n_src = 16, 4, 256, 320, 40
+    total = nf * nw
+    frames = rng.integers(0, 256, (n_src, hw, hw, 3), dtype=np.uint8)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    chunks = [torch.randint(0, 256, (2 * nf, res, res, 3), generator=gen, device=device,
+                            dtype=torch.uint8) for _ in range(nw // 2)]
+    mat = np.array([[1.0, 0.0, -32.0], [0.0, 1.0, -32.0]])
+    masks = (rng.random((total, res, res, 1)) > 0.5).astype(np.float32)
+
+    def run(as_host_copies: bool):
+        state = lipsync.JobState(
+            latents0=None, mask_w=None, masked_lat_w=None, ref_lat_w=None, audio_w=None,
+            frames=frames.copy(), boxes=[[0, 0, res, res]] * total, matrices=[mat] * total,
+            masks=masks, pixel_values=np.zeros((total, res, res, 3), np.float32),
+            audio_samples=np.zeros(16000 * 3, np.float32), num_frames=nf, num_windows=nw,
+            video_fps=25, audio_sample_rate=16000, lat_hw=32, processor=None, timings={},
+            start_time=time.time())
+        pieces = [(slice(i * 2 * nf, (i + 1) * 2 * nf),
+                   lipsync._to_host(c) if as_host_copies else c.cpu())
+                  for i, c in enumerate(chunks)]
+        writer_cls, lipsync.StreamingVideoWriter = lipsync.StreamingVideoWriter, KeepFrames
+        kept.clear()
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                out = pipeline.finish(state, None, os.path.join(tmp, "x.mp4"), pieces=pieces)
+        finally:
+            lipsync.StreamingVideoWriter = writer_cls
+        return np.concatenate(kept), out.elapsed, pieces
+
+    got, timings, pieces = run(True)
+    want, _, _ = run(False)
+    good = all(isinstance(p, lipsync.HostCopy) and p.host.is_pinned() for _, p in pieces) \
+        and got.shape == (total, hw, hw, 3) and bool(np.array_equal(got, want)) \
+        and not np.array_equal(got, frames[np.arange(total) % n_src]) \
+        and not any(t.name == "finish-fetch" for t in threading.enumerate())
+    log(f"finish with host copies behind events vs chunks fetched in turn: bitwise="
+        f"{bool(np.array_equal(got, want))} vae_decode={timings['vae_decode']:.4f}s "
+        f"restore={timings['restore']:.4f}s {'ok' if good else 'FAIL'}")
+    return good
+
+
 def serve_requests(pipeline, root: str, audios, plan, counters, conf: str):
     """Serve `plan` [(seconds of audio, frames wanted)] in configuration
     `conf` with every count at 0 first; the kernels of that configuration
@@ -720,9 +793,12 @@ def serve_requests(pipeline, root: str, audios, plan, counters, conf: str):
                 frames = read_video(job["output"], change_fps=False).shape[0]
             good = job["status"] == "completed" and job.get("num_frames") == want == frames
             ok &= good
+            tm = job.get("timings", {})
+            overlap = tm.get("vae_decode", float("nan")) + tm.get("restore", float("nan")) \
+                - tm.get("decode_restore_total", float("nan"))
             log(f"request ({conf}) audio={sec}s status={job['status']} frames={frames} "
                 f"(want {want}) latency_s={job.get('latency_s', float('nan')):.3f} "
-                f"worker_s={job.get('elapsed', float('nan')):.3f} "
+                f"worker_s={job.get('elapsed', float('nan')):.3f} overlap_s={overlap:.3f} "
                 f"stages={json.dumps(job.get('timings', {}), sort_keys=True)} "
                 f"{'ok' if good else 'FAIL ' + str(job.get('error', ''))}")
     finally:
@@ -886,6 +962,8 @@ def main() -> int:
         phase = "serving"
         pipeline = LipsyncPipeline(unet, vae, Audio2Feature(whisper), cfg,
                                    dtype=torch.bfloat16, device=device)
+        good = check_finish_fetch(pipeline, device)
+        ok &= good
         launches = {}
         with tempfile.TemporaryDirectory() as root:
             audios = make_avatar(root)

@@ -6,32 +6,29 @@
 // Replaces jax's library TPU flash kernel as the reference routes to it:
 // latentsync_tpu/ops/attention.py _flash_bshd (:85, routed at :51-59).
 //
-// The core is flash.cuh with EXACT = false: probabilities rounded to bf16
-// before the value product, as the plain dot_product_attention rounds
-// them. Head dims 40 and 80 are no multiple of the MMA's 16-deep k-step
-// and run zero-padded in shared memory to 64 and 128 columns (flash.cuh);
-// a head dim with no instantiation below is refused.
-#include "flash.cuh"
+// The attention core of attn_core.cuh with its online softmax and the
+// probabilities rounded to bf16 before the value product, as the plain
+// dot_product_attention rounds them: both products on wgmma, logits and
+// probabilities in registers, K/V tiles behind a cp.async ring. (B, S, H, D)
+// through a row pitch is the core's (rows, heads * D) layout, so head dims 40
+// and 80 run as K4 does; D = 512 runs the core's column-split tiling (a
+// block's two warpgroups own 256 output columns each). A head dim with no
+// instantiation below is refused. Bound: operations (attn_core.cuh).
+#include "attn_core.cuh"
 
-extern "C" int ls_flash_attention(const void* q, const void* k, const void* v, long long qb,
-                                  long long qs, long long qh, long long kb, long long ks,
-                                  long long kh, long long vb, long long vs, long long vh, void* o,
-                                  int batch, int seq, int heads, int d, float scale,
-                                  void* stream) {
+// q, k, v: (batch, seq, heads, d) bf16 with row pitches ldq, ldk, ldv (a
+// batch entry seq rows on, a head d columns on); o contiguous.
+extern "C" int ls_flash_attention(const void* q, const void* k, const void* v, int ldq, int ldk,
+                                  int ldv, void* o, int batch, int seq, int heads, int d,
+                                  float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  bf16* op = static_cast<bf16*>(o);
-#define LS_FLASH_CASE(D, DP)                                                                     \
-  case D:                                                                                        \
-    return (int)ls_flash::launch<D, DP, false>(qp, kp, vp, qb, qs, qh, kb, ks, kh, vb, vs, vh,   \
-                                               op, batch, seq, seq, heads, scale, s)
+  const ls_core::Args a = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                           static_cast<const bf16*>(v), ldq, ldk, ldv, static_cast<bf16*>(o),
+                           heads * d, batch, seq, seq, heads, scale};
   switch (d) {
-    LS_FLASH_CASE(40, 64);
-    LS_FLASH_CASE(80, 128);
-    LS_FLASH_CASE(512, 512);
+    case 40: return (int)ls_core::run<40, ls_core::P_ROUNDED>(a, 0, s);
+    case 80: return (int)ls_core::run<80, ls_core::P_ROUNDED>(a, 0, s);
+    case 512: return (int)ls_core::run_wide<512, ls_core::P_ROUNDED>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef LS_FLASH_CASE
 }

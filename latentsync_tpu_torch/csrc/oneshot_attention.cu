@@ -9,7 +9,7 @@
 // BEFORE they are rounded to bf16 for the value product. A warpgroup cannot
 // hold 64 x 1024 f32 logits in registers and a block that parks them in
 // shared memory has an SM to itself, so the kernel sweeps the keys twice
-// on the attention core of attn_core.cuh (its EXACT mode): sweep 1
+// on the attention core of attn_core.cuh (its P_NORMALISED numerics): sweep 1
 // computes q k^T and keeps only each row's maximum and sum; sweep 2
 // recomputes q k^T, forms bf16(exp(s - max) / sum) in registers and feeds
 // the value product. That is 6 B S^2 D tensor-core FLOP instead of 4 and
@@ -25,10 +25,10 @@ extern "C" int ls_oneshot_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const ls_core::Args a = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                            static_cast<const bf16*>(v), d, d, d, static_cast<bf16*>(o), d,
-                           bh, seq, 1, scale};
+                           bh, seq, seq, 1, scale};
   switch (d) {
-    case 40: return (int)ls_core::run<40, true>(a, 0, s);
-    case 80: return (int)ls_core::run<80, true>(a, 0, s);
+    case 40: return (int)ls_core::run<40, ls_core::P_NORMALISED>(a, 0, s);
+    case 80: return (int)ls_core::run<80, ls_core::P_NORMALISED>(a, 0, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

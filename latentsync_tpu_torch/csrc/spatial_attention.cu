@@ -15,11 +15,11 @@ namespace ls_attn {
 cudaError_t spatial(const bf16* q, const bf16* k, const bf16* v, int ldq, int ldk, int ldv,
                     bf16* o, int ldo, int batch, int seq, int heads, int d, float scale,
                     cudaStream_t s, int block_q) {
-  const ls_core::Args a = {q, k, v, ldq, ldk, ldv, o, ldo, batch, seq, heads, scale};
+  const ls_core::Args a = {q, k, v, ldq, ldk, ldv, o, ldo, batch, seq, seq, heads, scale};
   switch (d) {
-    case 40: return ls_core::run<40, false>(a, block_q, s);
-    case 80: return ls_core::run<80, false>(a, block_q, s);
-    case 160: return ls_core::run<160, false>(a, block_q, s);
+    case 40: return ls_core::run<40, ls_core::P_ROUNDED>(a, block_q, s);
+    case 80: return ls_core::run<80, ls_core::P_ROUNDED>(a, block_q, s);
+    case 160: return ls_core::run<160, ls_core::P_ROUNDED>(a, block_q, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -76,6 +76,16 @@ __device__ __forceinline__ uint64_t wg_desc_sw128(unsigned smem_addr) {
   return wg_desc(smem_addr, 16, 1024) | (1ull << 62);
 }
 
+// Descriptor of an MN-major operand (tnspB = 1: the operand's N runs along a
+// row) in the 128-byte swizzle: a row of the tile holds 64 bf16 of N in 128
+// bytes, chunk c of row r at r * 128 + ((c ^ (r & 7)) << 4) as above, rows
+// are the product's K; 8 rows are 1024 bytes (the stride step) and the next
+// 64 of N lie `atom_bytes` on (the leading step). A k-step of 16 rows moves
+// the start 2048 bytes on.
+__device__ __forceinline__ uint64_t wg_desc_sw128_mn(unsigned smem_addr, unsigned atom_bytes) {
+  return wg_desc(smem_addr, atom_bytes, 1024) | (1ull << 62);
+}
+
 // what to add to a descriptor to move its start `bytes` (a multiple of 16) on
 __device__ __forceinline__ uint64_t wg_step(int bytes) { return (uint64_t)(bytes >> 4); }
 
@@ -89,6 +99,21 @@ template <int V>
 struct Tag {
   static constexpr int value = V;
 };
+
+// d (64 x 32) = or += a (64 x 16) x b^T, both K-major operands in shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,"
+      "%10,%11,%12,%13,%14,%15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
 
 // d (64 x 64) = or += a (64 x 16) x b^T, both K-major 128-byte-swizzled tiles in shared memory
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,

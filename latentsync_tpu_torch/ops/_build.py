@@ -41,7 +41,7 @@ _SIGNATURES = {
     "ls_temporal_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _P],
     "ls_spatial_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F,
                              _I, _P],
-    "ls_flash_attention": [_P, _P, _P, *[_L] * 9, _P, _I, _I, _I, _I, _F, _P],
+    "ls_flash_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _P],
     "ls_cross_attn_block": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F, _P, _P,
                             _P, _P, _F, _P, _P, _P, _P, _P, _P],
     "ls_group_norm_silu": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],

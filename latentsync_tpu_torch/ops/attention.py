@@ -11,7 +11,8 @@ S a multiple of 128 — on the serving path the VAE mid-block (S = 1024,
 one head, D = 512), where the TPU ran jax's library flash kernel, and
 from the kernel probe the UNet's spatial shapes (8 heads of D = 40 and
 80) — launches the hand-written flash kernel of
-``csrc/flash_attention.cu`` on a CUDA tensor. Everything else (whisper's
+``csrc/flash_attention.cu`` (the tensor-core attention core of
+``csrc/attn_core.cuh``) on a CUDA tensor. Everything else (whisper's
 S = 1500, the audio cross-attention with Sk = 50) and every CPU tensor
 runs the plain ``dot_product_attention_reference``, which is also what
 the plain versions of the other attention ops call.
@@ -25,7 +26,9 @@ B folding batch and heads; only the kernel probe calls them:
   product (two sweeps over the keys on the core of ``csrc/attn_core.cuh``);
 - ``flash_attention`` (K12, ``csrc/flash_kernel.cu``): streaming-softmax
   attention for D a multiple of 128 whose probabilities are never
-  rounded. Nothing in the reference calls it, so nothing here does.
+  rounded (the same core; each f32 probability reaches the tensor cores
+  as three bf16 terms). Nothing in the reference calls it, so nothing
+  here does.
 
 Each plain version rounds where its own kernel rounds.
 """
@@ -67,13 +70,17 @@ def flash_route(q: torch.Tensor, k: torch.Tensor) -> bool:
     return q.dim() == 4 and s >= 256 and s == k.shape[1] and s % 128 == 0
 
 
-def _strides(t: torch.Tensor, name: str):
-    """(batch, seq, head) strides of a (B, S, H, D) view with a contiguous
-    last axis and 16-byte aligned rows."""
+def _row_pitch(t: torch.Tensor, name: str) -> int:
+    """Row pitch of a (B, S, H, D) view the kernel can read: D contiguous,
+    a head D elements on, a batch entry S rows on, rows 16-byte aligned (a
+    contiguous tensor, or its column slice of a wider projection). Any
+    other view raises: nothing is copied silently."""
+    b, s, h, d = t.shape
     sb, ss, sh, sd = t.stride()
-    if sd != 1 or sb % 8 or ss % 8 or sh % 8:
-        raise ValueError(f"dot_product_attention: unsupported {name} strides {t.stride()}")
-    return sb, ss, sh
+    if sd != 1 or ss % 8 or ss >= 2**31 or (h > 1 and sh != d) or (b > 1 and sb != s * ss):
+        raise ValueError(f"dot_product_attention: unsupported {name} strides {t.stride()} "
+                         f"for shape {tuple(t.shape)}")
+    return ss
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -87,10 +94,14 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} (head dims "
                          f"{FLASH_HEAD_DIMS})")
     scale = 1.0 / math.sqrt(d) if scale is None else scale
+    if not scale > 0:
+        raise ValueError(f"dot_product_attention: the kernel needs scale > 0, got {scale}")
     o = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
     _build.check_cuda("dot_product_attention", q, k, v, o)
+    if b == 0:
+        return o
     _build.call("ls_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                *_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"), o.data_ptr(),
+                _row_pitch(q, "q"), _row_pitch(k, "k"), _row_pitch(v, "v"), o.data_ptr(),
                 b, s, h, d, scale, _build.stream(q))
     dot_product_attention.launches += 1
     return o
@@ -175,8 +186,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     there, whether the shapes tile (Sq % block_q, Sk % block_k, D % 128 all
     0). Where they do not, the reference ran its composed lowering (with
     rounded probabilities): a CPU tensor does the same here, and a CUDA
-    tensor raises. The Hopper kernel has its own tiles (32 queries, 64
-    keys), so the blocks must be multiples of 64."""
+    tensor raises. The Hopper kernel has its own tiles (64 queries, 32 or
+    64 keys), so the blocks must be multiples of 64."""
     _check_bsd("flash_attention", q, k, v)
     b, sq, d = q.shape
     sk = k.shape[1]
@@ -184,6 +195,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tiles = flash_tiles(sq, sk, d, block_q, block_k)
     if q.device.type == "cpu":
         return _attention_bsd(q, k, v, scale, round_p=not tiles)
+    if not scale > 0:
+        raise ValueError(f"flash_attention: the kernel needs scale > 0, got {scale}")
     if not tiles or block_q % 64 or block_k % 64 or d not in FLASH_KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_attention: no kernel for q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, blocks ({block_q}, {block_k}) (head dims "
@@ -193,8 +206,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_cuda("flash_attention", q, k, v, o)
     if b == 0:
         return o
-    if b > 65535:
-        raise ValueError(f"flash_attention: {b} sequences exceed the grid")
     _build.call("ls_flash_kernel", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 b, sq, sk, d, scale, _build.stream(q))
     flash_attention.launches += 1

@@ -13,10 +13,14 @@ audio) and live on the pipeline's device.
 
 Stage timers. The host-side keys read the host's clock, and launches on a
 CUDA device return before the work is done: ``vae_encode`` and
-``denoise_dispatch`` are the time to enqueue their stage, and ``vae_decode``
-is the time ``finish`` waits for decoded chunks, the device's tail
-included. Beside them, on a CUDA device only (absent on the CPU, not
-zero), ``device_vae_encode``, ``device_denoise`` and ``device_vae_decode``
+``denoise_dispatch`` are the time to enqueue their stage. Each decoded
+chunk's copy to the host is enqueued right behind its decode, into pinned
+memory, and ``finish`` waits for the chunks on a fetch thread while the
+calling thread restores: ``vae_decode`` is the fetch thread's busy time (the
+device's tail included) and ``restore`` the restoring thread's, so
+``vae_decode + restore > decode_restore_total`` shows the overlap. Beside
+them, on a CUDA device only (absent on the CPU, not zero),
+``device_vae_encode``, ``device_denoise`` and ``device_vae_decode``
 are device seconds between CUDA events recorded around each stage on the
 current stream and read once, after the request's last fetch: no
 synchronisation is added inside the request. The reference's int8 switches (``LATENTSYNC_INT8``,
@@ -32,7 +36,9 @@ from __future__ import annotations
 
 import contextlib
 import os
+import queue
 import tempfile
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -106,6 +112,35 @@ class JobState:
     start_time: float
     # device stage -> [(start, end) CUDA events]; empty on a CPU device
     device_events: dict = field(default_factory=dict)
+
+
+@dataclass
+class HostCopy:
+    """A decoded chunk on its way to the host: the pinned buffer its copy was
+    enqueued into and the CUDA event recorded behind the copy."""
+    host: torch.Tensor
+    event: object
+
+
+def _to_host(dev: torch.Tensor):
+    """Enqueue the copy of a decoded chunk to the host behind the work that
+    produces it. On the CPU the piece is the tensor itself."""
+    if dev.device.type != "cuda":
+        return dev
+    dev = dev.contiguous()
+    host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+    host.copy_(dev, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return HostCopy(host, event)
+
+
+def _fetched(piece) -> np.ndarray:
+    """The chunk of a piece on the host, once it is there."""
+    if isinstance(piece, HostCopy):
+        piece.event.synchronize()  # releases the GIL while it waits
+        return piece.host.numpy()
+    return piece.cpu().numpy()
 
 
 class LipsyncPipeline:
@@ -283,9 +318,11 @@ class LipsyncPipeline:
 
     def denoise_decode_chunks(self, state: JobState, num_inference_steps: int = 20,
                               guidance_scale: float = 1.5, window_batch: int = 2):
-        """Stages 5-6: each window batch is denoised and decoded at once.
-        Returns [(slice into the clip's frames, device uint8 frames)];
-        a short last batch is padded by repeating its last window."""
+        """Stages 5-6: each window batch is denoised and decoded at once, and
+        the copy of its frames to the host is enqueued behind the decode.
+        Returns [(slice into the clip's frames, the uint8 frames: a
+        `HostCopy` on a CUDA device, the tensor itself on the CPU)]; a short
+        last batch is padded by repeating its last window."""
         t0 = time.time()
         nw, nf, hw = state.num_windows, state.num_frames, state.lat_hw
         wb = min(_bucket(nw), window_batch)
@@ -306,7 +343,7 @@ class LipsyncPipeline:
                                     padw(state.audio_w), num_inference_steps, guidance_scale)
             with self._device_stage(state.device_events, "vae_decode"):
                 dev = self._decode_u8(lat.reshape(wb * nf, hw, hw, 4))
-            pieces.append((slice(i * nf, (i + n) * nf), dev))
+            pieces.append((slice(i * nf, (i + n) * nf), _to_host(dev)))
         # launches are asynchronous: this is the time to enqueue the stage
         state.timings["denoise_dispatch"] = time.time() - t0
         return pieces
@@ -340,7 +377,8 @@ class LipsyncPipeline:
             pieces = []
             for i in range(0, total, 64):
                 with self._device_stage(state.device_events, "vae_decode"):
-                    pieces.append((slice(i, min(i + 64, total)), self._decode_u8(lat[i:i + 64])))
+                    dev = self._decode_u8(lat[i:i + 64])
+                pieces.append((slice(i, min(i + 64, total)), _to_host(dev)))
         m_all = state.masks[..., :1].astype(np.float32)
         pix_u8 = np.clip((state.pixel_values + 1.0) * 127.5, 0, 255)
         mats = np.stack([np.asarray(m, np.float64) for m in state.matrices[:total]])
@@ -369,7 +407,37 @@ class LipsyncPipeline:
             return segs
 
         audio_keep = int(total / state.video_fps * state.audio_sample_rate)
-        restore_s = fetch_s = 0.0
+        restore_s = 0.0
+        # The fetch thread waits for each chunk in turn and hands it over
+        # through a short queue while this thread restores the one before.
+        # A failure there travels through the queue too; `stop` releases
+        # the thread if this side fails first.
+        fetch_q: queue.Queue = queue.Queue(maxsize=2)
+        fetch_busy = [0.0]
+        stop = threading.Event()
+
+        def hand_over(item) -> bool:
+            while not stop.is_set():
+                try:
+                    fetch_q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def fetch():
+            try:
+                for sl, piece in pieces:
+                    tc = time.time()
+                    dec_u8 = _fetched(piece)[: sl.stop - sl.start]
+                    fetch_busy[0] += time.time() - tc
+                    if not hand_over((sl, dec_u8)):
+                        return
+                hand_over(None)
+            except Exception as e:  # noqa: BLE001 — raised anew by the consumer
+                hand_over(e)
+
+        fetch_thread = threading.Thread(target=fetch, name="finish-fetch", daemon=True)
         with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(video_out_path))) \
                 as tmp:
             t0w = time.time()
@@ -379,10 +447,15 @@ class LipsyncPipeline:
                                           frame_hw=out_frames.shape[1:3], audio_path=wav_path)
             audio_write_s = time.time() - t0w
             try:
-                for sl, dev in pieces:
-                    tc = time.time()
-                    dec_u8 = dev.cpu().numpy()[: sl.stop - sl.start]
-                    fetch_s += time.time() - tc
+                fetch_thread.start()
+                while True:
+                    item = fetch_q.get()
+                    if item is None:
+                        break
+                    if isinstance(item, Exception):
+                        raise RuntimeError(
+                            f"finish: fetching a decoded chunk failed: {item!r}") from item
+                    sl, dec_u8 = item
                     tc = time.time()
                     m = m_all[sl]
                     combined = (dec_u8 * (1.0 - m) + pix_u8[sl] * m).astype(np.uint8)
@@ -418,7 +491,7 @@ class LipsyncPipeline:
                 # every fetch has returned, so every stage's events are complete
                 for name, pairs in state.device_events.items():
                     timings["device_" + name] = sum(s.elapsed_time(e) for s, e in pairs) / 1e3
-                timings["vae_decode"] = fetch_s
+                timings["vae_decode"] = fetch_busy[0]
                 timings["restore"] = restore_s
                 timings["decode_restore_total"] = time.time() - t0
                 t1 = time.time()
@@ -426,6 +499,10 @@ class LipsyncPipeline:
             except BaseException:
                 writer.abort()
                 raise
+            finally:
+                stop.set()
+                if fetch_thread.ident is not None:
+                    fetch_thread.join()
         timings["write"] = writer.busy_s + audio_write_s
         timings["write_wait"] = time.time() - t1
         timings["total"] = time.time() - state.start_time

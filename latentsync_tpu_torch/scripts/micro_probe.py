@@ -134,7 +134,7 @@ _KERNEL_OPS = {
     "ls_attn_block": lambda a: a[1] * a[2] * (8 * a[3] * a[4] + 4 * a[2] * a[4]),
     "ls_temporal_attention": lambda a: 4 * a[8] * 16 * 16 * a[9] * a[10],
     "ls_spatial_attention": lambda a: 4 * a[8] * a[9] ** 2 * a[10] * a[11],
-    "ls_flash_attention": lambda a: 4 * a[13] * a[15] * a[14] ** 2 * a[16],
+    "ls_flash_attention": lambda a: 4 * a[7] * a[9] * a[8] ** 2 * a[10],
     "ls_cross_attn_block": lambda a: a[2] * (4 * a[3] * a[4] * a[7] + 4 * a[5] * a[6] * a[7]
                                              + 4 * a[3] * a[5] * a[7]),
     "ls_quantized_matmul": lambda a: 2 * a[4] * a[5] * a[6],

@@ -17,7 +17,9 @@ The int8 configurations add K8 (against its plain version, ragged edges
 and all-zero rows included) and the int8 convolution route, whose int32
 accumulators must equal the plain float64 ones exactly. The kernel probe
 adds K9-K12 (fused q/k/v projection, int8-in/int8-out GEGLU, one-shot and
-streaming attention) and the flash route's head dims 40 and 80. The
+streaming attention) and the flash route's head dims 40 and 80; the flash
+route and K12 also run at an odd batch, every length class, cross shapes,
+large logits and strided views. The
 kernels on the GEMM template (K1, K2, K5, K9, K10) also run at widths
 that are no multiple of its 64-deep k-tile (72, 200), at M = 1 and 129,
 at column counts that are no multiple of a tile, and with every column
@@ -348,6 +350,111 @@ def test_flash_route_head_dims_of_the_probe(rand, b, s, h, d):
     _check(attention.dot_product_attention(q, k, v),
            attention.dot_product_attention_reference(q, k, v))
     assert attention.dot_product_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [256, 384, 1024])
+@pytest.mark.parametrize("h,d", [(8, 40), (2, 80), (1, 512), (2, 512)])
+def test_flash_route_odd_batch_and_lengths(rand, s, h, d):
+    """B = 3 and every length class of the route (S % 128 == 0), at each head
+    dim; D = 512 also with two heads side by side in a row."""
+    q, k, v = rand(3, s, h, d), rand(3, s, h, d), rand(3, s, h, d)
+    before = attention.dot_product_attention.launches
+    _check(attention.dot_product_attention(q, k, v),
+           attention.dot_product_attention_reference(q, k, v))
+    assert attention.dot_product_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,d", [(8, 40), (8, 80), (1, 512)])
+def test_flash_route_reads_column_slices_and_refuses_other_views(rand, h, d):
+    """q/k/v as column slices of one fused (B, S, 3 H D) projection are read
+    in place through their row pitch; a view whose batch or head stride the
+    kernel cannot express raises, and nothing is copied."""
+    b, s, hd = 3, 256, h * d
+    qkv = rand(b, s, 3 * hd)
+    q, k, v = (qkv[..., i * hd:(i + 1) * hd].reshape(b, s, h, d) for i in range(3))
+    assert not q.is_contiguous() and q.data_ptr() == qkv.data_ptr()
+    before = attention.dot_product_attention.launches
+    _check(attention.dot_product_attention(q, k, v),
+           attention.dot_product_attention_reference(q, k, v))
+    assert attention.dot_product_attention.launches == before + 1
+    every_other = rand(2 * b, s, h, d)[::2]  # a batch stride of two entries
+    with pytest.raises(ValueError, match="strides"):
+        attention.dot_product_attention(every_other, k, v)
+    with pytest.raises(ValueError, match="strides"):
+        attention.dot_product_attention(q, k, rand(b, s, h, 2 * d)[..., ::2])
+    if h > 1:
+        wide_heads = rand(b, s, h, 2 * d)[..., :d]  # a head stride of 2 D
+        with pytest.raises(ValueError, match="strides"):
+            attention.dot_product_attention(wide_heads, k, v)
+    assert attention.dot_product_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,d", [(1024, 8, 40), (256, 8, 80), (1024, 1, 512), (256, 1, 512)])
+def test_flash_route_large_logits(rand, s, h, d):
+    """Inputs x 30: the running maximum moves by large steps in some tiles and
+    rests in others; against an f64 attention."""
+    b = 2
+    q, k, v = (30 * rand(b, s, h, d) for _ in range(3))
+    got = attention.dot_product_attention(q, k, v)
+
+    def fold(t):
+        return t.transpose(1, 2).reshape(b * h, s, d)
+
+    _check(fold(got), _attention_f64(fold(q), fold(k), fold(v)).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,d", [(3, 512, 256, 512), (3, 256, 1024, 512), (5, 64, 192, 128),
+                                       (2, 1024, 64, 128)])
+def test_flash_kernel_cross_shapes(rand, b, sq, sk, d):
+    """K12 with query and key lengths apart, longer and shorter, at both
+    tilings; blocks of 64 so that lengths that are no multiple of 256 tile."""
+    q, k, v = rand(b, sq, d), rand(b, sk, d), rand(b, sk, d)
+    _check(attention.flash_attention(q, k, v, block_q=64, block_k=64),
+           attention.flash_attention_reference(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d", [(512, 128), (256, 512)])
+def test_flash_kernel_large_logits_and_split_batch(rand, s, d):
+    """K12 with inputs x 30 against an f64 attention; no state crosses blocks:
+    B in two calls gives the same bits."""
+    q, k, v = (30 * rand(6, s, d) for _ in range(3))
+    whole = attention.flash_attention(q, k, v)
+    _check(whole, _attention_f64(q, k, v).float())
+    parts = torch.cat([attention.flash_attention(q[:2], k[:2], v[:2]),
+                       attention.flash_attention(q[2:], k[2:], v[2:])])
+    torch.cuda.synchronize()
+    assert torch.equal(whole, parts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(48, 1024, 1, 512), (64, 1024, 8, 40), (48, 1024, 512),
+                                   (256, 1024, 128)])
+def test_flash_kernels_give_the_same_bits_every_launch(rand, shape):
+    """More blocks than the card holds at once, launched twenty times on the
+    same inputs: a tile overwritten in the ring before its last reader was
+    done would show as a launch that differs."""
+    q, k, v = rand(*shape), rand(*shape), rand(*shape)
+    fn = attention.dot_product_attention if len(shape) == 4 else attention.flash_attention
+    first = fn(q, k, v)
+    for _ in range(20):
+        again = fn(q, k, v)
+        torch.cuda.synchronize()
+        assert torch.equal(again, first)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_is_within_one_output_ulp_of_f64_at_512(rand):
+    """The one-ulp bound of K12 on the column-split tiling (D = 512)."""
+    q, k, v = rand(2, 512, 512), rand(2, 512, 512), rand(2, 512, 512)
+    exact = torch.softmax(q.double() @ k.double().transpose(1, 2) / 512**0.5, -1) @ v.double()
+    got = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert bool(((got.double() - exact).abs() <= 2.0**-8 * exact.abs() + 1e-5).all())
 
 
 @pytest.mark.cuda

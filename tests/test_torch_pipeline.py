@@ -8,8 +8,11 @@ mouth crops are compared in uint8 and the written videos by pixel delta.
 A second test serves one request through the port's HTTP server. The
 ``finish`` tests hold its in-place paste (main frame array plus a small
 wrapped tail, slice views for a chunk of one crop size) bitwise against a
-copy-everything version written here, and the timing-key test holds
-``JobState.timings`` to the JAX package's key set.
+copy-everything version written here, with the chunks as tensors and as
+host copies behind events, and its fetch thread: a failure there surfaces
+as a new chained exception, the writer is aborted, no file is left and the
+thread has ended. The timing-key test holds ``JobState.timings`` to the JAX
+package's key set.
 """
 
 import json
@@ -35,7 +38,7 @@ from latentsync_tpu_torch.models.unet3d import UNet3DConditionModel
 from latentsync_tpu_torch.models.vae import AutoencoderKL
 from latentsync_tpu_torch.models.whisper import WhisperEncoder
 from latentsync_tpu_torch.pipelines import lipsync as plipsync
-from latentsync_tpu_torch.pipelines.lipsync import JobState, LipsyncPipeline
+from latentsync_tpu_torch.pipelines.lipsync import HostCopy, JobState, LipsyncPipeline
 from latentsync_tpu_torch.serving.api import ServingState, make_handler
 from latentsync_tpu_torch.serving.artifacts import AvatarStore
 from latentsync_tpu_torch.utils.convert import init_random_
@@ -220,17 +223,18 @@ def _finish_copy_everything(state, pieces):
     return out
 
 
-@pytest.mark.parametrize("n_src,nf,nw,chunk,mixed", [
+FINISH_CASES = [
     (10, 8, 2, 8, False),   # wraps: the second chunk straddles the clip's end
     (10, 8, 2, 8, True),    # the same with two crop sizes a chunk
     (5, 4, 3, 8, False),    # wraps twice over a 5-frame clip; padded last chunk
     (20, 8, 2, 8, False),   # no wrap: pasted into the frame array itself
     (16, 8, 2, 16, True),   # no wrap, one chunk, two crop sizes
     (16, 4, 3, 4, False),   # no wrap, a clip longer than the output
-])
-def test_finish_in_place_matches_copy_everything(slice_setup, tmp_path, monkeypatch,
-                                                 n_src, nf, nw, chunk, mixed):
-    _, port, _ = slice_setup
+]
+
+
+def _finish_case(n_src, nf, nw, chunk, mixed):
+    """A synthetic clip and its decoded chunks: (make_state, pieces, frames)."""
     rng = np.random.default_rng(n_src * 100 + nf * 10 + nw + int(mixed))
     total, res, hw = nf * nw, 32, 48
     frames = rng.integers(0, 256, (n_src, hw, hw, 3), dtype=np.uint8)
@@ -255,12 +259,23 @@ def test_finish_in_place_matches_copy_everything(slice_setup, tmp_path, monkeypa
             num_frames=nf, num_windows=nw, video_fps=25, audio_sample_rate=16000, lat_hw=4,
             processor=None, timings={}, start_time=time.time())
 
+    return make_state, pieces, frames
+
+
+def _fetch_threads():
+    return [t for t in threading.enumerate() if t.name == "finish-fetch"]
+
+
+def _check_finish(port, tmp_path, monkeypatch, case, pieces_as=lambda pieces: pieces):
+    n_src, nf, nw, _, _ = case
+    make_state, pieces, frames = _finish_case(*case)
+    total, hw = nf * nw, frames.shape[1]
     want = _finish_copy_everything(make_state(), pieces)
     monkeypatch.setattr(plipsync, "StreamingVideoWriter", _RecordingWriter)
     _RecordingWriter.instances.clear()
     state = make_state()
     own = state.frames
-    out = port.finish(state, None, str(tmp_path / "x.mp4"), pieces=pieces)
+    out = port.finish(state, None, str(tmp_path / "x.mp4"), pieces=pieces_as(pieces))
     assert out.num_frames == total
     (writer,) = _RecordingWriter.instances
     got = np.concatenate(writer.chunks)
@@ -275,6 +290,91 @@ def test_finish_in_place_matches_copy_everything(slice_setup, tmp_path, monkeypa
         np.testing.assert_array_equal(own[total:], frames[total:])
     assert state.frames is None
     assert "write" in out.elapsed and "vae_decode" in out.elapsed
+    assert not _fetch_threads()  # the fetch thread has ended
+    return out
+
+
+@pytest.mark.parametrize("n_src,nf,nw,chunk,mixed", FINISH_CASES)
+def test_finish_in_place_matches_copy_everything(slice_setup, tmp_path, monkeypatch,
+                                                 n_src, nf, nw, chunk, mixed):
+    _, port, _ = slice_setup
+    _check_finish(port, tmp_path, monkeypatch, (n_src, nf, nw, chunk, mixed))
+
+
+class _Event:
+    """Stands in for the CUDA event behind a chunk's copy to the host."""
+
+    def __init__(self, log, index, fail=None, delay=0.0):
+        self.log, self.index, self.fail, self.delay = log, index, fail, delay
+
+    def synchronize(self):
+        time.sleep(self.delay)
+        self.log.append((self.index, threading.current_thread().name))
+        if self.fail is not None:
+            raise self.fail
+
+
+@pytest.mark.parametrize("n_src,nf,nw,chunk,mixed", FINISH_CASES)
+def test_finish_takes_host_copies_behind_events(slice_setup, tmp_path, monkeypatch,
+                                                n_src, nf, nw, chunk, mixed):
+    """The chunks as a CUDA device hands them over (a host buffer and the
+    event behind its copy): the same frames, bit for bit; each event is
+    waited for once, in order, on the fetch thread; the stage keys stand."""
+    _, port, _ = slice_setup
+    log = []
+    out = _check_finish(
+        port, tmp_path, monkeypatch, (n_src, nf, nw, chunk, mixed),
+        lambda pieces: [(sl, HostCopy(t, _Event(log, i, delay=0.01)))
+                        for i, (sl, t) in enumerate(pieces)])
+    assert [i for i, _ in log] == list(range(len(log))) and len(log) == -(-nf * nw // chunk)
+    assert {name for _, name in log} == {"finish-fetch"}
+    assert {"vae_decode", "restore", "decode_restore_total", "write", "write_wait",
+            "total"} <= set(out.elapsed)
+    assert out.elapsed["vae_decode"] >= 0.01 * len(log)  # the fetch thread's busy time
+
+
+@pytest.mark.parametrize("fail_at", [0, 1, 2])
+def test_finish_fetch_failure_is_raised_anew_and_cleans_up(slice_setup, tmp_path, fail_at):
+    """An exception inside the fetch thread surfaces from finish as a new
+    exception chained to it; the writer is aborted (no output file, no
+    temporary directory left) and the fetch thread has ended, wherever in
+    the clip the failure falls."""
+    _, port, _ = slice_setup
+    make_state, pieces, _ = _finish_case(16, 4, 3, 4, False)
+    boom = OSError("copy failed")
+    log = []
+    pieces = [(sl, HostCopy(t, _Event(log, i, fail=boom if i == fail_at else None)))
+              for i, (sl, t) in enumerate(pieces)]
+    out_dir = tmp_path / "out"
+    out_dir.mkdir()
+    with pytest.raises(RuntimeError, match="fetching a decoded chunk failed") as info:
+        port.finish(make_state(), None, str(out_dir / "x.mp4"), pieces=pieces)
+    assert info.value.__cause__ is boom and info.value is not boom
+    assert len(log) == fail_at + 1  # no chunk past the failing one was waited for
+    assert not _fetch_threads()
+    assert list(out_dir.iterdir()) == []
+
+
+def test_finish_restore_failure_releases_the_fetch_thread(slice_setup, tmp_path, monkeypatch):
+    """The restoring thread fails while the fetch thread has chunks to hand
+    over (a full queue): finish raises that failure, and the thread ends."""
+    _, port, _ = slice_setup
+    make_state, pieces, _ = _finish_case(16, 2, 8, 2, False)  # 8 chunks
+    log = []
+    pieces = [(sl, HostCopy(t, _Event(log, i))) for i, (sl, t) in enumerate(pieces)]
+
+    def broken(*a, **k):
+        time.sleep(0.2)  # the fetch thread runs ahead and fills the queue
+        raise ValueError("restore failed")
+
+    monkeypatch.setattr(LipsyncPipeline, "_restore_group", staticmethod(broken))
+    out_dir = tmp_path / "out"
+    out_dir.mkdir()
+    with pytest.raises(ValueError, match="restore failed"):
+        port.finish(make_state(), None, str(out_dir / "x.mp4"), pieces=pieces)
+    assert 2 <= len(log) < len(pieces)  # ahead of the restore, but not to the end
+    assert not _fetch_threads()
+    assert list(out_dir.iterdir()) == []
 
 
 def test_http_server_serves_one_request(slice_setup, tmp_path):

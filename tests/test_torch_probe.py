@@ -27,7 +27,7 @@ from latentsync_tpu.ops import ffn as j_ffn
 from latentsync_tpu_torch import config as pcfg
 from latentsync_tpu_torch.ops import attention as p_attn
 from latentsync_tpu_torch.ops import ffn as p_ffn
-from latentsync_tpu_torch.scripts import gemm_split, profile_forward
+from latentsync_tpu_torch.scripts import attn_pieces, gemm_split, profile_forward
 from latentsync_tpu_torch.scripts import micro_probe as mp
 from latentsync_tpu_torch.utils.convert import linear_weight
 
@@ -338,7 +338,34 @@ def test_profile_forward_sorts_kernels_into_families_and_unions_busy_time():
     assert set(profile_forward.CONFIGS) == {"default", "fused", "int8", "int8-dense"}
 
 
-@pytest.mark.parametrize("script", [profile_forward, gemm_split])
+def test_attn_pieces_hooks_fit_the_attention_core():
+    """The script patches `#if` hooks into a copy of the kernel by exact
+    text: every hook still finds its piece of ``csrc/attn_core.cuh`` exactly
+    once, and with nothing taken out the hooked source is the kernel's."""
+    source = (attn_pieces._build.SRC_DIR / "attn_core.cuh").read_text()
+    hooked = attn_pieces.hooked_header(source)
+    assert hooked.count("#if LS_PIECES &") == 8  # copies, q k^T, p v, softmax: twice each
+    for bit in (1, 2, 4, 8):
+        assert hooked.count(f"#if LS_PIECES & {bit}\n") == 2  # both tilings
+    # the preprocessor's view with LS_PIECES = 0: each hook's #else branch
+    kept, skipping = [], []
+    for line in hooked.splitlines():
+        if line.startswith("#if LS_PIECES"):
+            skipping.append(True)
+        elif line == "#else" and skipping:
+            skipping[-1] = False
+        elif line == "#endif" and skipping:
+            skipping.pop()
+        elif not any(skipping):
+            kept.append(line)
+    strip = lambda text: [ln.split("//")[0].rstrip() for ln in text.splitlines()]
+    assert [ln for ln in strip("\n".join(kept)) if ln] == [ln for ln in strip(source) if ln]
+    with pytest.raises(ValueError, match="has moved"):
+        attn_pieces.hooked_header(source.replace("wgmma_ss_n32(s, q_desc", "wgmma_ss_n32(t, q_desc"))
+    assert set(attn_pieces.DEFAULT_PIECES) >= {0, 1, 2, 4, 8, 15}
+
+
+@pytest.mark.parametrize("script", [profile_forward, gemm_split, attn_pieces])
 def test_card_scripts_without_a_card_exit_nonzero(script, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert script.main([]) != 0
