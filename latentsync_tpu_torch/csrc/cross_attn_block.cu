@@ -13,122 +13,33 @@
 // Rounding points follow _cross_kernel: LN(x), q, k, v, the probabilities
 // and the attention output are bf16; logits, softmax and sums are f32.
 //
-// The core: the context is short (Sk = 50 audio tokens) and d = 40 or 80
-// is not a multiple of the 16-wide MMA k-step, so it runs on the FMA
-// pipes like the spatial core: one block owns 64 query rows of one
-// (batch, head), holds that head's K and V (Sk x d, 8-16 KB) in shared
-// memory, and four threads share a query row (d/4 columns each, partial
-// dot products combined by two shuffles). Three sweeps over the keys:
-// the row max, the f32 normaliser, then the value sum of the bf16-rounded
-// normalised probabilities, exactly the plain version's rounding.
-// Bound: the three GEMMs (K = 320 or 640) are tensor-core bound (see
-// gemm.cuh). The core does little arithmetic but recomputes every logit
-// in each sweep and pays two shuffles per key, so it is bound by
-// instruction throughput and takes a large share of the block's time (PERF.md);
-// keeping a row's Sk logits on chip between sweeps is its first speed item.
+// The core is the attention core of attn_core.cuh with K11's numerics
+// (P_NORMALISED): each row's maximum and sum over all its keys first, then
+// bf16(exp(s - max) / sum) into the value product, the plain version's
+// rounding. The Sk = 50 audio keys are one 64-key tile, masked past Sk; k and
+// v are read in place from the [k | v] projection (row pitch 2 * inner, v
+// starting inner columns on), q and the output at pitch inner, one (batch,
+// head) of 64 or 128 query rows a block, d = 40 or 80 zero-padded to the
+// 16-deep k-step. Both products run on the tensor cores (wgmma) and no logit
+// leaves the registers.
+// Bound: the three GEMMs (K = 320 or 640, and 384 for [k | v]) are bound by
+// their traffic from L2 at these K (see gemm.cuh). The core moves q in and o
+// out (2 * B * S * inner * 2 bytes: 84 MB at (64, 1024, 320)) for 4 B S Sk
+// inner FLOP, so its bound is bytes (~0.025 ms there); the key tile's two
+// sweeps recompute q k^T once, a third of the core's tensor work.
+#include "attn_core.cuh"
 #include "gemm.cuh"
 
 namespace {
 
-constexpr int XQ = 64;          // query rows per block
-constexpr int X_THREADS = 256;  // 4 threads per query row
-
-template <int D>
-__global__ void __launch_bounds__(X_THREADS)
-    cross_core_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv, bf16* __restrict__ o,
-                      int seq, int sk, int inner, float scale) {
-  constexpr int DQ = D / 4;  // columns per thread (even)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + (size_t)sk * D;
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * XQ;
-  const int tid = threadIdx.x;
-  const int row = tid >> 2;
-  const int part = tid & 3;
-  const long ldkv = 2L * inner;
-
-  constexpr int VPR = D / 8;
-  for (int i = tid; i < sk * VPR; i += X_THREADS) {
-    const int j = i / VPR;
-    const int c = (i % VPR) * 8;
-    const bf16* src = kv + ((long)b * sk + j) * ldkv + (long)h * D + c;
-    *reinterpret_cast<uint4*>(ks + (size_t)j * D + c) = *reinterpret_cast<const uint4*>(src);
-    *reinterpret_cast<uint4*>(vs + (size_t)j * D + c) =
-        *reinterpret_cast<const uint4*>(src + inner);
-  }
-
-  const int qrow = min(q0 + row, seq - 1);
-  float qv[DQ];
-  {
-    const bf162* qp = reinterpret_cast<const bf162*>(q + ((long)b * seq + qrow) * inner +
-                                                     (long)h * D + part * DQ);
-#pragma unroll
-    for (int c = 0; c < DQ / 2; ++c) {
-      const float2 f = __bfloat1622float2(qp[c]);
-      qv[2 * c] = f.x;
-      qv[2 * c + 1] = f.y;
-    }
-  }
-  __syncthreads();
-
-  auto logit = [&](int j) {
-    const bf162* kp = reinterpret_cast<const bf162*>(ks + (size_t)j * D + part * DQ);
-    float dot = 0.f;
-#pragma unroll
-    for (int c = 0; c < DQ / 2; ++c) {
-      const float2 kf = __bfloat1622float2(kp[c]);
-      dot = fmaf(qv[2 * c], kf.x, fmaf(qv[2 * c + 1], kf.y, dot));
-    }
-    dot += __shfl_xor_sync(LS_FULL_MASK, dot, 1);
-    dot += __shfl_xor_sync(LS_FULL_MASK, dot, 2);
-    return dot * scale;
-  };
-
-  float m = -INFINITY;
-  for (int j = 0; j < sk; ++j) m = fmaxf(m, logit(j));
-  float l = 0.f;
-  for (int j = 0; j < sk; ++j) l += expf(logit(j) - m);
-  float acc[DQ];
-#pragma unroll
-  for (int c = 0; c < DQ; ++c) acc[c] = 0.f;
-  for (int j = 0; j < sk; ++j) {
-    const float p = __bfloat162float(__float2bfloat16(expf(logit(j) - m) / l));
-    const bf162* vp = reinterpret_cast<const bf162*>(vs + (size_t)j * D + part * DQ);
-#pragma unroll
-    for (int c = 0; c < DQ / 2; ++c) {
-      const float2 vf = __bfloat1622float2(vp[c]);
-      acc[2 * c] = fmaf(p, vf.x, acc[2 * c]);
-      acc[2 * c + 1] = fmaf(p, vf.y, acc[2 * c + 1]);
-    }
-  }
-
-  if (q0 + row < seq) {
-    bf162* op = reinterpret_cast<bf162*>(o + ((long)b * seq + q0 + row) * inner + (long)h * D +
-                                         part * DQ);
-#pragma unroll
-    for (int c = 0; c < DQ / 2; ++c) op[c] = __floats2bfloat162_rn(acc[2 * c], acc[2 * c + 1]);
-  }
-}
-
-template <int D>
-cudaError_t cross_core_d(const bf16* q, const bf16* kv, bf16* o, int batch, int seq, int sk,
-                         int heads, float scale, cudaStream_t s) {
-  const size_t smem = (size_t)2 * sk * D * sizeof(bf16);
-  cudaError_t e = ls_allow_smem(cross_core_kernel<D>, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((seq + XQ - 1) / XQ, heads, batch);
-  cross_core_kernel<D><<<grid, X_THREADS, smem, s>>>(q, kv, o, seq, sk, heads * D, scale);
-  return cudaGetLastError();
-}
-
 cudaError_t cross_core(const bf16* q, const bf16* kv, bf16* o, int batch, int seq, int sk,
                        int heads, int d, float scale, cudaStream_t s) {
+  const int inner = heads * d;
+  const ls_core::Args a = {q, kv, kv + inner, inner, 2 * inner, 2 * inner, o, inner,
+                           batch, seq, sk, heads, scale};
   switch (d) {
-    case 40: return cross_core_d<40>(q, kv, o, batch, seq, sk, heads, scale, s);
-    case 80: return cross_core_d<80>(q, kv, o, batch, seq, sk, heads, scale, s);
+    case 40: return ls_core::run<40, ls_core::P_NORMALISED>(a, 0, s);
+    case 80: return ls_core::run<80, ls_core::P_NORMALISED>(a, 0, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -67,7 +67,22 @@
 // shared memory, M N K 2 (1 / BN + 1 / 128) bytes: hence the widest tile
 // that fits twice, 160, and loads that do not stop at a tile's end. At
 // K >= 1280 the loop reaches about two thirds of the bf16 peak at BN = 160.
+//
+// The int8 mode (E = int8_t, gemm_s8: K8, qmm.cu). A and B are int8 codes
+// at a pitch that is a multiple of 16 with a zero tail, written by K8's
+// quantizing row pass, and the product is wgmma m64nBNk32 s32.s8.s8
+// (wgmma.cuh), both operands K-major as the integer product requires. A
+// k-tile of 128 codes is one 128-byte row, as 64 bf16 are, so the ring, the
+// swizzle, the resident blocks, pick_bn and the descriptors' 32-byte k-step
+// are the bf16 mode's own; only the element count a copy and a tile covers
+// differs.
+// Its epilogue is K8's dequantization, from registers in the reference's
+// order: bf16(bf16((f32(acc) * a_scale[m]) * b_scale[n]) + bias[n]) with a
+// bf16 bias, IEEE roundings, no fused multiply-add; scales and bias of
+// columns past N are read at the last valid pair and never stored.
 #pragma once
+
+#include <type_traits>
 
 #include "wgmma.cuh"
 
@@ -76,20 +91,20 @@ namespace ls_gemm {
 using namespace ls_wg;
 
 constexpr int BM = 128;         // rows a block: two warpgroups of 64
-constexpr int BK = 64;          // bf16 of a k-tile: one 128-byte row
-constexpr int ROW_BYTES = 128;  // a tile row in shared memory
+constexpr int ROW_BYTES = 128;  // a k-tile's row in shared memory: 64 bf16 or 128 codes
 constexpr int STAGES = 3;
 constexpr int THREADS = 256;
 constexpr int SMS = 132;  // blocks a launch should at least have
 
+// A and B are bf16, or int8 codes in the int8 mode (gemm_s8)
 struct Args {
-  const bf16* a;
+  const void* a;
   int lda;
-  const bf16* b;   // first (or only) B operand, (n, k) row-major with pitch ldb
-  const bf16* b1;  // second and third operands of a three-output launch (K9)
-  const bf16* b2;
+  const void* b;   // first (or only) B operand, (n, k) row-major with pitch ldb
+  const void* b1;  // second and third operands of a three-output launch (K9)
+  const void* b2;
   int nb;              // B operands (1 or 3), each with its own output
-  const bf16* b_gate;  // DUAL: the GEGLU gate rows, or null
+  const void* b_gate;  // DUAL: the GEGLU gate rows, or null
   int ldb;
   bf16* c;  // output of operand 0 (and 1, 2), pitch ldc
   bf16* c1;
@@ -101,6 +116,10 @@ struct Args {
   const bf16* res;  // residual (m, n) with row pitch ldr, or null
   int ldr;
   float* c_f32;  // F32OUT: f32 C with row pitch ldc, instead of c
+  // gemm_s8: the f32 scales of A's rows and B's rows, and a bf16 bias or null
+  const float* a_scale;
+  const float* b_scale;
+  const bf16* bias_bf16;
 };
 
 static __device__ __forceinline__ float gelu_erf(float g) {
@@ -111,6 +130,12 @@ template <int BN>
 __device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t da, uint64_t db) {
   if constexpr (BN == 64) wgmma_ss_n64(d, da, db, 1);
   if constexpr (BN == 160) wgmma_ss_n160(d, da, db, 1);
+}
+
+template <int BN>
+__device__ __forceinline__ void mma(int (&d)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 64) wgmma_ss_s8_n64(d, da, db, 1);
+  if constexpr (BN == 160) wgmma_ss_s8_n160(d, da, db, 1);
 }
 
 // Four 32-bit values a lane, transposed across the four lanes of a quad:
@@ -140,12 +165,18 @@ struct Tile {
   static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;
 };
 
-template <int BN, bool DUAL, bool F32OUT>
+// E: bf16, or int8_t for the int8 mode (then neither DUAL nor F32OUT)
+template <int BN, bool DUAL, bool F32OUT, typename E>
 __global__ void __launch_bounds__(THREADS, 2)  // registers capped for two blocks an SM
     gemm_kernel(const Args p, int tiles_n, int tiles_total) {
   using T = Tile<BN, DUAL>;
   constexpr int NB = T::NB;
+  constexpr bool S8 = std::is_same_v<E, int8_t>;
+  constexpr int BK = ROW_BYTES / (int)sizeof(E);  // elements of a k-tile
+  constexpr int CE = 16 / (int)sizeof(E);         // elements of a 16-byte copy
+  using Acc = std::conditional_t<S8, int, float>;
   static_assert(BN % 32 == 0 && T::STAGE_BYTES % 1024 == 0, "tile");
+  static_assert(!S8 || (!DUAL && !F32OUT), "the int8 mode has K8's epilogue only");
   extern __shared__ unsigned char smem_raw[];
   const unsigned smem_base = ((unsigned)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
 
@@ -165,7 +196,7 @@ __global__ void __launch_bounds__(THREADS, 2)  // registers capped for two block
   constexpr int B_PASSES = BN / 32;
   int a_off[A_PASSES];
   int b_off[B_PASSES];
-  const bf16* __restrict__ b_op = p.b;
+  const E* __restrict__ b_op = static_cast<const E*>(p.b);
   int lw = blockIdx.x;
   int lkt = 0;
   // output tile w: row panel w / tiles_row, then operand, then column tile
@@ -174,7 +205,7 @@ __global__ void __launch_bounds__(THREADS, 2)  // registers capped for two block
     const int rem = w - rt * tiles_row;
     const int op = rem / tiles_n;
     const int n0 = (rem - op * tiles_n) * BN;
-    b_op = op == 0 ? p.b : op == 1 ? p.b1 : p.b2;
+    b_op = static_cast<const E*>(op == 0 ? p.b : op == 1 ? p.b1 : p.b2);
 #pragma unroll
     for (int i = 0; i < A_PASSES; ++i) a_off[i] = min(rt * BM + rip + 32 * i, p.m - 1) * p.lda;
 #pragma unroll
@@ -190,13 +221,13 @@ __global__ void __launch_bounds__(THREADS, 2)  // registers capped for two block
   // are zero-filled (the source then points at the row's start: no byte of
   // it is read).
   auto copy_tile = [&](int t, int stage, auto partial) {
-    const int k0 = t * BK + chunk * 8;
+    const int k0 = t * BK + chunk * CE;
     const bool in_k = !decltype(partial)::value || k0 < p.k;
     const int kk = in_k ? k0 : 0;
     const int bytes = in_k ? 16 : 0;
     const unsigned dst = smem_base + stage * T::STAGE_BYTES + sw;
-    const bf16* asrc = p.a + kk;
-    const bf16* bsrc = b_op + kk;
+    const E* asrc = static_cast<const E*>(p.a) + kk;
+    const E* bsrc = b_op + kk;
 #pragma unroll
     for (int i = 0; i < A_PASSES; ++i) {
       if (decltype(partial)::value)
@@ -212,7 +243,7 @@ __global__ void __launch_bounds__(THREADS, 2)  // registers capped for two block
         cp_async16s(dst + T::A_BYTES + i * 32 * ROW_BYTES, bsrc + b_off[i]);
     }
     if (DUAL) {
-      const bf16* gsrc = p.b_gate + kk;
+      const E* gsrc = static_cast<const E*>(p.b_gate) + kk;
 #pragma unroll
       for (int i = 0; i < B_PASSES; ++i) {
         if (decltype(partial)::value)
@@ -254,11 +285,11 @@ __global__ void __launch_bounds__(THREADS, 2)  // registers capped for two block
   // neighbouring column tiles of one row panel at the same time. The loads of
   // the next tile's first k-tiles are in flight while this one's epilogue runs.
   for (int w = blockIdx.x; w < tiles_total; w += gridDim.x) {
-    float acc[NB][BN / 2];
+    Acc acc[NB][BN / 2];
 #pragma unroll
     for (int h = 0; h < NB; ++h)
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[h][i] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) acc[h][i] = 0;
 
     for (int t = 0; t < kt_all; ++t) {
       cp_async_wait<STAGES - 2>();  // this thread's copies of the k-tile have landed
@@ -268,7 +299,7 @@ __global__ void __launch_bounds__(THREADS, 2)  // registers capped for two block
       const uint64_t sb = b_desc + wg_step(stage * T::STAGE_BYTES);
       wg_fence();
 #pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks) {
+      for (int ks = 0; ks < ROW_BYTES / 32; ++ks) {  // k-steps of 32 bytes
         mma<BN>(acc[0], sa + wg_step(ks * 32), sb + wg_step(ks * 32));
         if (DUAL) mma<BN>(acc[NB - 1], sa + wg_step(ks * 32), sb + wg_step(T::B_BYTES + ks * 32));
       }
@@ -290,6 +321,11 @@ __global__ void __launch_bounds__(THREADS, 2)  // registers capped for two block
     const int row0 = rt * BM + wg * 64 + warp * 16 + g;
     const int row1 = row0 + 8;
     bf16* __restrict__ c_op = op == 0 ? p.c : op == 1 ? p.c1 : p.c2;
+    float as0 = 0.f, as1 = 0.f;  // int8 mode: the two rows' scales (rows past M: the last)
+    if constexpr (S8) {
+      as0 = p.a_scale[min(row0, p.m - 1)];
+      as1 = p.a_scale[min(row1, p.m - 1)];
+    }
 #pragma unroll
     for (int q = 0; q < BN / 32; ++q) {
       uint32_t lo[4], hi[4];  // rows row0 and row1 of tiles 4q..4q+3, packed bf16 pairs
@@ -297,6 +333,27 @@ __global__ void __launch_bounds__(THREADS, 2)  // registers capped for two block
       for (int jj = 0; jj < 4; ++jj) {
         const int j = 4 * q + jj;
         const int col = n0 + 8 * j + 2 * t4;
+        if constexpr (S8) {
+          // K8: bf16((f32(acc) * a_scale) * b_scale) [+ bias in f32, rounded
+          // again by the pack]; columns past N read the last pair (N is even)
+          const int cs = min(col, p.n - 2);
+          const float2 ws = *reinterpret_cast<const float2*>(p.b_scale + cs);
+          auto deq = [](int a, float sa, float sb) {
+            return __bfloat162float(
+                __float2bfloat16_rn(__fmul_rn(__fmul_rn(__int2float_rn(a), sa), sb)));
+          };
+          float v00 = deq(acc[0][4 * j], as0, ws.x), v01 = deq(acc[0][4 * j + 1], as0, ws.y);
+          float v10 = deq(acc[0][4 * j + 2], as1, ws.x), v11 = deq(acc[0][4 * j + 3], as1, ws.y);
+          if (p.bias_bf16 != nullptr) {
+            const float2 bv =
+                __bfloat1622float2(*reinterpret_cast<const bf162*>(p.bias_bf16 + cs));
+            v00 = __fadd_rn(v00, bv.x); v01 = __fadd_rn(v01, bv.y);
+            v10 = __fadd_rn(v10, bv.x); v11 = __fadd_rn(v11, bv.y);
+          }
+          lo[jj] = pack_bf16(v00, v01);
+          hi[jj] = pack_bf16(v10, v11);
+          continue;
+        }
         const bool in_n = col < p.n;
         float v00 = acc[0][4 * j], v01 = acc[0][4 * j + 1];
         float v10 = acc[0][4 * j + 2], v11 = acc[0][4 * j + 3];
@@ -464,10 +521,10 @@ static inline int pick_bn(int m, int n, int nb, bool dual) {
   return !dual && n % 160 == 0 && blocks160 >= SMS ? 160 : 64;
 }
 
-template <int BN, bool DUAL, bool F32OUT>
+template <int BN, bool DUAL, bool F32OUT, typename E = bf16>
 cudaError_t launch(const Args& p, cudaStream_t s) {
   using T = Tile<BN, DUAL>;
-  cudaError_t e = ls_allow_smem(gemm_kernel<BN, DUAL, F32OUT>, T::SMEM_BYTES);
+  cudaError_t e = ls_allow_smem(gemm_kernel<BN, DUAL, F32OUT, E>, T::SMEM_BYTES);
   if (e != cudaSuccess) return e;
   // as many blocks as the card holds at once; each walks its share of the tiles
   static int resident = 0;
@@ -476,7 +533,7 @@ cudaError_t launch(const Args& p, cudaStream_t s) {
     if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
       return e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemm_kernel<BN, DUAL, F32OUT>,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemm_kernel<BN, DUAL, F32OUT, E>,
                                                       THREADS, T::SMEM_BYTES);
     if (e != cudaSuccess) return e;
     if (sms * per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -486,7 +543,8 @@ cudaError_t launch(const Args& p, cudaStream_t s) {
   const long long tiles = (long long)tiles_n * p.nb * ((p.m + BM - 1) / BM);
   if (tiles > 0x7fff0000LL) return cudaErrorInvalidValue;  // the walk's counter adds gridDim.x
   const int blocks = tiles < resident ? (int)tiles : resident;
-  gemm_kernel<BN, DUAL, F32OUT><<<blocks, THREADS, T::SMEM_BYTES, s>>>(p, tiles_n, (int)tiles);
+  gemm_kernel<BN, DUAL, F32OUT, E><<<blocks, THREADS, T::SMEM_BYTES, s>>>(p, tiles_n,
+                                                                         (int)tiles);
   return cudaGetLastError();
 }
 
@@ -508,6 +566,22 @@ static inline cudaError_t gemm(const Args& args, cudaStream_t s) {
   const bool wide = pick_bn(p.m, p.n, p.nb, dual) == 160;
   if (f32out) return wide ? launch<160, false, true>(p, s) : launch<64, false, true>(p, s);
   return wide ? launch<160, false, false>(p, s) : launch<64, false, false>(p, s);
+}
+
+// One launch of the int8 mode (K8): A and B int8 codes with their row scales
+// (a_scale, b_scale), a bf16 bias or null, bf16 output. Refused: k and the
+// pitches of A and B no multiples of 16 (whole 16-byte copies of codes), n
+// and ldc no multiples of 8, more than one operand, any other epilogue.
+static inline cudaError_t gemm_s8(const Args& p, cudaStream_t s) {
+  if (p.m <= 0 || p.n <= 0 || p.k <= 0 || p.k % 16 || p.n % 8 || p.lda % 16 || p.ldb % 16 ||
+      p.ldc % 8 || p.nb > 1 || p.b_gate != nullptr || p.c_f32 != nullptr ||
+      p.a_scale == nullptr || p.b_scale == nullptr || p.bias != nullptr || p.res != nullptr ||
+      (long long)p.m * p.lda > 0x7fffffffLL || (long long)p.n * p.ldb > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  Args q = p;
+  q.nb = 1;
+  return pick_bn(q.m, q.n, 1, false) == 160 ? launch<160, false, false, int8_t>(q, s)
+                                              : launch<64, false, false, int8_t>(q, s);
 }
 
 }  // namespace ls_gemm

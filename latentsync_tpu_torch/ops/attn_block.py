@@ -226,8 +226,7 @@ def cross_attention_block(x: torch.Tensor, ln_scale, ln_bias, ctx: torch.Tensor,
         return cross_attention_composed(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, bo, heads,
                                         eps=eps)
     d = inner // heads
-    if c % 8 or cc % 8 or inner != heads * d or d not in _CROSS_HEAD_DIMS \
-            or 2 * sk * d * 2 > 227 * 1024:
+    if c % 8 or cc % 8 or inner != heads * d or d not in _CROSS_HEAD_DIMS:
         raise ValueError(f"cross_attention_block: no kernel for C={c}, Cc={cc}, "
                          f"inner={inner}, heads={heads}, Sk={sk}")
     dt = x.dtype

@@ -36,12 +36,15 @@ CONFIGS = {
 }
 # family → substrings of a device kernel's name, first match wins
 FAMILIES = [
+    # K8: its row pass, and the GEMM template's int8 mode (E = signed char)
+    ("k8_qmm", ("qmm", "signed char>(ls_gemm")),
+    # K5's core: the attention core with K11's numerics (P_NORMALISED = 1),
+    # which no other kernel of a forward runs
+    ("k5_cross_core", tuple(f"attn_kernel<{d}, {nwg}, 1>" for d in (40, 80) for nwg in (1, 2))),
     ("gemm_template", ("ls_gemm", "gemm_kernel", "row_stats", "ln_rows", "dequant_rows",
                        "qkv_kernel")),
     ("k4_spatial_core", ("ls_core", "attn_kernel", "spatial_kernel")),
     ("k3_temporal_core", ("temporal",)),
-    ("k5_cross_core", ("cross_core",)),
-    ("k8_qmm", ("qmm", "row_scale", "quantize_w")),
     ("groupnorm_kernels", ("gn_", "group_norm_silu")),
     ("flash", ("flash",)),
     ("library_convolution", ("conv", "cudnn", "implicit", "wgrad", "dgrad", "nchw", "nhwc")),

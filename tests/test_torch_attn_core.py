@@ -11,6 +11,11 @@ output rescaled only where a row's max moved, probabilities rounded to bf16
 before the value product; and K11's two sweeps (whole-row max and sum
 first, then normalised probabilities rounded to bf16).
 
+K5 (``cross_attention_block``) runs the same two sweeps on its audio
+context: ``cross_core`` reads q at pitch inner and k, v in place from the
+fused ``[k | v]`` projection at pitch 2 * inner, the 50 keys one masked
+64-key tile (``csrc/cross_attn_block.cu``).
+
 Each emulation is held against the port's plain version
 (``spatial_attention_reference`` / ``oneshot_attention_reference``) and
 against the JAX package's Pallas kernel in interpret mode
@@ -29,9 +34,12 @@ import pytest
 import torch
 
 from latentsync_tpu.ops import attention as j_attn
+from latentsync_tpu.ops import attn_block as j_ab
 from latentsync_tpu.ops import temporal_attention as j_ta
 from latentsync_tpu_torch.ops import attention as p_attn
+from latentsync_tpu_torch.ops import attn_block as p_ab
 from latentsync_tpu_torch.ops import temporal_attention as p_ta
+from latentsync_tpu_torch.ops.ffn import layer_norm_f32
 
 TOL_REL = 2.0**-6
 KT = 64  # keys of one tile
@@ -44,14 +52,15 @@ HEAD_DIMS = [40, 80, 160]
 def _tiles(q, k, v, scale):
     """Yield per key tile what the kernel's first product sees: the f32
     logits of all query rows against the tile's 64 keys (raw, unscaled;
-    -inf past the sequence's end) and the tile's V rows (zero past it).
-    q, k, v: (S, D) bf16; the head dim is zero-padded to the MMA's k-step."""
+    -inf past the keys' end) and the tile's V rows (zero past it).
+    q: (S, D), k, v: (Sk, D) bf16; the head dim is zero-padded to the MMA's
+    k-step."""
     s_len, d = q.shape
     dp = (d + 15) // 16 * 16
     qp = torch.zeros(s_len, dp)
     qp[:, :d] = q.float()
-    for k0 in range(0, s_len, KT):
-        rows = min(KT, s_len - k0)
+    for k0 in range(0, k.shape[0], KT):
+        rows = min(KT, k.shape[0] - k0)
         kt = torch.zeros(KT, dp)
         vt = torch.zeros(KT, d)
         kt[:rows, :d] = k[k0:k0 + rows].float()
@@ -196,3 +205,86 @@ def test_block_q_is_accepted_and_ignored_by_the_plain_version():
         assert torch.equal(p_ta.spatial_attention(q, k, v, 2, block_q=block_q), ref)
     assert [p_ta.spatial_block_q(s) for s in (1, 16, 17, 64, 255, 256, 1024, 1400)] == \
         [64, 64, 64, 64, 64, 128, 128, 128]
+
+
+# ---------------------------------------------------------------------------
+# K5: the audio cross-attention core on the two sweeps
+# ---------------------------------------------------------------------------
+
+
+def cross_core(q, kv, b, s_len, sk, heads, d):
+    """K5's core arguments: q (B S, inner) at pitch inner; k = kv and v = kv
+    + inner, both at pitch 2 inner, Sk keys a batch entry; the output at
+    pitch inner. Each (batch, head) runs ``core_two_sweeps``."""
+    inner = heads * d
+    assert q.shape == (b * s_len, inner) and kv.shape == (b * sk, 2 * inner)
+    flat_kv = kv.reshape(-1)
+    o = torch.empty_like(q)
+    for i in range(b):
+        for h in range(heads):
+            cols = slice(h * d, (h + 1) * d)
+            # rows of the fused buffer read through the pitch, as the kernel's copies do
+            rows = (i * sk + torch.arange(sk))[:, None] * (2 * inner) + h * d + torch.arange(d)
+            k, v = flat_kv[rows], flat_kv[rows + inner]
+            o[i * s_len:(i + 1) * s_len, cols] = core_two_sweeps(
+                q[i * s_len:(i + 1) * s_len, cols], k, v, 1.0 / math.sqrt(d))
+    return o
+
+
+def cross_block(x, ln_w, ln_b, ctx, wq, wk, wv, wo, bo, heads, eps=1e-6):
+    """The block around the core as the kernel chain rounds it: bf16 LN(x)
+    and q, one bf16 [k | v] product on the raw context, the core, then the
+    output projection with bias and residual in f32 and one rounding."""
+    dt = x.dtype
+    b, s_len, c = x.shape
+    sk = ctx.shape[1]
+    inner = wq.shape[0]
+    h = layer_norm_f32(x, ln_w, ln_b, eps).to(dt).reshape(b * s_len, c)
+    q = (h.float() @ wq.float().t()).to(dt)
+    kv = (ctx.reshape(b * sk, -1).float() @ torch.cat([wk, wv]).float().t()).to(dt)
+    o = cross_core(q, kv, b, s_len, sk, heads, inner // heads)
+    out = x.reshape(b * s_len, c).float() + o.float() @ wo.float().t() + bo.float()
+    return out.to(dt).reshape(b, s_len, c)
+
+
+def _cross_args(seed, b, s_len, c, sk=50, cc=384, heads=8):
+    rng = np.random.default_rng(seed)
+
+    def r(*shape, s=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * s).astype(np.float32)).to(
+            torch.bfloat16)
+
+    return (r(b, s_len, c), 1 + r(c, s=0.1), r(c, s=0.1), r(b, sk, cc), r(c, c, s=c**-0.5),
+            r(c, cc, s=cc**-0.5), r(c, cc, s=cc**-0.5), r(c, c, s=c**-0.5), r(c, s=0.1), heads)
+
+
+@pytest.mark.parametrize("c,s_len", [(320, 64), (320, 100), (640, 48)])  # d = 40, 40, 80
+def test_cross_core_matches_plain_block_and_pallas_kernel(c, s_len):
+    """K5 with its core on the two sweeps over one masked 50-key tile, k and
+    v read in place from the fused projection, against the plain block and
+    the JAX ``_cross_kernel`` in interpret mode."""
+    args = _cross_args(c + s_len, 2, s_len, c)
+    x, ln_w, ln_b, ctx, wq, wk, wv, wo, bo, heads = args
+    got = cross_block(*args)
+    _within(got.float().numpy(), p_ab.cross_attention_block_reference(*args).float().numpy())
+    d = c // heads
+    ref = j_ab._cross_fused(_jnp(x), _jnp(ctx), jnp.asarray(ln_w.float().numpy()),
+                            jnp.asarray(ln_b.float().numpy()), _jnp(wq.t()), _jnp(wk.t()),
+                            _jnp(wv.t()), _jnp(wo.t()), jnp.asarray(bo.float().numpy()), heads,
+                            1e-6, 1.0 / math.sqrt(d), 1, True)
+    _within(got.float().numpy(), _np(ref))
+
+
+@pytest.mark.parametrize("d", [40, 80])
+def test_cross_core_reads_k_and_v_through_the_fused_pitch(d):
+    """The core alone, against the plain attention on k and v cut from the
+    fused buffer by hand: the pitch 2 * inner and the v offset pick the
+    right columns, and the 14 masked keys of the tile add nothing."""
+    heads, b, s_len, sk = 3, 2, 70, 50
+    inner = heads * d
+    q = _inputs(d, b * s_len, inner)[0]
+    kv = _inputs(d + 1, b * sk, 2 * inner)[0]
+    got = cross_core(q, kv, b, s_len, sk, heads, d)
+    k, v = kv[:, :inner].reshape(b, sk, heads, d), kv[:, inner:].reshape(b, sk, heads, d)
+    want = p_attn.dot_product_attention_reference(q.reshape(b, s_len, heads, d), k, v)
+    _within(got.float().numpy(), want.reshape(b * s_len, inner).float().numpy())

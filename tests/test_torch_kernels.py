@@ -13,9 +13,10 @@ Shapes are small versions of every mode the serving path uses, with the
 head dims (40, 80, 160) and sequence lengths (16, 64, 256, 1024) of the
 full-width UNet; the kernels of the fused-kernel configuration (cross
 block, GroupNorm) and the VAE's flash attention run at served shapes.
-The int8 configurations add K8 (against its plain version, ragged edges
-and all-zero rows included) and the int8 convolution route, whose int32
-accumulators must equal the plain float64 ones exactly. The kernel probe
+The int8 configurations add K8 (bitwise its plain version at every served
+shape, ragged edges, an f32 weight and all-zero rows included) and the int8
+convolution route, whose int32 accumulators must equal the plain float64
+ones exactly. The kernel probe
 adds K9-K12 (fused q/k/v projection, int8-in/int8-out GEGLU, one-shot and
 streaming attention) and the flash route's head dims 40 and 80; the flash
 route and K12 also run at an odd batch, every length class, cross shapes,
@@ -271,20 +272,59 @@ def test_cuda_tensors_never_take_the_plain_version(rand, monkeypatch):
         attn_block.cross_attention_block(*args)
 
 
+# (M, K, N) of every K8 launch of one int8-dense forward (chip_smoke.py QMM_SHAPES)
+QMM_SHAPES = [(65536, 320, 2560), (65536, 320, 320), (65536, 1280, 320),
+              (16384, 640, 640), (16384, 640, 5120), (16384, 2560, 640),
+              (4096, 1280, 1280), (4096, 1280, 10240), (4096, 5120, 1280),
+              (1024, 1280, 1280), (1024, 1280, 10240), (1024, 5120, 1280),
+              (3200, 384, 320), (3200, 384, 640), (3200, 384, 1280)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(130, 24, 136), (3200, 384, 320), (1024, 1280, 1280),
-                                   (2048, 320, 2560), (512, 5120, 1280), (17, 640, 5120)])
+                                   (2048, 320, 2560), (512, 5120, 1280), (17, 640, 5120),
+                                   (1000, 328, 328), (1, 8, 8)])  # ragged M, N and K
 @pytest.mark.parametrize("bias", [True, False])
 def test_quantized_matmul_kernel(rand, m, k, n, bias):
+    """Bitwise the plain version, an all-zero row exactly the bias."""
     x = rand(m, k)
     x[::7] = 0  # the CFG pass's all-zero audio context: exactly the bias
     w, b = rand(n, k, s=k**-0.5), rand(n, s=0.1) if bias else None
     before = qmm.quantized_matmul.launches
     got = qmm.quantized_matmul(x, w, b)
-    _check(got, qmm.quantized_matmul_reference(x, w, b))
+    ref = qmm.quantized_matmul_reference(x, w, b)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and torch.equal(got, ref)
     assert qmm.quantized_matmul.launches == before + 1
     want = torch.zeros(n, device="cuda", dtype=torch.bfloat16) if b is None else b
     assert torch.equal(got[::7], want.expand_as(got[::7]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", QMM_SHAPES)
+def test_quantized_matmul_kernel_is_bitwise_at_served_shapes(rand, m, k, n):
+    x = rand(m, k)
+    x[::977] = 0
+    w, b = rand(n, k, s=k**-0.5), rand(n, s=0.1)
+    got = qmm.quantized_matmul(x, w, b)
+    assert torch.equal(got, qmm.quantized_matmul_reference(x, w, b))
+
+
+@pytest.mark.cuda
+def test_quantized_matmul_kernel_takes_an_f32_weight_and_large_accumulators(rand):
+    """The row pass reads an f32 weight as it is; codes of +-127 along K =
+    5120 give |acc| above 2^24, whose f32 rounding matches the plain one."""
+    x = torch.ones(256, 5120, device="cuda", dtype=torch.bfloat16)
+    x[1::2, ::3] = 0.5
+    w = rand(320, 5120).float().sign()
+    w[0] = 1
+    got = qmm.quantized_matmul(x, w)
+    assert torch.equal(got, qmm.quantized_matmul_reference(x, w))
+    w = rand(640, 1280, s=0.02).float()
+    x = rand(1000, 1280)
+    assert torch.equal(qmm.quantized_matmul(x, w), qmm.quantized_matmul_reference(x, w))
+    with pytest.raises(ValueError):  # N = 20: no multiple of 8
+        qmm.quantized_matmul(x, rand(20, 1280))
 
 
 @pytest.mark.cuda
@@ -687,9 +727,12 @@ def test_self_attention_block_kernel_ragged(rand, temporal, b, s, c, heads):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,c,cc,heads", [(2, 65, 200, 72, 5), (1, 129, 80, 384, 2),
                                             (3, 16, 320, 200, 8),
-                                            (9, 1024, 320, 200, 8)])  # wide q and output
+                                            (9, 1024, 320, 200, 8),  # wide q and output
+                                            (3, 100, 320, 384, 8), (3, 300, 640, 384, 8)])
 def test_cross_attention_block_kernel_ragged(rand, monkeypatch, b, s, c, cc, heads):
-    """K5's three projections at widths and context widths off the k-tile."""
+    """K5's three projections at widths and context widths off the k-tile;
+    its core at query lengths that end in a partial block of 64 or 128 rows
+    (d = 40 and 80)."""
     monkeypatch.setenv("LATENTSYNC_FUSED_XATTN", "1")
     assert attn_block.cross_fused_route(b, s, 50, c, cc, c)
     args = (rand(b, s, c), 1 + rand(c, s=0.1), rand(c, s=0.1), rand(b, 50, cc),

@@ -329,6 +329,15 @@ def test_profile_forward_sorts_kernels_into_families_and_unions_busy_time():
         "gemm_template"
     assert fam("ls_gemm::ln_rows_kernel(__nv_bfloat16 const*, int)") == "gemm_template"
     assert fam("void ls_core::attn_kernel<40, 2, false>(...)") == "k4_spatial_core"
+    assert fam("void ls_core::attn_kernel<40, 2, 0>(__nv_bfloat16 const*)") == "k4_spatial_core"
+    # K8: the row pass and the template's int8 mode; K5's core (P_NORMALISED)
+    assert fam("void (anonymous namespace)::qmm_quantize_rows_kernel<__nv_bfloat16>(int)") == \
+        "k8_qmm"
+    assert fam("void ls_gemm::gemm_kernel<160, false, false, signed char>(ls_gemm::Args, int, "
+               "int)") == "k8_qmm"
+    assert fam("void ls_gemm::gemm_kernel<160, false, false, __nv_bfloat16>(ls_gemm::Args, int, "
+               "int)") == "gemm_template"
+    assert fam("void ls_core::attn_kernel<80, 2, 1>(__nv_bfloat16 const*)") == "k5_cross_core"
     assert fam("ls_attn::temporal_kernel(...)") == "k3_temporal_core"
     assert fam("sm90_xmma_fprop_implicit_gemm_bf16bf16") == "library_convolution"
     assert fam("nvjet_tst_320x128_64x3") == "other"
