@@ -19,9 +19,14 @@ and without CUDA it exits nonzero before doing anything):
    and N are ragged; time both with CUDA events, and beside them the one
    PyTorch library call that computes the same function, where there is
    one, or the library composition (K8: ``torch._int_mm`` on codes quantized
-   before the timing, and the dequantization; K5: ``F.layer_norm``,
-   ``F.linear``, SDPA, ``F.linear`` and the residual), timed here and used
-   nowhere in the port; compute each kernel's bound, the least time the card
+   before the timing, and the dequantization; K2 and K5: ``F.layer_norm``,
+   ``F.linear``, SDPA, ``F.linear`` and the residual; K1: the cuBLAS
+   composition of the GEGLU feed-forward; K10: dequantization, that
+   composition and the row quantization), timed here and used nowhere in
+   the port; count with ``torch.profiler`` the device kernels one call of
+   each kernel's wrapper launches at its first shape, and K2's and K7's at
+   every shape (K2's temporal mode must be ONE kernel, two at C = 640; K7
+   one); compute each kernel's bound, the least time the card
    could take for the same work, from the bytes of its inputs and outputs and the
    operations of its shapes, and for the attention kernels the time their
    exponentials alone need on the special-function units
@@ -333,6 +338,33 @@ def kernel_cases():
             cat_cache[key] = torch.cat([wq, wk, wv])
         return F.linear(x, cat_cache[key]).chunk(3, dim=-1)
 
+    def library_block(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads, temporal, pe):
+        """K2: ``F.layer_norm`` (+ pe), ``F.linear`` on the q/k/v weight
+        concatenated once a shape, SDPA over each sequence's heads,
+        ``F.linear`` with bias and the residual."""
+        b, s, c = x.shape
+        h = F.layer_norm(x, (c,), ln_w, ln_b, 1e-6)
+        if pe is not None:
+            h = h + pe
+        q, k, v = (t.reshape(b, s, heads, -1).transpose(1, 2)
+                   for t in library_qkv(h, wq, wk, wv))
+        o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, s, -1)
+        return x + F.linear(o, wo, bo)
+
+    def library_ffn(x, w_up, b_up, w_dn, b_dn, ln_w, ln_b, residual):
+        """K1: the cuBLAS composition (``F.layer_norm``, ``F.linear``, GELU
+        gate, ``F.linear``, residual)."""
+        h = F.layer_norm(x, (x.shape[-1],), ln_w, ln_b, 1e-6)
+        value, gate = F.linear(h, w_up, b_up).chunk(2, dim=-1)
+        y = F.linear(value * F.gelu(gate), w_dn, b_dn)
+        return x + y if residual else y
+
+    def library_ffn_int8io(codes, scales, w_up, b_up, w_dn, b_dn):
+        """K10: dequantize, the GEGLU composition, quantize by rows."""
+        x = (codes.float() * scales).to(w_up.dtype)
+        value, gate = F.linear(x, w_up, b_up.to(x.dtype)).chunk(2, dim=-1)
+        return ffn.quantize_rowwise(F.linear(value * F.gelu(gate), w_dn, b_dn.to(x.dtype)))
+
     def case(name, wrapper, plain, source, replaces, shapes, library=None):
         return dict(name=name, wrapper=wrapper, plain=plain, source=source, replaces=replaces,
                     shapes=shapes, library=library)
@@ -344,13 +376,14 @@ def kernel_cases():
               ffn_args(1024, 1280),
               # K no multiple of the 64-deep k-tile, ragged M and N: the
               # zero-filled last tile and the masks
-              ffn_args(200, 72)]),
+              ffn_args(200, 72)], library_ffn),
         case("self_attention_block", attn_block.self_attention_block,
              attn_block.self_attention_block_reference,
              "latentsync_tpu_torch/csrc/attn_block.cu", "latentsync_tpu/ops/attn_block.py:76",
              [block_args(4096, 16, 320, True), block_args(1024, 16, 640, True),
               block_args(64, 256, 640, False),
-              block_args(13, 16, 72, True, heads=9)]),  # M = 208, K = 72: ragged
+              # M = 208 (a row tile and a part), K = 120 (a short last k-tile)
+              block_args(13, 16, 120, True, heads=3)], library_block),
         case("temporal_attention", ta.temporal_attention, ta.temporal_attention_reference,
              "latentsync_tpu_torch/csrc/temporal_attention.cu",
              "latentsync_tpu/ops/temporal_attention.py:47",
@@ -395,7 +428,8 @@ def kernel_cases():
         case("geglu_ffn_int8io", ffn.geglu_ffn_int8io, ffn.geglu_ffn_int8io_reference,
              "latentsync_tpu_torch/csrc/geglu_i8.cu", "latentsync_tpu/ops/ffn.py:338",
              [i8_args(131072, 320), i8_args(32768, 640),
-              i8_args(200, 72)]),  # ragged M, N and last k-tile
+              i8_args(200, 72)],  # ragged M, N and last k-tile
+             library_ffn_int8io),
         case("oneshot_attention", attention.oneshot_attention,
              attention.oneshot_attention_reference,
              "latentsync_tpu_torch/csrc/oneshot_attention.cu",
@@ -454,6 +488,39 @@ def compare(name: str, got, ref):
         all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
+# device kernels of the port that one call must launch, by shape label (no
+# torch kernel counted): K2's temporal mode is one kernel (two at C = 640,
+# where the output product runs on the GEMM template), K7 one
+KERNELS_A_CALL = {
+    "self_attention_block": lambda label: (2 if "C=640" in label else 1)
+    if label.startswith("temporal") else 4,
+    "group_norm_silu_streaming": lambda label: 1,
+}
+
+
+def kernels_a_call(fn, attempts: int = 3):
+    """(the port's device kernels, torch's device kernels) that one call of
+    `fn` launches, from ``torch.profiler``: torch's are named ``at::...``
+    (the wrapper's casts of parameters), the port's are not. A call launches
+    at least one kernel, so a trace with none lost its events (it happens
+    on the card now and then): it is taken again, up to `attempts` times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    port = [n for n in names if "at::" not in n]
+    return len(port), len(names) - len(port)
+
+
 def check_kernels(device):
     import torch
 
@@ -488,6 +555,14 @@ def check_kernels(device):
                     library_ms = cuda_ms(lambda: library(*args, *kw.values()))
             # K8 must equal its plain version bit for bit
             good = launched and finite and close and (bitwise or name != "quantized_matmul")
+            calls = ""
+            if i == 0 or name in KERNELS_A_CALL:
+                with configured("fused"):
+                    port_k, torch_k = kernels_a_call(lambda: wrapper(*args, **kw))
+                if i == 0:
+                    entry.update(kernels_a_call=port_k, torch_kernels_a_call=torch_k)
+                good &= name not in KERNELS_A_CALL or port_k == KERNELS_A_CALL[name](label)
+                calls = f" kernels_a_call={port_k} (+{torch_k} torch)"
             ok &= good
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
             exp_bound = f" exp_bound_ms={exps[0] / exps_per_s * 1e3:.4f}" if exps else ""
@@ -499,7 +574,8 @@ def check_kernels(device):
             lib = "none" if library_ms is None else f"{library_ms:.4f}"
             log(f"kernel {name:22s} {label:28s} max_abs_err={err:.6g} tol={tol:.6g} "
                 f"bitwise={bitwise} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} "
-                f"bound_ms={bound_ms:.4f} ({bound_by}){exp_bound} {'ok' if good else 'FAIL'}")
+                f"bound_ms={bound_ms:.4f} ({bound_by}){exp_bound}{calls} "
+                f"{'ok' if good else 'FAIL'}")
             del args, kw, got
             torch.cuda.empty_cache()
         results.append(entry)

@@ -3,21 +3,53 @@
 // Replaces the TPU kernel latentsync_tpu/ops/attn_block.py _kernel
 // (pallas_call at attn_block.py:238), in both its temporal mode (16-frame
 // sequences, positional encoding added after the LN) and its spatial mode.
-// On the TPU one program kept LN(x), q/k/v and the attention output in
-// VMEM; here it is a chain of four launches on one stream: the LayerNorm
-// row pass (bf16(LN(x) [+ PE]) written once to a scratch buffer), ONE q/k/v
-// projection of it against the concatenated (3 inner, C) weight, the
-// attention core reading q/k/v as column slices of that (M, 3 inner)
+//
+// Temporal mode (ls_temporal_block): one launch that keeps LN(x), q/k/v and
+// the attention output on chip, as the TPU kernel kept them in VMEM; at head
+// dim 80 (C = 640) the attention output goes to the scratch `attn` and the
+// output product to the GEMM template (design, traffic and bound:
+// temporal_block.cuh).
+//
+// Spatial mode (ls_attn_block): a chain of four launches on one stream: the
+// LayerNorm row pass (bf16(LN(x)) written once to a scratch buffer), ONE
+// q/k/v projection of it against the three weights (the template's
+// three-operand launch, outputs at pitch 3 inner in one buffer), the
+// spatial core (attn_core.cuh) reading q/k/v as column slices of that
 // buffer, and the output projection with bias and residual epilogue.
-// Bound: the projections (wgmma behind a shared-memory ring) and the spatial
-// core are tensor-core bound (the core's exponentials first at D = 40), the
-// temporal core memory bound (see gemm.cuh, attention.cuh, attn_core.cuh).
+// Bound: the projections (wgmma behind a shared-memory ring) and the core
+// are tensor-core bound (the core's exponentials first at D = 40).
 #include "attention.cuh"
-#include "gemm.cuh"
+#include "temporal_block.cuh"
+
+extern "C" int ls_temporal_block(const void* x, int batch, int c, int inner, int heads,
+                                 const float* ln_w, const float* ln_b, float eps, const void* pe,
+                                 const void* wq, const void* wk, const void* wv, const void* wo,
+                                 const float* bo, float scale, void* attn, void* out,
+                                 void* stream) {
+  ls_tblock::Args p = {};
+  p.x = static_cast<const bf16*>(x);
+  p.m = batch * ls_tblock::TF;
+  p.c = c;
+  p.inner = inner;
+  p.heads = heads;
+  p.ln_w = ln_w;
+  p.ln_b = ln_b;
+  p.eps = eps;
+  p.pe = static_cast<const bf16*>(pe);
+  p.wq = static_cast<const bf16*>(wq);
+  p.wk = static_cast<const bf16*>(wk);
+  p.wv = static_cast<const bf16*>(wv);
+  p.wo = static_cast<const bf16*>(wo);
+  p.bo = bo;
+  p.scale = scale;
+  p.out = static_cast<bf16*>(out);
+  p.o = static_cast<bf16*>(attn);
+  return (int)ls_tblock::temporal_block(p, static_cast<cudaStream_t>(stream));
+}
 
 extern "C" int ls_attn_block(const void* x, int batch, int seq, int c, int inner, int heads,
-                             int temporal, const float* ln_w, const float* ln_b, float eps,
-                             const void* pe, const void* w_qkv, const void* w_o, const float* b_o,
+                             const float* ln_w, const float* ln_b, float eps, const void* wq,
+                             const void* wk, const void* wv, const void* w_o, const float* b_o,
                              float scale, void* normed, void* qkv, void* attn, void* out,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -27,30 +59,28 @@ extern "C" int ls_attn_block(const void* x, int batch, int seq, int c, int inner
   bf16* nb = static_cast<bf16*>(normed);
   bf16* qkvb = static_cast<bf16*>(qkv);
   bf16* ob = static_cast<bf16*>(attn);
-  cudaError_t e = ls_gemm::ln_rows(xb, m, c, c, eps, ln_w, ln_b, static_cast<const bf16*>(pe),
-                                   seq, nb, s);
+  cudaError_t e = ls_gemm::ln_rows(xb, m, c, c, eps, ln_w, ln_b, nullptr, 0, nb, s);
   if (e != cudaSuccess) return (int)e;
+  const int ld = 3 * inner;
   ls_gemm::Args proj = {};
   proj.a = nb;
   proj.lda = c;
-  proj.b = static_cast<const bf16*>(w_qkv);
+  proj.b = wq;
+  proj.b1 = wk;
+  proj.b2 = wv;
+  proj.nb = 3;
   proj.ldb = c;
   proj.c = qkvb;
-  proj.ldc = 3 * inner;
+  proj.c1 = qkvb + inner;
+  proj.c2 = qkvb + 2 * inner;
+  proj.ldc = ld;
   proj.m = m;
-  proj.n = 3 * inner;
+  proj.n = inner;
   proj.k = c;
   e = ls_gemm::gemm(proj, s);
   if (e != cudaSuccess) return (int)e;
-  const int ld = 3 * inner;
-  if (temporal) {
-    if (seq != ls_attn::TF) return (int)cudaErrorInvalidValue;
-    e = ls_attn::temporal(qkvb, qkvb + inner, qkvb + 2 * inner, ld, ld, ld, ob, inner, batch,
-                          heads, d, scale, s);
-  } else {
-    e = ls_attn::spatial(qkvb, qkvb + inner, qkvb + 2 * inner, ld, ld, ld, ob, inner, batch, seq,
-                         heads, d, scale, s);
-  }
+  e = ls_attn::spatial(qkvb, qkvb + inner, qkvb + 2 * inner, ld, ld, ld, ob, inner, batch, seq,
+                       heads, d, scale, s);
   if (e != cudaSuccess) return (int)e;
   ls_gemm::Args o = {};
   o.a = ob;

@@ -11,7 +11,8 @@
 // covers one contiguous slab of (C/G) * spatial elements, for the 5-D
 // cross-frame tensor and the frame-folded per-frame tensor alike, so a
 // slab is read with plain 16-byte loads (8 elements of one channel:
-// spatial % 8 == 0 on every UNet shape; other shapes take element loads).
+// spatial % 8 == 0 on every UNet shape; K6 takes other shapes with element
+// loads, K7 refuses them).
 // C/G is 10 at C = 320, so nothing is vectorised across channels.
 //
 // Statistics: every thread keeps (count, mean, M2) and merges them with
@@ -20,14 +21,35 @@
 //
 //   K6 (ls_group_norm_silu): one block per slab, a statistics sweep and a
 //      normalise sweep (the second mostly from L2).
-//   K7 (ls_group_norm_silu_streaming): several blocks per slab. Launch 1
-//      writes each chunk's (count, mean, M2) partial; launch 2 merges the
-//      slab's partials in every block and normalises that block's chunk.
+//   K7 (ls_group_norm_silu_streaming): one thread-block cluster per slab,
+//      one launch. Each block of the cluster (up to 8, the portable size;
+//      the wrapper sizes the cluster by the slab) reads its contiguous part
+//      of the slab once: the first 32 KB into registers, the rest into its
+//      shared memory by the bulk-copy engine (cp.async.bulk, completion on an
+//      mbarrier), so that two blocks fit an SM even at the largest part, and
+//      takes its moments from there (sums about the part's first element:
+//      no division an element). The blocks then read one another's moments through
+//      distributed shared memory after a cluster barrier, each merging them
+//      in rank order (so every block gets the same statistics), and each
+//      normalises its part from shared memory. A second cluster barrier
+//      keeps every block alive until the others have read its moments.
+//      The largest served slab, (4, 960, 16, 32, 32) at 32 groups, is
+//      983 KB: 123 KB a block at 8 blocks. SiLU is h + h tanh(h), h = y / 2:
+//      one special-function instruction an element where y / (1 + e^-y)
+//      takes two and a division. The TPU kernel had no shared
+//      memory across cores and crossed device memory twice (statistics
+//      pass, then normalise pass), as the port's first version did in two
+//      launches; here device memory sees each element read once and
+//      written once.
 //
-// Bound: memory. One read for the statistics, one read and one write to
-// normalise: 6 bytes an element at bf16, against the f32 round trips of
-// a composed GroupNorm.
+// Bound: memory. K6: one read for the statistics, one read (mostly from
+// L2) and one write to normalise. K7: one read and one write, 4 bytes an
+// element at bf16, against the f32 round trips of a composed GroupNorm.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cgr = cooperative_groups;
 
 namespace {
 
@@ -59,8 +81,9 @@ __device__ __forceinline__ Moments warp_merge(Moments a) {
 }
 
 // Merge every thread's moments; the result is returned to all threads.
+template <int WARPS = GN_WARPS>
 __device__ Moments block_merge(Moments a) {
-  __shared__ Moments part[GN_WARPS];
+  __shared__ Moments part[WARPS];
   __shared__ Moments total;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -68,7 +91,7 @@ __device__ Moments block_merge(Moments a) {
   if (lane == 0) part[warp] = a;
   __syncthreads();
   if (warp == 0) {
-    Moments w = lane < GN_WARPS ? part[lane] : Moments{0.f, 0.f, 0.f};
+    Moments w = lane < WARPS ? part[lane] : Moments{0.f, 0.f, 0.f};
     w = warp_merge(w);
     if (lane == 0) total = w;
   }
@@ -147,49 +170,193 @@ __global__ void __launch_bounds__(GN_THREADS)
                rstd, silu);
 }
 
-template <int V>
-__global__ void __launch_bounds__(GN_THREADS)
-    gn_partial_kernel(const bf16* __restrict__ x, int cg, int spatial, long chunk,
-                      float* __restrict__ partials) {
-  const long slab = blockIdx.y;
-  const long len = (long)cg * spatial;
-  const long begin = blockIdx.x * chunk;
-  const long end = begin + chunk < len ? begin + chunk : len;
-  const Moments mo = block_merge(slab_moments<V>(x + slab * len, begin, end));
-  if (threadIdx.x == 0) {
-    float* p = partials + (slab * gridDim.x + blockIdx.x) * 3;
-    p[0] = mo.n;
-    p[1] = mo.mean;
-    p[2] = mo.m2;
-  }
+// bytes one bulk copy moves (a block's part goes in pieces of at most this)
+constexpr int GN_PIECE = 32768;
+// the portable cluster size
+constexpr int GN_CLUSTER_MAX = 8;
+// dynamic shared memory a block may have: Hopper's 227 KB less 1 KB for the
+// kernel's static variables
+constexpr int GN_SMEM_MAX = 232448 - 1024;
+
+__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
 }
 
-template <int V>
-__global__ void __launch_bounds__(GN_THREADS)
-    gn_apply_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, const float* w,
-                    const float* b, int groups, int cg, int spatial, float eps, int silu,
-                    long chunk, const float* __restrict__ partials) {
+constexpr int GC_THREADS = 512;  // K7's block: 16 warps
+constexpr int GC_RV = 4;         // 16-byte vectors of the part each thread holds in registers
+constexpr int GC_HEAD = GC_RV * GC_THREADS * 8;  // elements of the part in registers
+
+// tanh on the special-function unit (one instruction)
+__device__ __forceinline__ float tanh_fast(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// y = x * a + c [SiLU] of 8 elements, as 16 bytes
+__device__ __forceinline__ uint4 gn_apply8(const float (&v)[8], float2 ab, int silu) {
+  __align__(16) bf16 out[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float t = fmaf(v[j], ab.x, ab.y);
+    if (silu) {  // t * sigmoid(t) = h + h tanh(h), h = t / 2
+      const float h = 0.5f * t;
+      t = fmaf(h, tanh_fast(h), h);
+    }
+    out[j] = __float2bfloat16(t);
+  }
+  return *reinterpret_cast<const uint4*>(out);
+}
+
+// One cluster of gridDim.x blocks a slab (blockIdx.y); block r holds
+// elements [r * chunk, min((r + 1) * chunk, len)) of it, its part: the first
+// GC_HEAD elements in registers (thread t holds vectors t, t + 512, ...,
+// loaded by plain 16-byte loads), the rest in shared memory (one bulk copy
+// engine transfer). So the largest part, 123 KB, leaves 91 KB of shared
+// memory a block and two blocks fit an SM. chunk % 8 == 0 and spatial % 8 ==
+// 0: every 16-byte vector lies in one channel. Dynamic shared memory: the
+// rest of the part, then (scale, shift) of each channel of the group.
+__global__ void __launch_bounds__(GC_THREADS)
+    gn_cluster_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, const float* w,
+                      const float* b, int groups, int cg, int spatial, float eps, int silu,
+                      int chunk) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar;
+  __shared__ Moments mine;
   __shared__ float stat[2];
+  cgr::cluster_group cluster = cgr::this_cluster();
+  const int tid = threadIdx.x;
+  const int rank = (int)cluster.block_rank();
+  const int blocks = (int)cluster.num_blocks();
   const long slab = blockIdx.y;
-  const long len = (long)cg * spatial;
-  const int chunks = gridDim.x;
-  if (threadIdx.x < 32) {
-    Moments acc = {0.f, 0.f, 0.f};
-    for (int i = threadIdx.x; i < chunks; i += 32) {
-      const float* p = partials + (slab * chunks + i) * 3;
-      acc = merge(acc, Moments{p[0], p[1], p[2]});
-    }
-    acc = warp_merge(acc);
-    if (threadIdx.x == 0) {
-      stat[0] = acc.mean;
-      stat[1] = rsqrtf(acc.m2 / acc.n + eps);
-    }
+  const int len = cg * spatial;
+  const int begin = rank * chunk;
+  const int n = begin < len ? min(chunk, len - begin) : 0;
+  const int nh = min(n, GC_HEAD);  // elements in registers; [nh, n) in shared memory
+  const bf16* xs = x + slab * len + begin;
+  const bf16* tail = reinterpret_cast<const bf16*>(smem_raw);  // element i >= nh: tail[i - nh]
+  const int tail_bytes = chunk > GC_HEAD ? (chunk - GC_HEAD) * 2 : 0;
+  float2* coef = reinterpret_cast<float2*>(smem_raw + tail_bytes);
+  const unsigned bar_s = (unsigned)__cvta_generic_to_shared(&bar);
+
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_s) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const long begin = blockIdx.x * chunk;
-  const long end = begin + chunk < len ? begin + chunk : len;
-  normalise<V>(x + slab * len, y + slab * len, begin, end, (int)(slab % groups) * cg, spatial,
-               w, b, stat[0], stat[1], silu);
+  if (tid == 0) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar_s),
+                 "r"((n - nh) * 2)
+                 : "memory");
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_raw);
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(xs + nh);
+    for (int off = 0; off < (n - nh) * 2; off += GN_PIECE) {
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+          "[%3];\n" ::"r"(dst + off),
+          "l"(src + off), "r"(min(GN_PIECE, (n - nh) * 2 - off)), "r"(bar_s)
+          : "memory");
+    }
+  }
+  uint4 head[GC_RV];
+#pragma unroll
+  for (int k = 0; k < GC_RV; ++k) {
+    const int i = (k * GC_THREADS + tid) * 8;
+    head[k] = i < nh ? *reinterpret_cast<const uint4*>(xs + i) : make_uint4(0, 0, 0, 0);
+  }
+
+  // this thread's moments from sums about the part's first element (no
+  // division an element), then Chan's merge across the block
+  Moments mo = {0.f, 0.f, 0.f};
+  {
+    const float shift = n > 0 ? __bfloat162float(xs[0]) : 0.f;
+    float s1 = 0.f, s2 = 0.f;
+    int cnt = 0;
+    auto add8 = [&](const float (&v)[8]) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float d = v[j] - shift;
+        s1 += d;
+        s2 = fmaf(d, d, s2);
+      }
+      cnt += 8;
+    };
+#pragma unroll
+    for (int k = 0; k < GC_RV; ++k) {
+      if ((k * GC_THREADS + tid) * 8 < nh) {
+        float v[8];
+        load<8>(reinterpret_cast<const bf16*>(&head[k]), v);
+        add8(v);
+      }
+    }
+    while (!mbar_try_wait(bar_s, 0)) {
+    }
+    for (int i = nh + tid * 8; i < n; i += GC_THREADS * 8) {
+      float v[8];
+      load<8>(tail + (i - nh), v);
+      add8(v);
+    }
+    if (cnt > 0) {
+      const float mean = s1 / cnt;
+      mo = {(float)cnt, shift + mean, fmaxf(s2 - s1 * mean, 0.f)};
+    }
+  }
+  mo = block_merge<GC_THREADS / 32>(mo);
+  if (tid == 0) mine = mo;
+  cluster.sync();  // every block's moments are written and visible
+  if (tid == 0) {
+    Moments acc = {0.f, 0.f, 0.f};
+    for (int r = 0; r < blocks; ++r) acc = merge(acc, *cluster.map_shared_rank(&mine, r));
+    stat[0] = acc.mean;
+    stat[1] = rsqrtf(acc.m2 / acc.n + eps);
+  }
+  __syncthreads();
+  // this block reads no other block's shared memory any more
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  const int c0 = (int)(slab % groups) * cg;
+  for (int ch = tid; ch < cg; ch += GC_THREADS) {  // y = x * a + (b - mean * a)
+    const float a = w[c0 + ch] * stat[1];
+    coef[ch] = make_float2(a, b[c0 + ch] - stat[0] * a);
+  }
+  __syncthreads();
+  bf16* ys = y + slab * len + begin;
+#pragma unroll
+  for (int k = 0; k < GC_RV; ++k) {
+    const int i = (k * GC_THREADS + tid) * 8;
+    if (i < nh) {
+      float v[8];
+      load<8>(reinterpret_cast<const bf16*>(&head[k]), v);
+      *reinterpret_cast<uint4*>(ys + i) = gn_apply8(v, coef[(begin + i) / spatial], silu);
+    }
+  }
+  // the rest from shared memory; the channel of a thread's vector moves on
+  // by a fixed quotient and remainder each step
+  {
+    constexpr int STEP = GC_THREADS * 8;
+    const int dq = STEP / spatial, dr = STEP % spatial;
+    int ch = (begin + nh + tid * 8) / spatial;
+    int rem = (begin + nh + tid * 8) - ch * spatial;
+    for (int i = nh + tid * 8; i < n; i += STEP) {
+      float v[8];
+      load<8>(tail + (i - nh), v);
+      *reinterpret_cast<uint4*>(ys + i) = gn_apply8(v, coef[ch], silu);
+      ch += dq;
+      rem += dr;
+      if (rem >= spatial) {
+        rem -= spatial;
+        ++ch;
+      }
+    }
+  }
+  // no block leaves while another may still read its moments
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 }  // namespace
@@ -211,27 +378,38 @@ extern "C" int ls_group_norm_silu(const void* x, void* y, const float* w, const 
 
 extern "C" int ls_group_norm_silu_streaming(const void* x, void* y, const float* w,
                                             const float* b, int n, int c, int groups,
-                                            int spatial, float eps, int silu, long long chunk,
-                                            void* partials, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  bf16* yb = static_cast<bf16*>(y);
-  float* pp = static_cast<float*>(partials);
+                                            int spatial, float eps, int silu, int cluster,
+                                            void* stream) {
   const int cg = c / groups;
-  if (chunk <= 0 || chunk % 8) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(((long long)cg * spatial + chunk - 1) / chunk), (unsigned)n * groups);
-  if (spatial % 8 == 0) {
-    gn_partial_kernel<8><<<grid, GN_THREADS, 0, s>>>(xb, cg, spatial, chunk, pp);
-    cudaError_t e = cudaGetLastError();
+  const long long len = (long long)cg * spatial;
+  if (spatial % 8 || cluster < 1 || cluster > GN_CLUSTER_MAX || len <= 0 || len > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int chunk = (int)((len + cluster - 1) / cluster + 7) / 8 * 8;
+  const size_t smem = (size_t)(chunk > GC_HEAD ? chunk - GC_HEAD : 0) * sizeof(bf16) +
+                      (size_t)cg * sizeof(float2);
+  if (smem > (size_t)GN_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  static bool allowed = false;  // one attribute for every launch's size
+  if (!allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gn_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GN_SMEM_MAX);
     if (e != cudaSuccess) return (int)e;
-    gn_apply_kernel<8><<<grid, GN_THREADS, 0, s>>>(xb, yb, w, b, groups, cg, spatial, eps, silu,
-                                                   chunk, pp);
-  } else {
-    gn_partial_kernel<1><<<grid, GN_THREADS, 0, s>>>(xb, cg, spatial, chunk, pp);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    gn_apply_kernel<1><<<grid, GN_THREADS, 0, s>>>(xb, yb, w, b, groups, cg, spatial, eps, silu,
-                                                   chunk, pp);
+    allowed = true;
   }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster, (unsigned)n * groups, 1);
+  cfg.blockDim = dim3(GC_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, gn_cluster_kernel, static_cast<const bf16*>(x),
+                         static_cast<bf16*>(y), w, b, groups, cg, spatial, eps, silu, chunk);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

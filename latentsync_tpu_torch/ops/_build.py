@@ -32,12 +32,13 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_L = ctypes.c_longlong
 # entry point -> argtypes (all return int: a cudaError_t)
 _SIGNATURES = {
     "ls_geglu_ffn": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P, _P],
-    "ls_attn_block": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P,
+    "ls_attn_block": [_P, _I, _I, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P,
                       _F, _P, _P, _P, _P, _P],
+    "ls_temporal_block": [_P, _I, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P, _F,
+                          _P, _P, _P],
     "ls_temporal_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _P],
     "ls_spatial_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F,
                              _I, _P],
@@ -45,8 +46,7 @@ _SIGNATURES = {
     "ls_cross_attn_block": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F, _P, _P,
                             _P, _P, _F, _P, _P, _P, _P, _P, _P],
     "ls_group_norm_silu": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "ls_group_norm_silu_streaming": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _L, _P,
-                                     _P],
+    "ls_group_norm_silu_streaming": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "ls_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     "ls_qkv_proj": [*[_P] * 7, _I, _I, _I, _P],
     "ls_geglu_ffn_int8io": [_P, _P, _I, _I, *[_P] * 10],

@@ -4,8 +4,9 @@ Counterpart of ``latentsync_tpu/ops/attn_block.py``.
 
 ``self_attention_block`` (K2) on a CUDA tensor routes like the
 reference: where the TPU ran its fused block kernel (temporal mode at
-C = 320 and 640, spatial mode at S ≤ 256 with C = 640), it launches the
-kernel chain of ``csrc/attn_block.cu``; where the reference's weight or
+C = 320 and 640, spatial mode at S ≤ 256 with C = 640), it launches
+``csrc/attn_block.cu``: one kernel in temporal mode (two at C = 640), a
+chain of four in spatial mode; where the reference's weight or
 VMEM budget sent the block to its composed lowering (C = 1280, and
 spatial S = 1024 at C = 320), it runs that composition, whose attention
 core is the K3/K4 kernel (``temporal_attention``/``spatial_attention``).
@@ -55,6 +56,9 @@ _FUSED_WEIGHT_BYTES = 8 * 2**20
 _FUSED_SPATIAL_MAX_S = 256
 # head widths of the cross blocks on the fused route (C = 320, 640; 8 heads)
 _CROSS_HEAD_DIMS = (40, 80)
+# what K2's one-launch temporal kernel takes (csrc/temporal_block.cuh): the
+# served head widths (C = 320 and 640, 8 heads) and the widest C of each
+TEMPORAL_BLOCK_MAX_C = {40: 320, 80: 640}
 
 
 def fused_attn_block_enabled() -> bool:
@@ -91,8 +95,8 @@ def self_attention_block_reference(x, ln_scale, ln_bias, wq, wk, wv, wo, bo,
                                    pe: Optional[torch.Tensor] = None,
                                    eps: float = 1e-6) -> torch.Tensor:
     """Plain version: f32 LN and products, rounded to x.dtype where the
-    kernel chain rounds (normalised input, q/k/v, attention output,
-    block output)."""
+    kernels round (normalised input, q/k/v, attention output, block
+    output)."""
     dt = x.dtype
     d = wq.shape[0] // heads
     scale = 1.0 / math.sqrt(d)
@@ -137,7 +141,8 @@ def self_attention_block(x: torch.Tensor, ln_scale, ln_bias, wq, wk, wv, wo, bo,
         return self_attention_composed(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads,
                                        temporal=temporal, pe=pe, eps=eps)
     d = inner // heads
-    core_ok = s == TEMPORAL_FRAMES if temporal else d in SPATIAL_HEAD_DIMS
+    core_ok = (s == TEMPORAL_FRAMES and c <= TEMPORAL_BLOCK_MAX_C.get(d, 0)) if temporal \
+        else d in SPATIAL_HEAD_DIMS
     if c % 8 or d % 8 or inner != heads * d or not core_ok:
         raise ValueError(f"self_attention_block: no kernel for S={s}, C={c}, "
                          f"inner={inner}, heads={heads}, temporal={temporal}")
@@ -145,25 +150,33 @@ def self_attention_block(x: torch.Tensor, ln_scale, ln_bias, wq, wk, wv, wo, bo,
     dev = x.device
     f32 = dict(device=dev, dtype=torch.float32)
     x = x.contiguous()
-    w_qkv = torch.cat([wq, wk, wv], dim=0).to(dt).contiguous()
-    w_o = wo.to(dt).contiguous()
+    w_q, w_k, w_v, w_o = (w.to(dt).contiguous() for w in (wq, wk, wv, wo))
     b_o = bo.to(**f32).contiguous()
     ln_w = ln_scale.to(**f32).contiguous()
     ln_b = ln_bias.to(**f32).contiguous()
-    pe_b = None if pe is None else pe.to(device=dev, dtype=dt).contiguous()
-    _build.check_cuda("self_attention_block", x, w_qkv, w_o)
-    m = b * s
-    normed = torch.empty((m, c), device=dev, dtype=dt)  # scratch: bf16(LN(x) [+ pe])
-    qkv = torch.empty((m, 3 * inner), device=dev, dtype=dt)
-    attn = torch.empty((m, inner), device=dev, dtype=dt)
+    _build.check_cuda("self_attention_block", x, w_q, w_k, w_v, w_o)
     out = torch.empty_like(x)
     scale = 1.0 / math.sqrt(d)
-    _build.call(
-        "ls_attn_block", x.data_ptr(), b, s, c, inner, heads, int(temporal),
-        ln_w.data_ptr(), ln_b.data_ptr(), eps, _build.ptr(pe_b),
-        w_qkv.data_ptr(), w_o.data_ptr(), b_o.data_ptr(), scale,
-        normed.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
-        _build.stream(x))
+    if temporal:  # q/k/v never leave the chip
+        pe_b = None if pe is None else pe.to(device=dev, dtype=dt).contiguous()
+        # at D = 80 the attention output goes through device memory to the
+        # output product (csrc/temporal_block.cuh)
+        attn = torch.empty((b * s, inner), device=dev, dtype=dt) if d == 80 else None
+        _build.call(
+            "ls_temporal_block", x.data_ptr(), b, c, inner, heads, ln_w.data_ptr(),
+            ln_b.data_ptr(), eps, _build.ptr(pe_b), w_q.data_ptr(), w_k.data_ptr(),
+            w_v.data_ptr(), w_o.data_ptr(), b_o.data_ptr(), scale, _build.ptr(attn),
+            out.data_ptr(), _build.stream(x))
+    else:
+        m = b * s
+        normed = torch.empty((m, c), device=dev, dtype=dt)  # scratch: bf16(LN(x))
+        qkv = torch.empty((m, 3 * inner), device=dev, dtype=dt)
+        attn = torch.empty((m, inner), device=dev, dtype=dt)
+        _build.call(
+            "ls_attn_block", x.data_ptr(), b, s, c, inner, heads, ln_w.data_ptr(),
+            ln_b.data_ptr(), eps, w_q.data_ptr(), w_k.data_ptr(), w_v.data_ptr(),
+            w_o.data_ptr(), b_o.data_ptr(), scale, normed.data_ptr(), qkv.data_ptr(),
+            attn.data_ptr(), out.data_ptr(), _build.stream(x))
     self_attention_block.launches += 1
     return out
 

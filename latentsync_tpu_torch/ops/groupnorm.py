@@ -10,8 +10,10 @@ the product of the spatial axes here.
 
 - ``group_norm_silu`` (K6): one kernel launch, one block per (sample,
   group) slab (``csrc/groupnorm.cu``);
-- ``group_norm_silu_streaming`` (K7): chunk statistics, then a
-  normalise launch that merges them, on one stream;
+- ``group_norm_silu_streaming`` (K7): one launch, one thread-block
+  cluster per slab, each block holding its part of the slab in registers
+  and shared memory (``gn_cluster_blocks`` sizes the cluster); each
+  element is read once from device memory;
 - ``group_norm_silu_auto``: the reference's routing — K6 when one
   sample's f32 slab is at most 2 MiB, else K7, and the plain version
   where the reference's streaming blocks would not tile the sample.
@@ -31,8 +33,14 @@ from . import _build
 
 # the reference's per-block f32 slab budget (groupnorm.py:215)
 _SLAB_BUDGET = 2 * 2**20
-# elements of one slab per block of the streaming kernel
-_STREAM_CHUNK = 8192
+# K7: a cluster has at most 8 blocks (the portable size), each holding its
+# part of the slab; the wrapper aims for parts of at most 64 KB, so that
+# smaller slabs leave room for more blocks an SM
+_CLUSTER_MAX = 8
+_PART_BYTES = 64 * 2**10
+# a block of K7 holds 32 KB of its part in registers and the rest in up to
+# 226 KB of shared memory (csrc/groupnorm.cu)
+_PART_MAX_BYTES = 512 * 4 * 16 + 232448 - 1024
 
 
 def group_norm_silu_reference(x: torch.Tensor, scale, bias, groups: int,
@@ -62,6 +70,12 @@ def gn_route(rows: int, c: int) -> Optional[str]:
     if blk * c * 4 > _SLAB_BUDGET or rows % blk:
         return None
     return "streaming"
+
+
+def gn_cluster_blocks(slab_bytes: int) -> int:
+    """Blocks of K7's cluster for a slab of `slab_bytes`: parts of at most
+    64 KB, at most 8 blocks."""
+    return max(1, min(_CLUSTER_MAX, -(-slab_bytes // _PART_BYTES)))
 
 
 def _dims(x: torch.Tensor, groups: int, name: str):
@@ -99,16 +113,18 @@ def group_norm_silu(x: torch.Tensor, scale, bias, groups: int, eps: float = 1e-5
 
 def group_norm_silu_streaming(x: torch.Tensor, scale, bias, groups: int, eps: float = 1e-5,
                               silu: bool = True) -> torch.Tensor:
-    """K7: x (N, C, *spatial) → GroupNorm(+SiLU)(x), split statistics."""
+    """K7: x (N, C, *spatial) → GroupNorm(+SiLU)(x), one cluster a slab."""
     if x.device.type == "cpu":
         return group_norm_silu_reference(x, scale, bias, groups, eps, silu)
     n, c, spatial = _dims(x, groups, "group_norm_silu_streaming")
-    chunks = ((c // groups) * spatial + _STREAM_CHUNK - 1) // _STREAM_CHUNK
-    if n * groups > 65535:
-        raise ValueError(f"group_norm_silu_streaming: {n * groups} slabs exceed the grid")
-    partials = torch.empty((n * groups * chunks, 3), device=x.device, dtype=torch.float32)
+    slab_bytes = (c // groups) * spatial * x.element_size()
+    blocks = gn_cluster_blocks(slab_bytes)
+    if spatial % 8 or -(-slab_bytes // blocks) > _PART_MAX_BYTES or n * groups > 65535:
+        raise ValueError(f"group_norm_silu_streaming: no kernel for {n * groups} slabs of "
+                         f"{c // groups} x {spatial} (spatial a multiple of 8, a slab held by "
+                         f"8 blocks)")
     y = _launch("group_norm_silu_streaming", "ls_group_norm_silu_streaming", x, scale, bias,
-                groups, eps, silu, _STREAM_CHUNK, partials.data_ptr())
+                groups, eps, silu, blocks)
     group_norm_silu_streaming.launches += 1
     return y
 

@@ -132,6 +132,7 @@ class Probe:
 _KERNEL_OPS = {
     "ls_geglu_ffn": lambda a: 24 * a[1] * a[2] ** 2,
     "ls_attn_block": lambda a: a[1] * a[2] * (8 * a[3] * a[4] + 4 * a[2] * a[4]),
+    "ls_temporal_block": lambda a: a[1] * 16 * (8 * a[2] * a[3] + 64 * a[3]),
     "ls_temporal_attention": lambda a: 4 * a[8] * 16 * 16 * a[9] * a[10],
     "ls_spatial_attention": lambda a: 4 * a[8] * a[9] ** 2 * a[10] * a[11],
     "ls_flash_attention": lambda a: 4 * a[7] * a[9] * a[8] ** 2 * a[10],

@@ -38,6 +38,7 @@ from latentsync_tpu.ops import ffn as j_ffn
 from latentsync_tpu_torch.ops import attn_block as p_ab
 from latentsync_tpu_torch.ops import ffn as p_ffn
 from latentsync_tpu_torch.ops import temporal_attention as p_ta
+from test_torch_temporal_block_core import emulate_temporal_block
 
 TOL_REL = 2.0**-6
 BK = 64      # bf16 of one k-tile
@@ -103,13 +104,17 @@ def emulate_qkv(x, wq, wk, wv):
 
 
 def emulate_self_attention_block(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads, temporal, pe):
+    """Temporal mode: the one-launch kernel's order (row tiles, per-head
+    products, bf16 probabilities; test_torch_temporal_block_core.py).
+    Spatial mode: the row pass, one launch of three operands around the
+    plain core, the output product."""
+    if temporal:
+        return emulate_temporal_block(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads, pe)
     b, s, c = x.shape
     x2 = x.reshape(b * s, c)
-    a = ln_rows(x2, ln_w, ln_b, pe=pe)  # pe row = row % S
-    qkv = epilogue(product(a, torch.cat([wq, wk, wv])))  # ONE (3 inner, C) product
-    q, k, v = (t.reshape(b, s, -1) for t in qkv.chunk(3, dim=-1))
-    core = p_ta.temporal_attention_reference if temporal else p_ta.spatial_attention_reference
-    o = core(q, k, v, heads, 1.0 / math.sqrt(wq.shape[0] // heads))
+    a = ln_rows(x2, ln_w, ln_b, pe=pe)
+    q, k, v = (epilogue(product(a, w)).reshape(b, s, -1) for w in (wq, wk, wv))
+    o = p_ta.spatial_attention_reference(q, k, v, heads, 1.0 / math.sqrt(wq.shape[0] // heads))
     return epilogue(product(o.reshape(b * s, -1), wo), bo, res=x2).reshape(b, s, c)
 
 
@@ -167,7 +172,7 @@ def test_qkv_emulation_matches_plain_version(m, c, inner):
         _within(g, r)
 
 
-@pytest.mark.parametrize("temporal,b,s,c,heads", [(True, 13, 16, 72, 9), (True, 2, 16, 320, 8),
+@pytest.mark.parametrize("temporal,b,s,c,heads", [(True, 13, 16, 120, 3), (True, 2, 16, 320, 8),
                                                   (False, 2, 65, 64, 4), (False, 1, 1, 72, 3),
                                                   (False, 5, 40, 320, 8)])
 def test_block_emulation_matches_plain_version(temporal, b, s, c, heads):

@@ -231,11 +231,12 @@ def test_cross_attention_block_kernel(rand, monkeypatch, b, s, c):
     (gn.group_norm_silu_streaming, (4, 960, 16, 32, 32), 1e-5, True),
     (gn.group_norm_silu_streaming, (4, 2560, 16, 4, 4), 1e-5, True),
     # shapes each kernel does not normally get: a large slab in K6, a
-    # small one in K7, and a spatial size that is no multiple of 8
+    # small one in K7, and a spatial size that is no multiple of 8 (K6; K7
+    # takes 40 positions a channel)
     (gn.group_norm_silu, (4, 320, 16, 32, 32), 1e-5, True),
     (gn.group_norm_silu_streaming, (64, 320, 32, 32), 1e-6, False),
     (gn.group_norm_silu, (3, 64, 5, 7), 1e-5, True),
-    (gn.group_norm_silu_streaming, (3, 64, 5, 7), 1e-5, False),
+    (gn.group_norm_silu_streaming, (3, 64, 5, 8), 1e-5, False),
 ])
 def test_group_norm_kernels(rand, fn, shape, eps, silu):
     c = shape[1]
@@ -265,6 +266,12 @@ def test_cuda_tensors_never_take_the_plain_version(rand, monkeypatch):
         attention.dot_product_attention(q, q, q)
     with pytest.raises(TypeError):
         gn.group_norm_silu(rand(2, 64, 8, 8).float(), rand(64), rand(64), 32)
+    with pytest.raises(ValueError, match="no kernel"):  # K7 reads 8 positions at a time
+        gn.group_norm_silu_streaming(rand(3, 64, 5, 7), rand(64), rand(64), 32)
+    ws = [rand(72, 72) for _ in range(4)]  # temporal head dim 8: no one-launch kernel
+    with pytest.raises(ValueError, match="no kernel"):
+        attn_block.self_attention_block(rand(2, 16, 72), rand(72), rand(72), *ws, rand(72), 9,
+                                        temporal=True, pe=rand(16, 72))
     monkeypatch.setenv("LATENTSYNC_FUSED_XATTN", "1")
     args = list(_cross_args(rand, 2, 64, 320))
     args[-1] = 16  # d = 20: on the kernel's route, but the kernel has no d = 20
@@ -707,15 +714,15 @@ def test_qkv_proj_large_inputs_against_f64(rand, m, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("temporal,b,s,c,heads", [(True, 13, 16, 72, 9), (True, 8, 16, 200, 5),
+@pytest.mark.parametrize("temporal,b,s,c,heads", [(True, 13, 16, 120, 3), (True, 8, 16, 200, 5),
                                                   (False, 3, 43, 200, 5), (False, 1, 1, 40, 1),
                                                   (False, 1, 129, 80, 2),
                                                   # wide q/k/v and output projections,
                                                   # M = 16784, K = 160 (short last k-tile)
                                                   (True, 1049, 16, 160, 4)])
 def test_self_attention_block_kernel_ragged(rand, temporal, b, s, c, heads):
-    """K2's two projections at K = 72, 200, 40, 80 and 160, M = 1, 129, 208
-    and 16784."""
+    """K2's products at K = 120, 200, 40, 80 and 160, M = 1, 129, 208 and
+    16784 (temporal: row tiles of 128 with a partial last one)."""
     assert attn_block.fused_route(s, c, c, temporal)
     args = (rand(b, s, c), 1 + rand(c, s=0.1), rand(c, s=0.1),
             *[rand(c, c, s=c**-0.5) for _ in range(4)], rand(c, s=0.1), heads)

@@ -27,7 +27,7 @@ from latentsync_tpu.ops import ffn as j_ffn
 from latentsync_tpu_torch import config as pcfg
 from latentsync_tpu_torch.ops import attention as p_attn
 from latentsync_tpu_torch.ops import ffn as p_ffn
-from latentsync_tpu_torch.scripts import attn_pieces, gemm_split, profile_forward
+from latentsync_tpu_torch.scripts import attn_pieces, block_pieces, gemm_split, profile_forward
 from latentsync_tpu_torch.scripts import micro_probe as mp
 from latentsync_tpu_torch.utils.convert import linear_weight
 
@@ -339,6 +339,16 @@ def test_profile_forward_sorts_kernels_into_families_and_unions_busy_time():
                "int)") == "gemm_template"
     assert fam("void ls_core::attn_kernel<80, 2, 1>(__nv_bfloat16 const*)") == "k5_cross_core"
     assert fam("ls_attn::temporal_kernel(...)") == "k3_temporal_core"
+    # K2: its temporal kernel, and its spatial core (D = 80) except in
+    # int8-dense, whose composed blocks run K4 there
+    assert fam("void ls_tblock::temporal_block_kernel<40>(ls_tblock::Args, int)") == \
+        "k2_temporal_block"
+    assert fam("void ls_core::attn_kernel<80, 2, 0>(__nv_bfloat16 const*)", "fused") == \
+        "k2_spatial_core"
+    assert fam("void ls_core::attn_kernel<80, 2, 0>(__nv_bfloat16 const*)", "int8-dense") == \
+        "k4_spatial_core"
+    assert fam("void ls_core::attn_kernel<80, 2, 1>(__nv_bfloat16 const*)", "fused") == \
+        "k5_cross_core"
     assert fam("sm90_xmma_fprop_implicit_gemm_bf16bf16") == "library_convolution"
     assert fam("nvjet_tst_320x128_64x3") == "other"
     assert fam("void at::native::vectorized_elementwise_kernel<4, ...>") == "elementwise"
@@ -374,7 +384,30 @@ def test_attn_pieces_hooks_fit_the_attention_core():
     assert set(attn_pieces.DEFAULT_PIECES) >= {0, 1, 2, 4, 8, 15}
 
 
-@pytest.mark.parametrize("script", [profile_forward, gemm_split, attn_pieces])
+def test_block_pieces_hooks_fit_the_temporal_kernel():
+    """The K2 pieces script patches `#if` hooks into a copy of
+    ``csrc/temporal_block.cuh`` by exact text: each finds its piece once, and
+    with nothing taken out the hooked source is the kernel's."""
+    source = (block_pieces._build.SRC_DIR / "temporal_block.cuh").read_text()
+    hooked = block_pieces.hooked_header(source)
+    for bit, n in ((1, 1), (2, 1), (4, 1), (8, 2)):  # LayerNorm, attention, epilogue, copies
+        assert hooked.count(f"#if LS_PIECES & {bit}\n") == n
+    kept, skipping = [], []  # the preprocessor's view with LS_PIECES = 0
+    for line in hooked.splitlines():
+        if line.startswith("#if LS_PIECES"):
+            skipping.append(True)
+        elif line == "#else" and skipping:
+            skipping[-1] = False
+        elif line == "#endif" and skipping:
+            skipping.pop()
+        elif not any(skipping):
+            kept.append(line)
+    assert kept == source.splitlines()
+    with pytest.raises(ValueError, match="has moved"):
+        block_pieces.hooked_header(source.replace("auto ln_tile = [&]() {", "auto ln = [&]() {"))
+
+
+@pytest.mark.parametrize("script", [profile_forward, gemm_split, attn_pieces, block_pieces])
 def test_card_scripts_without_a_card_exit_nonzero(script, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert script.main([]) != 0
