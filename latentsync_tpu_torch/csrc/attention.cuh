@@ -144,4 +144,13 @@ cudaError_t spatial(const bf16* q, const bf16* k, const bf16* v, int ldq, int ld
                     bf16* o, int ldo, int batch, int seq, int heads, int d, float scale,
                     cudaStream_t s, int block_q = 0);
 
+// K2's spatial mode: the same core at head dims 40 and 80 (block_q by S),
+// its kernels named apart (attn_kernel<..., ls_attn::k2_spatial_core>) so
+// that a profile tells them from K4's.
+struct k2_spatial_core;
+constexpr bool k2_spatial_takes(int d) { return d == 40 || d == 80; }
+cudaError_t spatial_k2(const bf16* q, const bf16* k, const bf16* v, int ldq, int ldk, int ldv,
+                       bf16* o, int ldo, int batch, int seq, int heads, int d, float scale,
+                       cudaStream_t s);
+
 }  // namespace ls_attn

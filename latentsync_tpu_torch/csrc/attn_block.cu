@@ -14,8 +14,9 @@
 // LayerNorm row pass (bf16(LN(x)) written once to a scratch buffer), ONE
 // q/k/v projection of it against the three weights (the template's
 // three-operand launch, outputs at pitch 3 inner in one buffer), the
-// spatial core (attn_core.cuh) reading q/k/v as column slices of that
-// buffer, and the output projection with bias and residual epilogue.
+// spatial core (attn_core.cuh, at head dims 40 and 80, named apart from K4's
+// in a profile) reading q/k/v as column slices of that buffer, and the
+// output projection with bias and residual epilogue.
 // Bound: the projections (wgmma behind a shared-memory ring) and the core
 // are tensor-core bound (the core's exponentials first at D = 40).
 #include "attention.cuh"
@@ -26,25 +27,16 @@ extern "C" int ls_temporal_block(const void* x, int batch, int c, int inner, int
                                  const void* wq, const void* wk, const void* wv, const void* wo,
                                  const float* bo, float scale, void* attn, void* out,
                                  void* stream) {
-  ls_tblock::Args p = {};
-  p.x = static_cast<const bf16*>(x);
-  p.m = batch * ls_tblock::TF;
-  p.c = c;
-  p.inner = inner;
-  p.heads = heads;
-  p.ln_w = ln_w;
-  p.ln_b = ln_b;
-  p.eps = eps;
-  p.pe = static_cast<const bf16*>(pe);
-  p.wq = static_cast<const bf16*>(wq);
-  p.wk = static_cast<const bf16*>(wk);
-  p.wv = static_cast<const bf16*>(wv);
-  p.wo = static_cast<const bf16*>(wo);
-  p.bo = bo;
-  p.scale = scale;
-  p.out = static_cast<bf16*>(out);
-  p.o = static_cast<bf16*>(attn);
-  return (int)ls_tblock::temporal_block(p, static_cast<cudaStream_t>(stream));
+  return (int)ls_tblock::temporal_block(x, batch, c, inner, heads, ln_w, ln_b, eps, pe, wq, wk,
+                                         wv, wo, bo, scale, attn, out,
+                                         static_cast<cudaStream_t>(stream));
+}
+
+// The widest C that K2 takes at head dim d, in temporal mode or not (0: no
+// kernel): what the wrapper checks before it allocates and launches.
+extern "C" int ls_attn_block_max_c(int temporal, int d) {
+  if (temporal) return ls_tblock::max_c(d);
+  return ls_attn::k2_spatial_takes(d) ? 0x7fffffff : 0;
 }
 
 extern "C" int ls_attn_block(const void* x, int batch, int seq, int c, int inner, int heads,
@@ -59,7 +51,7 @@ extern "C" int ls_attn_block(const void* x, int batch, int seq, int c, int inner
   bf16* nb = static_cast<bf16*>(normed);
   bf16* qkvb = static_cast<bf16*>(qkv);
   bf16* ob = static_cast<bf16*>(attn);
-  cudaError_t e = ls_gemm::ln_rows(xb, m, c, c, eps, ln_w, ln_b, nullptr, 0, nb, s);
+  cudaError_t e = ls_gemm::ln_rows(xb, m, c, c, eps, ln_w, ln_b, nb, s);
   if (e != cudaSuccess) return (int)e;
   const int ld = 3 * inner;
   ls_gemm::Args proj = {};
@@ -79,8 +71,8 @@ extern "C" int ls_attn_block(const void* x, int batch, int seq, int c, int inner
   proj.k = c;
   e = ls_gemm::gemm(proj, s);
   if (e != cudaSuccess) return (int)e;
-  e = ls_attn::spatial(qkvb, qkvb + inner, qkvb + 2 * inner, ld, ld, ld, ob, inner, batch, seq,
-                       heads, d, scale, s);
+  e = ls_attn::spatial_k2(qkvb, qkvb + inner, qkvb + 2 * inner, ld, ld, ld, ob, inner, batch,
+                          seq, heads, d, scale, s);
   if (e != cudaSuccess) return (int)e;
   ls_gemm::Args o = {};
   o.a = ob;

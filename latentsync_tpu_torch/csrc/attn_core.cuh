@@ -407,8 +407,10 @@ struct Tile {
 // and p rounded to bf16 (K4, the flash route); P_NORMALISED, two sweeps
 // (statistics of the whole row first, then normalised probabilities rounded
 // to bf16: K11); P_SPLIT, online softmax and p never rounded (K12: the value
-// product runs once for each of p's three bf16 terms).
-template <int D, int NWG, int NUM>
+// product runs once for each of p's three bf16 terms). Site only names the
+// caller in a profile: void, or ls_attn::k2_spatial_core for K2's spatial
+// mode (the same code as K4's).
+template <int D, int NWG, int NUM, class Site = void>
 __global__ void __launch_bounds__(128 * NWG)
     attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, int ldq, int ldk, int ldv, bf16* __restrict__ o,
@@ -626,7 +628,7 @@ __global__ void __launch_bounds__(128 * NWG)
   }
 }
 
-template <int D, int NWG, int NUM>
+template <int D, int NWG, int NUM, class Site = void>
 cudaError_t launch(const Args& a, cudaStream_t s) {
   if (a.seq_q <= 0 || a.seq_k <= 0 || a.heads <= 0 || !(a.scale > 0.f))
     return cudaErrorInvalidValue;
@@ -634,13 +636,13 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
   const int steps = NUM == P_NORMALISED ? 2 * tiles : tiles;
   const size_t smem =
       (size_t)(steps < STAGES ? steps : STAGES) * Tile<D>::STAGE_BYTES + Tile<D>::SMEM_PAD;
-  cudaError_t e = ls_allow_smem(attn_kernel<D, NWG, NUM>, smem);
+  cudaError_t e = ls_allow_smem(attn_kernel<D, NWG, NUM, Site>, smem);
   if (e != cudaSuccess) return e;
   constexpr int BQ = 64 * NWG;
   const int q_tiles = (a.seq_q + BQ - 1) / BQ;
   const long long blocks = (long long)q_tiles * a.heads * a.batch;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  attn_kernel<D, NWG, NUM><<<(unsigned)blocks, 128 * NWG, smem, s>>>(
+  attn_kernel<D, NWG, NUM, Site><<<(unsigned)blocks, 128 * NWG, smem, s>>>(
       a.q, a.k, a.v, a.ldq, a.ldk, a.ldv, a.o, a.ldo, a.seq_q, a.seq_k, a.heads, q_tiles,
       a.scale * LOG2E);
   return cudaGetLastError();
@@ -652,11 +654,11 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
 static inline int pick_block_q(int seq_q) { return seq_q >= 256 ? 128 : 64; }
 
 // block_q: 64, 128, or 0 for pick_block_q(seq_q).
-template <int D, int NUM>
+template <int D, int NUM, class Site = void>
 cudaError_t run(const Args& a, int block_q, cudaStream_t s) {
   switch (block_q ? block_q : pick_block_q(a.seq_q)) {
-    case 64: return launch<D, 1, NUM>(a, s);
-    case 128: return launch<D, 2, NUM>(a, s);
+    case 64: return launch<D, 1, NUM, Site>(a, s);
+    case 128: return launch<D, 2, NUM, Site>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }

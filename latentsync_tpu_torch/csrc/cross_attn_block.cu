@@ -59,7 +59,7 @@ extern "C" int ls_cross_attn_block(const void* x, const void* ctx, int batch, in
   bf16* qb = static_cast<bf16*>(q);
   bf16* kvb = static_cast<bf16*>(kv);
   bf16* ob = static_cast<bf16*>(attn);
-  cudaError_t e = ls_gemm::ln_rows(xb, m, c, c, eps, ln_w, ln_b, nullptr, 0, nb, s);
+  cudaError_t e = ls_gemm::ln_rows(xb, m, c, c, eps, ln_w, ln_b, nb, s);
   if (e != cudaSuccess) return (int)e;
 
   ls_gemm::Args pq = {};

@@ -23,7 +23,7 @@ extern "C" int ls_geglu_ffn(const void* x, int m, int c, const void* w_up, const
   const bf16* a = xb;
   cudaError_t e = cudaSuccess;
   if (ln_w != nullptr) {
-    e = ls_gemm::ln_rows(xb, m, c, c, eps, ln_w, ln_b, nullptr, 0, static_cast<bf16*>(normed), s);
+    e = ls_gemm::ln_rows(xb, m, c, c, eps, ln_w, ln_b, static_cast<bf16*>(normed), s);
     if (e != cudaSuccess) return (int)e;
     a = static_cast<const bf16*>(normed);
   }

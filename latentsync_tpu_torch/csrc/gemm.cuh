@@ -17,8 +17,8 @@
 // B is a torch nn.Linear weight, (N, K) row-major, i.e. the K-major operand
 // the matrix unit wants, so weights are used as stored.
 //
-// A is always plain bf16 here. Where a caller wants A' = bf16(LN(A) [+ pe])
-// (K1, K2, K5) or A' = bf16(code * scale) of int8 codes (K10), a row pass
+// A is always plain bf16 here. Where a caller wants A' = bf16(LN(A))
+// (K1, K2's spatial mode, K5) or A' = bf16(code * scale) of int8 codes (K10), a row pass
 // (ln_rows, dequant_rows: one warp a row, 16-byte accesses) writes A' once to
 // a scratch buffer the wrapper allocates, and the product reads it like any
 // A: the normalisation runs once a row, not once for every column block of
@@ -27,8 +27,7 @@
 // through registers into the ring, was measured 20 % slower for the whole
 // chain, PERF.md: every column tile of a row panel converts the panel's
 // codes again, 20 times a code at C = 320, beside an epilogue that already
-// fills the arithmetic pipes.) Rounding points are unchanged: LN output to
-// bf16, pe added in bf16 after it.
+// fills the arithmetic pipes.) Rounding point unchanged: LN output to bf16.
 //
 // Design of the product. An output tile is 128 rows x BN columns (BN = 160
 // or 64, picked on the host by pick_bn; DUAL: 64 value and 64 gate
@@ -415,13 +414,11 @@ __global__ void __launch_bounds__(THREADS, 2)  // registers capped for two block
 // Row passes that prepare A: one warp a row, 16-byte accesses
 // ---------------------------------------------------------------------------
 
-// out[r] = bf16(LN(x[r])) [+ pe[r % pe_rows] in bf16]: two-pass f32 statistics
-// like the reference (the row is read three times, the last two from cache).
+// out[r] = bf16(LN(x[r])): two-pass f32 statistics like the reference (the
+// row is read three times, the last two from cache).
 static __global__ void ln_rows_kernel(const bf16* __restrict__ x, int m, int k, int ldx, float eps,
                                       const float* __restrict__ ln_w,
-                                      const float* __restrict__ ln_b,
-                                      const bf16* __restrict__ pe, int pe_rows,
-                                      bf16* __restrict__ out) {
+                                      const float* __restrict__ ln_b, bf16* __restrict__ out) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= m) return;
@@ -446,8 +443,6 @@ static __global__ void ln_rows_kernel(const bf16* __restrict__ x, int m, int k, 
     }
   }
   const float rstd = rsqrtf(ls_warp_sum(sq) / k + eps);
-  const uint4* per =
-      pe == nullptr ? nullptr : reinterpret_cast<const uint4*>(pe + (size_t)(row % pe_rows) * k);
   uint4* outr = reinterpret_cast<uint4*>(out + (size_t)row * k);
   for (int i = lane; i < nv; i += 32) {
     uint4 v = xr[i];
@@ -460,26 +455,18 @@ static __global__ void ln_rows_kernel(const bf16* __restrict__ x, int m, int k, 
 #pragma unroll
     for (int t = 0; t < 8; ++t)
       e[t] = __float2bfloat16((__bfloat162float(e[t]) - mu) * rstd * w[t] + b[t]);
-    if (per != nullptr) {
-      const uint4 pv = per[i];
-      const bf16* pb = reinterpret_cast<const bf16*>(&pv);
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-        e[t] = __float2bfloat16(__bfloat162float(e[t]) + __bfloat162float(pb[t]));
-    }
     outr[i] = v;
   }
 }
 
-// out (m, k) = bf16(LN(x) [+ pe]); x has row pitch ldx, out is dense; k % 8 == 0
+// out (m, k) = bf16(LN(x)); x has row pitch ldx, out is dense; k % 8 == 0
 static inline cudaError_t ln_rows(const bf16* x, int m, int k, int ldx, float eps,
-                                  const float* ln_w, const float* ln_b, const bf16* pe,
-                                  int pe_rows, bf16* out, cudaStream_t s) {
-  if (m <= 0 || k <= 0 || k % 8 || ldx % 8 || (pe != nullptr && pe_rows <= 0))
-    return cudaErrorInvalidValue;
+                                  const float* ln_w, const float* ln_b, bf16* out,
+                                  cudaStream_t s) {
+  if (m <= 0 || k <= 0 || k % 8 || ldx % 8) return cudaErrorInvalidValue;
   const int rows_per_block = 8;
   ln_rows_kernel<<<(m + rows_per_block - 1) / rows_per_block, 32 * rows_per_block, 0, s>>>(
-      x, m, k, ldx, eps, ln_w, ln_b, pe, pe_rows, out);
+      x, m, k, ldx, eps, ln_w, ln_b, out);
   return cudaGetLastError();
 }
 

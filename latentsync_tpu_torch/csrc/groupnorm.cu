@@ -11,8 +11,8 @@
 // covers one contiguous slab of (C/G) * spatial elements, for the 5-D
 // cross-frame tensor and the frame-folded per-frame tensor alike, so a
 // slab is read with plain 16-byte loads (8 elements of one channel:
-// spatial % 8 == 0 on every UNet shape; K6 takes other shapes with element
-// loads, K7 refuses them).
+// spatial % 8 == 0 on every UNet shape; both kernels take other shapes with
+// element loads).
 // C/G is 10 at C = 320, so nothing is vectorised across channels.
 //
 // Statistics: every thread keeps (count, mean, M2) and merges them with
@@ -40,7 +40,9 @@
 //      memory across cores and crossed device memory twice (statistics
 //      pass, then normalise pass), as the port's first version did in two
 //      launches; here device memory sees each element read once and
-//      written once.
+//      written once. Where spatial % 8 != 0 (no UNet shape) the slabs are
+//      not 16-byte aligned: the whole part goes to shared memory by element
+//      loads, one element a thread at a time.
 //
 // Bound: memory. K6: one read for the statistics, one read (mostly from
 // L2) and one write to normalise. K7: one read and one write, 4 bytes an
@@ -200,11 +202,13 @@ __device__ __forceinline__ float tanh_fast(float x) {
   return y;
 }
 
-// y = x * a + c [SiLU] of 8 elements, as 16 bytes
-__device__ __forceinline__ uint4 gn_apply8(const float (&v)[8], float2 ab, int silu) {
-  __align__(16) bf16 out[8];
+// y = x * a + c [SiLU] of V elements, stored as one 16-byte vector (V = 8)
+// or elementwise
+template <int V>
+__device__ __forceinline__ void gn_apply(const float (&v)[V], float2 ab, int silu, bf16* dst) {
+  __align__(16) bf16 out[V];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < V; ++j) {
     float t = fmaf(v[j], ab.x, ab.y);
     if (silu) {  // t * sigmoid(t) = h + h tanh(h), h = t / 2
       const float h = 0.5f * t;
@@ -212,21 +216,31 @@ __device__ __forceinline__ uint4 gn_apply8(const float (&v)[8], float2 ab, int s
     }
     out[j] = __float2bfloat16(t);
   }
-  return *reinterpret_cast<const uint4*>(out);
+  if constexpr (V == 8) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(out);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) dst[j] = out[j];
+  }
 }
 
 // One cluster of gridDim.x blocks a slab (blockIdx.y); block r holds
-// elements [r * chunk, min((r + 1) * chunk, len)) of it, its part: the first
-// GC_HEAD elements in registers (thread t holds vectors t, t + 512, ...,
-// loaded by plain 16-byte loads), the rest in shared memory (one bulk copy
-// engine transfer). So the largest part, 123 KB, leaves 91 KB of shared
-// memory a block and two blocks fit an SM. chunk % 8 == 0 and spatial % 8 ==
-// 0: every 16-byte vector lies in one channel. Dynamic shared memory: the
-// rest of the part, then (scale, shift) of each channel of the group.
+// elements [r * chunk, min((r + 1) * chunk, len)) of it, its part. V = 8
+// (spatial % 8 == 0; chunk % 8 == 0 always, so every 16-byte vector lies in
+// one channel): the first GC_HEAD elements in registers (thread t holds
+// vectors t, t + 512, ..., loaded by plain 16-byte loads), the rest in
+// shared memory (one bulk copy engine transfer). So the largest part, 123
+// KB, leaves 91 KB of shared memory a block and two blocks fit an SM. V = 1:
+// the whole part in shared memory, thread t loading elements t, t + 512,
+// ... (and later normalising the same ones). Dynamic shared memory: the
+// part's elements past the registers, then (scale, shift) of each channel
+// of the group.
+template <int V>
 __global__ void __launch_bounds__(GC_THREADS)
     gn_cluster_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, const float* w,
                       const float* b, int groups, int cg, int spatial, float eps, int silu,
                       int chunk) {
+  constexpr int HEAD = V == 8 ? GC_HEAD : 0;  // elements of the part in registers
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bar;
   __shared__ Moments mine;
@@ -239,37 +253,39 @@ __global__ void __launch_bounds__(GC_THREADS)
   const int len = cg * spatial;
   const int begin = rank * chunk;
   const int n = begin < len ? min(chunk, len - begin) : 0;
-  const int nh = min(n, GC_HEAD);  // elements in registers; [nh, n) in shared memory
+  const int nh = min(n, HEAD);  // elements in registers; [nh, n) in shared memory
   const bf16* xs = x + slab * len + begin;
-  const bf16* tail = reinterpret_cast<const bf16*>(smem_raw);  // element i >= nh: tail[i - nh]
-  const int tail_bytes = chunk > GC_HEAD ? (chunk - GC_HEAD) * 2 : 0;
+  bf16* tail = reinterpret_cast<bf16*>(smem_raw);  // element i >= nh: tail[i - nh]
+  const int tail_bytes = chunk > HEAD ? (chunk - HEAD) * 2 : 0;
   float2* coef = reinterpret_cast<float2*>(smem_raw + tail_bytes);
   const unsigned bar_s = (unsigned)__cvta_generic_to_shared(&bar);
 
-  if (tid == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_s) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (tid == 0) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar_s),
-                 "r"((n - nh) * 2)
-                 : "memory");
-    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_raw);
-    const unsigned char* src = reinterpret_cast<const unsigned char*>(xs + nh);
-    for (int off = 0; off < (n - nh) * 2; off += GN_PIECE) {
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-          "[%3];\n" ::"r"(dst + off),
-          "l"(src + off), "r"(min(GN_PIECE, (n - nh) * 2 - off)), "r"(bar_s)
-          : "memory");
-    }
-  }
   uint4 head[GC_RV];
+  if constexpr (V == 8) {
+    if (tid == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_s) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar_s),
+                   "r"((n - nh) * 2)
+                   : "memory");
+      const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_raw);
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(xs + nh);
+      for (int off = 0; off < (n - nh) * 2; off += GN_PIECE) {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+            "[%3];\n" ::"r"(dst + off),
+            "l"(src + off), "r"(min(GN_PIECE, (n - nh) * 2 - off)), "r"(bar_s)
+            : "memory");
+      }
+    }
 #pragma unroll
-  for (int k = 0; k < GC_RV; ++k) {
-    const int i = (k * GC_THREADS + tid) * 8;
-    head[k] = i < nh ? *reinterpret_cast<const uint4*>(xs + i) : make_uint4(0, 0, 0, 0);
+    for (int k = 0; k < GC_RV; ++k) {
+      const int i = (k * GC_THREADS + tid) * 8;
+      head[k] = i < nh ? *reinterpret_cast<const uint4*>(xs + i) : make_uint4(0, 0, 0, 0);
+    }
   }
 
   // this thread's moments from sums about the part's first element (no
@@ -279,29 +295,38 @@ __global__ void __launch_bounds__(GC_THREADS)
     const float shift = n > 0 ? __bfloat162float(xs[0]) : 0.f;
     float s1 = 0.f, s2 = 0.f;
     int cnt = 0;
-    auto add8 = [&](const float (&v)[8]) {
+    auto add = [&](const float (&v)[V]) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < V; ++j) {
         const float d = v[j] - shift;
         s1 += d;
         s2 = fmaf(d, d, s2);
       }
-      cnt += 8;
+      cnt += V;
     };
+    if constexpr (V == 8) {
 #pragma unroll
-    for (int k = 0; k < GC_RV; ++k) {
-      if ((k * GC_THREADS + tid) * 8 < nh) {
-        float v[8];
-        load<8>(reinterpret_cast<const bf16*>(&head[k]), v);
-        add8(v);
+      for (int k = 0; k < GC_RV; ++k) {
+        if ((k * GC_THREADS + tid) * 8 < nh) {
+          float v[8];
+          load<8>(reinterpret_cast<const bf16*>(&head[k]), v);
+          add(v);
+        }
       }
-    }
-    while (!mbar_try_wait(bar_s, 0)) {
-    }
-    for (int i = nh + tid * 8; i < n; i += GC_THREADS * 8) {
-      float v[8];
-      load<8>(tail + (i - nh), v);
-      add8(v);
+      while (!mbar_try_wait(bar_s, 0)) {
+      }
+      for (int i = nh + tid * 8; i < n; i += GC_THREADS * 8) {
+        float v[8];
+        load<8>(tail + (i - nh), v);
+        add(v);
+      }
+    } else {
+      for (int i = tid; i < n; i += GC_THREADS) {
+        const bf16 e = xs[i];
+        tail[i] = e;
+        const float v[1] = {__bfloat162float(e)};
+        add(v);
+      }
     }
     if (cnt > 0) {
       const float mean = s1 / cnt;
@@ -327,26 +352,28 @@ __global__ void __launch_bounds__(GC_THREADS)
   }
   __syncthreads();
   bf16* ys = y + slab * len + begin;
+  if constexpr (V == 8) {
 #pragma unroll
-  for (int k = 0; k < GC_RV; ++k) {
-    const int i = (k * GC_THREADS + tid) * 8;
-    if (i < nh) {
-      float v[8];
-      load<8>(reinterpret_cast<const bf16*>(&head[k]), v);
-      *reinterpret_cast<uint4*>(ys + i) = gn_apply8(v, coef[(begin + i) / spatial], silu);
+    for (int k = 0; k < GC_RV; ++k) {
+      const int i = (k * GC_THREADS + tid) * 8;
+      if (i < nh) {
+        float v[8];
+        load<8>(reinterpret_cast<const bf16*>(&head[k]), v);
+        gn_apply<8>(v, coef[(begin + i) / spatial], silu, ys + i);
+      }
     }
   }
   // the rest from shared memory; the channel of a thread's vector moves on
   // by a fixed quotient and remainder each step
   {
-    constexpr int STEP = GC_THREADS * 8;
+    constexpr int STEP = GC_THREADS * V;
     const int dq = STEP / spatial, dr = STEP % spatial;
-    int ch = (begin + nh + tid * 8) / spatial;
-    int rem = (begin + nh + tid * 8) - ch * spatial;
-    for (int i = nh + tid * 8; i < n; i += STEP) {
-      float v[8];
-      load<8>(tail + (i - nh), v);
-      *reinterpret_cast<uint4*>(ys + i) = gn_apply8(v, coef[ch], silu);
+    int ch = (begin + nh + tid * V) / spatial;
+    int rem = (begin + nh + tid * V) - ch * spatial;
+    for (int i = nh + tid * V; i < n; i += STEP) {
+      float v[V];
+      load<V>(tail + (i - nh), v);
+      gn_apply<V>(v, coef[ch], silu, ys + i);
       ch += dq;
       rem += dr;
       if (rem >= spatial) {
@@ -382,18 +409,21 @@ extern "C" int ls_group_norm_silu_streaming(const void* x, void* y, const float*
                                             void* stream) {
   const int cg = c / groups;
   const long long len = (long long)cg * spatial;
-  if (spatial % 8 || cluster < 1 || cluster > GN_CLUSTER_MAX || len <= 0 || len > 0x7fffffffLL)
+  if (cluster < 1 || cluster > GN_CLUSTER_MAX || len <= 0 || len > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  const bool vec = spatial % 8 == 0;  // 16-byte vectors, the first 32 KB in registers
+  const int head = vec ? GC_HEAD : 0;
   const int chunk = (int)((len + cluster - 1) / cluster + 7) / 8 * 8;
-  const size_t smem = (size_t)(chunk > GC_HEAD ? chunk - GC_HEAD : 0) * sizeof(bf16) +
+  const size_t smem = (size_t)(chunk > head ? chunk - head : 0) * sizeof(bf16) +
                       (size_t)cg * sizeof(float2);
   if (smem > (size_t)GN_SMEM_MAX) return (int)cudaErrorInvalidValue;
-  static bool allowed = false;  // one attribute for every launch's size
-  if (!allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gn_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GN_SMEM_MAX);
+  const auto kernel = vec ? gn_cluster_kernel<8> : gn_cluster_kernel<1>;
+  static bool allowed[2] = {false, false};  // one attribute for every launch's size
+  if (!allowed[vec]) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GN_SMEM_MAX);
     if (e != cudaSuccess) return (int)e;
-    allowed = true;
+    allowed[vec] = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)cluster, (unsigned)n * groups, 1);
@@ -408,7 +438,7 @@ extern "C" int ls_group_norm_silu_streaming(const void* x, void* y, const float*
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, gn_cluster_kernel, static_cast<const bf16*>(x),
+      cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(x),
                          static_cast<bf16*>(y), w, b, groups, cg, spatial, eps, silu, chunk);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

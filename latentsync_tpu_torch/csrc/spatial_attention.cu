@@ -24,6 +24,18 @@ cudaError_t spatial(const bf16* q, const bf16* k, const bf16* v, int ldq, int ld
   }
 }
 
+cudaError_t spatial_k2(const bf16* q, const bf16* k, const bf16* v, int ldq, int ldk, int ldv,
+                       bf16* o, int ldo, int batch, int seq, int heads, int d, float scale,
+                       cudaStream_t s) {
+  const ls_core::Args a = {q, k, v, ldq, ldk, ldv, o, ldo, batch, seq, seq, heads, scale};
+  static_assert(k2_spatial_takes(40) && k2_spatial_takes(80), "the cases below");
+  switch (d) {
+    case 40: return ls_core::run<40, ls_core::P_ROUNDED, k2_spatial_core>(a, 0, s);
+    case 80: return ls_core::run<80, ls_core::P_ROUNDED, k2_spatial_core>(a, 0, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace ls_attn
 
 extern "C" int ls_spatial_attention(const void* q, const void* k, const void* v, int ldq, int ldk,

@@ -601,6 +601,11 @@ cudaError_t launch(const Args& p, cudaStream_t s) {
   return ls_gemm::gemm(o, s);
 }
 
+// The widest C the LayerNorm pass reaches at head dim d (0: no kernel for d)
+static inline int max_c(int d) {
+  return d == 40 ? 8 * VPL * Cfg<40>::LPR : d == 80 ? 8 * VPL * Cfg<80>::LPR : 0;
+}
+
 // K2's temporal mode: one launch at head dim 40 (C up to 320), two at 80 (C
 // up to 640: this kernel, then the output product on the GEMM template,
 // p.o its scratch); inner = heads * D, C a multiple of 8 (and what shared
@@ -610,9 +615,37 @@ static inline cudaError_t temporal_block(const Args& p, cudaStream_t s) {
       (long long)p.m * p.c > 0x7fffffffLL || (long long)p.m * p.inner > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   const int d = p.inner / p.heads;
-  if (d == 40 && p.c <= 8 * VPL * Cfg<40>::LPR) return launch<40>(p, s);
-  if (d == 80 && p.c <= 8 * VPL * Cfg<80>::LPR && p.o != nullptr) return launch<80>(p, s);
+  if (p.c > max_c(d)) return cudaErrorInvalidValue;
+  if (d == 40) return launch<40>(p, s);
+  if (p.o != nullptr) return launch<80>(p, s);
   return cudaErrorInvalidValue;
+}
+
+// The same from the entry point's flat arguments (ls_temporal_block)
+static inline cudaError_t temporal_block(const void* x, int batch, int c, int inner, int heads,
+                                         const float* ln_w, const float* ln_b, float eps,
+                                         const void* pe, const void* wq, const void* wk,
+                                         const void* wv, const void* wo, const float* bo,
+                                         float scale, void* attn, void* out, cudaStream_t s) {
+  Args p = {};
+  p.x = static_cast<const bf16*>(x);
+  p.m = batch * TF;
+  p.c = c;
+  p.inner = inner;
+  p.heads = heads;
+  p.ln_w = ln_w;
+  p.ln_b = ln_b;
+  p.eps = eps;
+  p.pe = static_cast<const bf16*>(pe);
+  p.wq = static_cast<const bf16*>(wq);
+  p.wk = static_cast<const bf16*>(wk);
+  p.wv = static_cast<const bf16*>(wv);
+  p.wo = static_cast<const bf16*>(wo);
+  p.bo = bo;
+  p.scale = scale;
+  p.o = static_cast<bf16*>(attn);
+  p.out = static_cast<bf16*>(out);
+  return temporal_block(p, s);
 }
 
 }  // namespace ls_tblock

@@ -32,9 +32,11 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# entry point -> argtypes (all return int: a cudaError_t)
+# entry point -> argtypes (all return int: a cudaError_t, or for the
+# queries that launch nothing, what :func:`query` returns)
 _SIGNATURES = {
     "ls_geglu_ffn": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P, _P],
+    "ls_attn_block_max_c": [_I, _I],
     "ls_attn_block": [_P, _I, _I, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P,
                       _F, _P, _P, _P, _P, _P],
     "ls_temporal_block": [_P, _I, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P, _F,
@@ -150,6 +152,12 @@ def call(name: str, *args) -> None:
     if code != 0:
         msg = cdll.ls_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+def query(name: str, *args) -> int:
+    """What entry point `name` answers about the kernels (a shape limit); it
+    launches nothing."""
+    return getattr(lib(), name)(*args)
 
 
 def stream(t: torch.Tensor) -> int:

@@ -32,6 +32,7 @@ bias, wo (C, inner) with bias bo.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Optional
@@ -42,7 +43,6 @@ from . import _build
 from .attention import dot_product_attention, dot_product_attention_reference
 from .ffn import layer_norm_f32, linear
 from .temporal_attention import (
-    SPATIAL_HEAD_DIMS,
     TEMPORAL_FRAMES,
     spatial_attention,
     spatial_attention_reference,
@@ -56,9 +56,13 @@ _FUSED_WEIGHT_BYTES = 8 * 2**20
 _FUSED_SPATIAL_MAX_S = 256
 # head widths of the cross blocks on the fused route (C = 320, 640; 8 heads)
 _CROSS_HEAD_DIMS = (40, 80)
-# what K2's one-launch temporal kernel takes (csrc/temporal_block.cuh): the
-# served head widths (C = 320 and 640, 8 heads) and the widest C of each
-TEMPORAL_BLOCK_MAX_C = {40: 320, 80: 640}
+
+
+@functools.lru_cache(maxsize=None)
+def block_max_c(temporal: bool, d: int) -> int:
+    """The widest C that K2's kernels take at head dim `d` (0: none), as the
+    library states it (``ls_attn_block_max_c``, ``csrc/attn_block.cu``)."""
+    return _build.query("ls_attn_block_max_c", int(temporal), d)
 
 
 def fused_attn_block_enabled() -> bool:
@@ -141,9 +145,8 @@ def self_attention_block(x: torch.Tensor, ln_scale, ln_bias, wq, wk, wv, wo, bo,
         return self_attention_composed(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads,
                                        temporal=temporal, pe=pe, eps=eps)
     d = inner // heads
-    core_ok = (s == TEMPORAL_FRAMES and c <= TEMPORAL_BLOCK_MAX_C.get(d, 0)) if temporal \
-        else d in SPATIAL_HEAD_DIMS
-    if c % 8 or d % 8 or inner != heads * d or not core_ok:
+    if c % 8 or d % 8 or inner != heads * d or (temporal and s != TEMPORAL_FRAMES) \
+            or c > block_max_c(temporal, d):
         raise ValueError(f"self_attention_block: no kernel for S={s}, C={c}, "
                          f"inner={inner}, heads={heads}, temporal={temporal}")
     dt = x.dtype

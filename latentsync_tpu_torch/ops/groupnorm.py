@@ -38,9 +38,11 @@ _SLAB_BUDGET = 2 * 2**20
 # smaller slabs leave room for more blocks an SM
 _CLUSTER_MAX = 8
 _PART_BYTES = 64 * 2**10
-# a block of K7 holds 32 KB of its part in registers and the rest in up to
-# 226 KB of shared memory (csrc/groupnorm.cu)
-_PART_MAX_BYTES = 512 * 4 * 16 + 232448 - 1024
+# a block of K7 holds its part in up to 226 KB of shared memory, and where
+# the spatial size is a multiple of 8 its first 32 KB in registers
+# (csrc/groupnorm.cu)
+_PART_SMEM_BYTES = 232448 - 1024
+_PART_REG_BYTES = 512 * 4 * 16
 
 
 def group_norm_silu_reference(x: torch.Tensor, scale, bias, groups: int,
@@ -119,10 +121,11 @@ def group_norm_silu_streaming(x: torch.Tensor, scale, bias, groups: int, eps: fl
     n, c, spatial = _dims(x, groups, "group_norm_silu_streaming")
     slab_bytes = (c // groups) * spatial * x.element_size()
     blocks = gn_cluster_blocks(slab_bytes)
-    if spatial % 8 or -(-slab_bytes // blocks) > _PART_MAX_BYTES or n * groups > 65535:
+    part_max = _PART_SMEM_BYTES + (_PART_REG_BYTES if spatial % 8 == 0 else 0)
+    if -(-slab_bytes // blocks) > part_max or n * groups > 65535:
         raise ValueError(f"group_norm_silu_streaming: no kernel for {n * groups} slabs of "
-                         f"{c // groups} x {spatial} (spatial a multiple of 8, a slab held by "
-                         f"8 blocks)")
+                         f"{c // groups} x {spatial} (at most 65535 slabs, each held by 8 "
+                         f"blocks)")
     y = _launch("group_norm_silu_streaming", "ls_group_norm_silu_streaming", x, scale, bias,
                 groups, eps, silu, blocks)
     group_norm_silu_streaming.launches += 1

@@ -21,6 +21,9 @@ tensors read as four times the batch) as 64-row blocks and as 128-row
 blocks. The first line is the card's name and power limit, then one JSON line
 a variant.
 
+``hooked_header``, ``build`` and ``time_ms`` serve any kernel's header
+(``block_pieces.py`` takes K2's temporal kernel apart with them).
+
 ``--copies`` builds and runs ``scripts/copy_bench.cu`` instead: how fast one
 block an SM pulls 64 KB tiles from L2 into shared memory with ``cp.async``,
 by the number of threads, the tiles in flight and the layout of the
@@ -202,43 +205,61 @@ extern "C" int pieces_run(const void* q, const void* k, const void* v, void* o, 
 LOOPS = ("d512_rounded_ms", "d512_split_ms", "d128_split_64rows_ms", "d128_split_128rows_ms")
 
 
-def hooked_header(text: str) -> str:
-    """`text` (csrc/attn_core.cuh) with every hook in; raises where a hook's
-    piece of the kernel is not there exactly once."""
-    for what, old, new in HOOKS:
+def hooked_header(text: str, hooks=HOOKS, script: str = "attn_pieces") -> str:
+    """`text` (a header of csrc/) with every one of `hooks` in; raises where
+    a hook's piece of the kernel is not there exactly once."""
+    for what, old, new in hooks:
         if text.count(old) != 1:
-            raise ValueError(f"attn_pieces: {what}: the kernel's text has moved "
+            raise ValueError(f"{script}: {what}: the kernel's text has moved "
                              f"({text.count(old)} matches); bring HOOKS up to date")
         text = text.replace(old, new)
     return text
 
 
-def build(pieces) -> dict:
-    """One shared library a variant, all compiled at once."""
-    WORK_DIR.mkdir(parents=True, exist_ok=True)
-    (WORK_DIR / "attn_core.cuh").write_text(hooked_header((_build.SRC_DIR / "attn_core.cuh")
-                                                          .read_text()))
-    for name in ("wgmma.cuh", "common.cuh"):
-        (WORK_DIR / name).write_text((_build.SRC_DIR / name).read_text())
-    (WORK_DIR / "harness.cu").write_text(HARNESS)
+def build(pieces, header: str = "attn_core.cuh", hooks=HOOKS, harness: str = HARNESS,
+          entry: str = "pieces_run", argtypes=(*[ctypes.c_void_p] * 4, *[ctypes.c_int] * 3,
+                                               ctypes.c_float, ctypes.c_void_p),
+          work_dir: Path = WORK_DIR, script: str = "attn_pieces") -> dict:
+    """One shared library a variant (an LS_PIECES value), all compiled at
+    once from `harness` against csrc/'s headers, `header` with `hooks` in;
+    `entry` is bound in each and the libraries returned by variant."""
+    work_dir.mkdir(parents=True, exist_ok=True)
+    for src in _build.SRC_DIR.glob("*.cuh"):
+        text = src.read_text()
+        (work_dir / src.name).write_text(
+            hooked_header(text, hooks, script) if src.name == header else text)
+    (work_dir / "harness.cu").write_text(harness)
     procs = {}
     for n in pieces:
-        so = WORK_DIR / f"pieces_{n}.so"
+        so = work_dir / f"pieces_{n}.so"
         procs[n] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-             "-fPIC", f"-DLS_PIECES={n}", "-o", str(so), str(WORK_DIR / "harness.cu")],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", f"-DLS_PIECES={n}", "-o", str(so),
+             str(work_dir / "harness.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for n, (so, proc) in procs.items():
         out = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"attn_pieces: nvcc failed for LS_PIECES={n}:\n{out[-4000:]}")
+            raise RuntimeError(f"{script}: nvcc failed for LS_PIECES={n}:\n{out[-4000:]}")
         lib = ctypes.CDLL(str(so))
-        lib.pieces_run.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
-            [ctypes.c_float, ctypes.c_void_p]
-        lib.pieces_run.restype = ctypes.c_int
-        libs[n] = lib
+        fn = getattr(lib, entry)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        libs[n] = fn
     return libs
+
+
+def time_ms(call, iters: int, warmup: int = 3) -> float:
+    """Mean ms of `call` over `iters` calls after `warmup`, by CUDA events."""
+    for _ in range(warmup):
+        call()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def time_pieces(pieces, iters: int, emit=lambda rec: print(json.dumps(rec), flush=True)) -> bool:
@@ -249,10 +270,9 @@ def time_pieces(pieces, iters: int, emit=lambda rec: print(json.dumps(rec), flus
     o = torch.empty_like(q)
     scale = d ** -0.5
 
-    def launch(lib, loop):
-        code = lib.pieces_run(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, loop,
-                              scale if loop < 2 else 128 ** -0.5,
-                              torch.cuda.current_stream().cuda_stream)
+    def launch(run, loop):
+        code = run(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, loop,
+                   scale if loop < 2 else 128 ** -0.5, torch.cuda.current_stream().cuda_stream)
         if code != 0:
             raise RuntimeError(f"attn_pieces: launch refused, CUDA error {code}")
 
@@ -269,15 +289,7 @@ def time_pieces(pieces, iters: int, emit=lambda rec: print(json.dumps(rec), flus
                 ok &= err <= 2.0**-6 * max(1.0, float(ref.abs().max()))
                 rec[LOOPS[loop].replace("_ms", "_max_abs_err")] = err
         for loop, key in enumerate(LOOPS):
-            for _ in range(3):
-                launch(lib, loop)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                launch(lib, loop)
-            end.record()
-            torch.cuda.synchronize()
-            rec[key] = start.elapsed_time(end) / iters
+            rec[key] = time_ms(lambda: launch(lib, loop), iters)
         emit(rec)
     return ok
 

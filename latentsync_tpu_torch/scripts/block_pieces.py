@@ -7,7 +7,8 @@ A copy of ``csrc/temporal_block.cuh`` gets ``#if`` hooks (``HOOKS`` below:
 exact pieces of its text, so a change to the kernel that moves one of them
 fails here and in the CPU tests until the hook follows) and is built once a
 variant, all variants at once, with ``nvcc -DLS_PIECES=<bits>`` into
-``latentsync_tpu_torch/_build/block_pieces/``. The bits say what is taken
+``latentsync_tpu_torch/_build/block_pieces/``, by ``attn_pieces.py``'s
+``build``. The bits say what is taken
 OUT: 1 the LayerNorm pass, 2 the attention (logits, softmax, value product
 and the stores of o), 4 the output product's epilogue (at head dim 40; at 80
 the template runs it), 8 the copies of weight k-tiles into the ring. A
@@ -22,16 +23,15 @@ name and power limit, then one JSON line a variant and shape.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import math
-import subprocess
 import sys
 
 import torch
 
 from ..ops import _build
 from ..ops.attn_block import self_attention_block_reference
+from .attn_pieces import build, time_ms
 from .micro_probe import gpu_line
 
 WORK_DIR = _build.BUILD_DIR / "block_pieces"
@@ -67,68 +67,17 @@ extern "C" int ls_block_pieces(const void* x, int batch, int c, int inner, int h
                                const void* wq, const void* wk, const void* wv, const void* wo,
                                const float* bo, float scale, void* attn, void* out,
                                void* stream) {
-  ls_tblock::Args p = {};
-  p.x = static_cast<const bf16*>(x);
-  p.m = batch * ls_tblock::TF;
-  p.c = c;
-  p.inner = inner;
-  p.heads = heads;
-  p.ln_w = ln_w;
-  p.ln_b = ln_b;
-  p.eps = eps;
-  p.pe = static_cast<const bf16*>(pe);
-  p.wq = static_cast<const bf16*>(wq);
-  p.wk = static_cast<const bf16*>(wk);
-  p.wv = static_cast<const bf16*>(wv);
-  p.wo = static_cast<const bf16*>(wo);
-  p.bo = bo;
-  p.scale = scale;
-  p.o = static_cast<bf16*>(attn);
-  p.out = static_cast<bf16*>(out);
-  return (int)ls_tblock::temporal_block(p, static_cast<cudaStream_t>(stream));
+  return (int)ls_tblock::temporal_block(x, batch, c, inner, heads, ln_w, ln_b, eps, pe, wq, wk,
+                                         wv, wo, bo, scale, attn, out,
+                                         static_cast<cudaStream_t>(stream));
 }
 '''
 
 
-def hooked_header(source: str) -> str:
-    """``temporal_block.cuh`` with every hook in place; raises if a hook's
-    piece of the kernel is not there exactly once."""
-    for what, old, new in HOOKS:
-        if source.count(old) != 1:
-            raise ValueError(f"block_pieces: the piece of csrc/temporal_block.cuh that the hook "
-                             f"for {what} patches has moved")
-        source = source.replace(old, new)
-    return source
-
-
-def build(pieces) -> dict:
-    """One library a variant, compiled all at once."""
-    WORK_DIR.mkdir(parents=True, exist_ok=True)
-    for name in ("common.cuh", "wgmma.cuh", "gemm.cuh"):
-        (WORK_DIR / name).write_text((_build.SRC_DIR / name).read_text())
-    (WORK_DIR / "temporal_block.cuh").write_text(
-        hooked_header((_build.SRC_DIR / "temporal_block.cuh").read_text()))
-    (WORK_DIR / "harness.cu").write_text(HARNESS)
-    nvcc = _build._nvcc()
-    procs = {bits: subprocess.Popen(
-        [nvcc, *_build.NVCC_FLAGS, "-shared", f"-DLS_PIECES={bits}", "-o",
-         str(WORK_DIR / f"libpieces{bits}.so"), str(WORK_DIR / "harness.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for bits in pieces}
-    libs = {}
-    for bits, proc in procs.items():
-        out = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"block_pieces: nvcc failed for LS_PIECES={bits}:\n{out[-3000:]}")
-        lib = ctypes.CDLL(str(WORK_DIR / f"libpieces{bits}.so"))
-        lib.ls_block_pieces.argtypes = _build._SIGNATURES["ls_temporal_block"]
-        lib.ls_block_pieces.restype = ctypes.c_int
-        libs[bits] = lib
-    return libs
-
-
 def run(pieces=DEFAULT_PIECES, iters: int = 20, emit=lambda rec: print(json.dumps(rec),
                                                                        flush=True)) -> bool:
-    libs = build(pieces)
+    libs = build(pieces, "temporal_block.cuh", HOOKS, HARNESS, "ls_block_pieces",
+                 _build._SIGNATURES["ls_temporal_block"], WORK_DIR, "block_pieces")
     gen = torch.Generator().manual_seed(0)
     dev = torch.device("cuda")
 
@@ -144,8 +93,8 @@ def run(pieces=DEFAULT_PIECES, iters: int = 20, emit=lambda rec: print(json.dump
         out, attn = torch.empty_like(x), torch.empty((b * 16, c), device=dev, dtype=x.dtype)
         stream = torch.cuda.current_stream().cuda_stream
 
-        def call(lib):
-            code = lib.ls_block_pieces(
+        def call(run_pieces):
+            code = run_pieces(
                 x.data_ptr(), b, c, c, heads, ln_w.data_ptr(), ln_b.data_ptr(), 1e-6,
                 pe.data_ptr(), *[w.data_ptr() for w in ws], bo.data_ptr(),
                 1.0 / math.sqrt(c // heads), attn.data_ptr(), out.data_ptr(), stream)
@@ -161,16 +110,8 @@ def run(pieces=DEFAULT_PIECES, iters: int = 20, emit=lambda rec: print(json.dump
             ok &= good
             emit({"shape": [b, 16, c], "pieces_out": 0, "max_abs_err": err, "ok": good})
         for bits, lib in libs.items():
-            for _ in range(3):
-                call(lib)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                call(lib)
-            end.record()
-            torch.cuda.synchronize()
             emit({"shape": [b, 16, c], "pieces_out": bits,
-                  "ms": start.elapsed_time(end) / iters})
+                  "ms": time_ms(lambda: call(lib), iters)})
     return ok
 
 

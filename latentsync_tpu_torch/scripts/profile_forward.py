@@ -40,9 +40,11 @@ FAMILIES = [
     ("k8_qmm", ("qmm", "signed char>(ls_gemm")),
     # K5's core: the attention core with K11's numerics (P_NORMALISED = 1),
     # which no other kernel of a forward runs
-    ("k5_cross_core", tuple(f"attn_kernel<{d}, {nwg}, 1>" for d in (40, 80) for nwg in (1, 2))),
+    ("k5_cross_core", tuple(f"attn_kernel<{d}, {nwg}, 1," for d in (40, 80) for nwg in (1, 2))),
     # K2 in temporal mode: one kernel, its products and core inside
     ("k2_temporal_block", ("temporal_block",)),
+    # K2's spatial core: the attention core instantiated for K2 alone
+    ("k2_spatial_core", ("k2_spatial_core",)),
     ("gemm_template", ("ls_gemm", "gemm_kernel", "row_stats", "ln_rows", "dequant_rows",
                        "qkv_kernel")),
     ("k4_spatial_core", ("ls_core", "attn_kernel", "spatial_kernel")),
@@ -57,18 +59,10 @@ FAMILIES = [
 ]
 
 
-# K2's spatial mode runs the attention core at D = 80 (C = 640); no other
-# kernel of a forward does, but the composed blocks of int8-dense, whose core
-# is K4
-_K2_SPATIAL_CORE = "attn_kernel<80,"
-
-
-def family_of(name: str, conf: str = "default") -> str:
+def family_of(name: str) -> str:
     low = name.lower()
     for family, keys in FAMILIES:
         if any(k in low for k in keys):
-            if family == "k4_spatial_core" and conf != "int8-dense" and _K2_SPATIAL_CORE in name:
-                return "k2_spatial_core"
             return family
     return "other"
 
@@ -140,8 +134,8 @@ def profile_forward(device, conf: str = "default", w: int = 2,
         intervals.append((e.time_range.start / 1e3, e.time_range.end / 1e3))
         n, tot = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, tot + ms)
-        n, tot = by_family.get(family_of(e.name, conf), (0, 0.0))
-        by_family[family_of(e.name, conf)] = (n + 1, tot + ms)
+        n, tot = by_family.get(family_of(e.name), (0, 0.0))
+        by_family[family_of(e.name)] = (n + 1, tot + ms)
     if not intervals:
         raise RuntimeError("profile_forward: the profiler recorded no device kernel")
     span = max(e for _, e in intervals) - min(s for s, _ in intervals)
@@ -152,7 +146,7 @@ def profile_forward(device, conf: str = "default", w: int = 2,
     for fam, (n, ms) in sorted(by_family.items(), key=lambda kv: -kv[1][1]):
         emit({"family": fam, "launches": n, "device_ms": ms, "share_of_busy": ms / busy})
     for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
-        emit({"kernel": name[:120], "family": family_of(name, conf), "launches": n, "device_ms": ms})
+        emit({"kernel": name[:120], "family": family_of(name), "launches": n, "device_ms": ms})
     return prof
 
 

@@ -5,7 +5,7 @@
 card, so what it computes is kept testable here. ``product`` repeats the K
 loop: 64-wide k-tiles with a zero-filled last one, f32 accumulation tile by
 tile; ``ln_rows`` the row pass that prepares A once a row (two-pass f32
-statistics, LN output rounded to bf16, pe added in bf16 after it);
+statistics, LN output rounded to bf16);
 ``epilogue`` the bias / GEGLU / residual arithmetic in f32 with one final
 rounding. From them: the GEGLU feed-forward, q/k/v from one read of x, and
 the self-attention block's two projections around the plain cores.
@@ -39,6 +39,7 @@ from latentsync_tpu_torch.ops import attn_block as p_ab
 from latentsync_tpu_torch.ops import ffn as p_ffn
 from latentsync_tpu_torch.ops import temporal_attention as p_ta
 from test_torch_temporal_block_core import emulate_temporal_block
+from test_torch_temporal_block_core import ln_rows as temporal_ln_rows
 
 TOL_REL = 2.0**-6
 BK = 64      # bf16 of one k-tile
@@ -68,16 +69,12 @@ def product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def ln_rows(x, ln_w, ln_b, eps=1e-6, pe=None):
-    """The row pass: bf16(LN(x)) [+ pe[row % pe_rows] in bf16], once a row."""
+def ln_rows(x, ln_w, ln_b, eps=1e-6):
+    """The row pass: bf16(LN(x)), once a row."""
     xf = x.float()
     mu = xf.sum(-1, keepdim=True) / x.shape[-1]
     var = ((xf - mu) ** 2).sum(-1, keepdim=True) / x.shape[-1]
-    h = ((xf - mu) * torch.rsqrt(var + eps) * ln_w.float() + ln_b.float()).to(BF)
-    if pe is not None:
-        rows = torch.arange(x.shape[0]) % pe.shape[0]
-        h = (h.float() + pe.to(BF).float()[rows]).to(BF)
-    return h
+    return ((xf - mu) * torch.rsqrt(var + eps) * ln_w.float() + ln_b.float()).to(BF)
 
 
 def epilogue(acc, bias=None, gate=None, bias_gate=None, res=None):
@@ -112,7 +109,7 @@ def emulate_self_attention_block(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads, tempo
         return emulate_temporal_block(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads, pe)
     b, s, c = x.shape
     x2 = x.reshape(b * s, c)
-    a = ln_rows(x2, ln_w, ln_b, pe=pe)
+    a = ln_rows(x2, ln_w, ln_b)
     q, k, v = (epilogue(product(a, w)).reshape(b, s, -1) for w in (wq, wk, wv))
     o = p_ta.spatial_attention_reference(q, k, v, heads, 1.0 / math.sqrt(wq.shape[0] // heads))
     return epilogue(product(o.reshape(b * s, -1), wo), bo, res=x2).reshape(b, s, c)
@@ -217,12 +214,13 @@ def test_short_last_k_tile_adds_nothing():
 
 
 def test_ln_runs_once_a_row_with_pe_added_in_bf16():
-    """The row pass rounds LN(x) to bf16 and THEN adds pe in bf16 (two
+    """K2's temporal LayerNorm pass (``csrc/temporal_block.cuh``; the row
+    pass here has no pe) rounds LN(x) to bf16 and THEN adds pe in bf16 (two
     roundings), with pe's row = row mod S: the plain version's order."""
     rng = np.random.default_rng(6)
     x, pe = _r(rng, 48, 72), _r(rng, 16, 72)
     ln_w, ln_b = 1 + _r(rng, 72, s=0.1), _r(rng, 72, s=0.1)
-    got = ln_rows(x, ln_w, ln_b, pe=pe)
+    got = temporal_ln_rows(x, ln_w, ln_b, 1e-6, pe)
     want = p_ffn.layer_norm_f32(x, ln_w, ln_b, 1e-6).to(BF).reshape(3, 16, 72) + pe
     _within(got.reshape(3, 16, 72), want)
     one_rounding = (p_ffn.layer_norm_f32(x, ln_w, ln_b, 1e-6).reshape(3, 16, 72)

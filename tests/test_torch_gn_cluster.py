@@ -6,8 +6,10 @@ here. ``emulate_gn_cluster`` repeats its split and merge: each (sample,
 group) slab goes to a cluster of ``gn_cluster_blocks`` blocks, block r
 holding elements [r * chunk, (r + 1) * chunk) (chunk rounded up to 8, the
 last part shorter; its first 32 KB in registers, the rest in shared
-memory); each block's threads take every 512th vector of 8, sum
-about the part's first element and turn the sums into (count, mean, M2);
+memory); each block's threads take every 512th vector of 8 (every 512th
+element where the spatial size is no multiple of 8 and the whole part lies
+in shared memory), sum about the part's first element and turn the sums
+into (count, mean, M2);
 the block merges its threads' moments by Chan's formula, and every block
 merges the cluster's block moments in rank order; each block then
 normalises its part as x * a + (b - mean * a) with SiLU as h + h tanh(h),
@@ -63,17 +65,18 @@ def merge(a, b):
                  for x, y, z in zip(a, b, out))
 
 
-def block_moments(part: torch.Tensor):
+def block_moments(part: torch.Tensor, vec: int = 8):
     """(slabs, n) f32 part -> the block's (n, mean, m2): each thread's sums
-    about the part's first element, Chan-merged over the threads."""
+    about the part's first element over its vectors of `vec` elements,
+    Chan-merged over the threads."""
     slabs, n = part.shape
     zero = torch.zeros(slabs)
     acc = (zero, zero, zero)
     if n == 0:
         return acc
     shift = part[:, :1]
-    vecs = (part - shift).reshape(slabs, n // 8, 8)
-    for t in range(min(THREADS, n // 8)):
+    vecs = (part - shift).reshape(slabs, n // vec, vec)
+    for t in range(min(THREADS, n // vec)):
         mine = vecs[:, t::THREADS].reshape(slabs, -1)
         cnt = float(mine.shape[1])
         s1, s2 = mine.sum(1), (mine * mine).sum(1)
@@ -88,12 +91,13 @@ def emulate_gn_cluster(x, scale, bias, groups, eps=1e-5, silu=True):
     cg = c // groups
     slabs = x.float().reshape(n * groups, -1)
     spatial = slabs.shape[1] // cg
+    vec = 8 if spatial % 8 == 0 else 1  # 16-byte vectors, or element loads
     blocks = p_gn.gn_cluster_blocks(slabs.shape[1] * x.element_size())
     _, parts = split(slabs.shape[1], blocks)
     zero = torch.zeros(n * groups)
     total = (zero, zero, zero)
     for begin, end in parts:  # rank order, in every block alike
-        total = merge(total, block_moments(slabs[:, begin:end]))
+        total = merge(total, block_moments(slabs[:, begin:end], vec))
     rstd = torch.rsqrt(total[2] / total[0] + eps)
     ch = torch.arange(n * groups) % groups * cg
     w = scale.float()[ch[:, None] + torch.arange(cg)]  # (slabs, cg)
@@ -123,6 +127,10 @@ def _within(got, plain):
     ((2, 40, 16, 16, 16), 4, 2),   # 80 KB: 2 blocks
     ((3, 64, 5, 8), 32, 1),        # one block a slab
     ((2, 96, 3, 8, 8), 32, 1),     # C / G = 3 channels of 192
+    # spatial sizes no multiple of 8 (element loads): one block a slab, and
+    # 4 parts of 25000 elements, the last 10 short
+    ((3, 64, 5, 7), 32, 1),
+    ((1, 20, 9999), 2, 4),
 ])
 def test_gn_cluster_emulation_matches_plain_version(shape, groups, blocks):
     rng = np.random.default_rng(sum(shape))

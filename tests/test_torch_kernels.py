@@ -231,12 +231,11 @@ def test_cross_attention_block_kernel(rand, monkeypatch, b, s, c):
     (gn.group_norm_silu_streaming, (4, 960, 16, 32, 32), 1e-5, True),
     (gn.group_norm_silu_streaming, (4, 2560, 16, 4, 4), 1e-5, True),
     # shapes each kernel does not normally get: a large slab in K6, a
-    # small one in K7, and a spatial size that is no multiple of 8 (K6; K7
-    # takes 40 positions a channel)
+    # small one in K7, and a spatial size that is no multiple of 8
     (gn.group_norm_silu, (4, 320, 16, 32, 32), 1e-5, True),
     (gn.group_norm_silu_streaming, (64, 320, 32, 32), 1e-6, False),
     (gn.group_norm_silu, (3, 64, 5, 7), 1e-5, True),
-    (gn.group_norm_silu_streaming, (3, 64, 5, 8), 1e-5, False),
+    (gn.group_norm_silu_streaming, (3, 64, 5, 7), 1e-5, False),
 ])
 def test_group_norm_kernels(rand, fn, shape, eps, silu):
     c = shape[1]
@@ -266,8 +265,8 @@ def test_cuda_tensors_never_take_the_plain_version(rand, monkeypatch):
         attention.dot_product_attention(q, q, q)
     with pytest.raises(TypeError):
         gn.group_norm_silu(rand(2, 64, 8, 8).float(), rand(64), rand(64), 32)
-    with pytest.raises(ValueError, match="no kernel"):  # K7 reads 8 positions at a time
-        gn.group_norm_silu_streaming(rand(3, 64, 5, 7), rand(64), rand(64), 32)
+    with pytest.raises(ValueError, match="no kernel"):  # K7: 65535 slabs at most (the grid's y)
+        gn.group_norm_silu_streaming(rand(2049, 32, 1, 8), rand(32), rand(32), 32)
     ws = [rand(72, 72) for _ in range(4)]  # temporal head dim 8: no one-launch kernel
     with pytest.raises(ValueError, match="no kernel"):
         attn_block.self_attention_block(rand(2, 16, 72), rand(72), rand(72), *ws, rand(72), 9,

@@ -337,24 +337,39 @@ def test_profile_forward_sorts_kernels_into_families_and_unions_busy_time():
                "int)") == "k8_qmm"
     assert fam("void ls_gemm::gemm_kernel<160, false, false, __nv_bfloat16>(ls_gemm::Args, int, "
                "int)") == "gemm_template"
-    assert fam("void ls_core::attn_kernel<80, 2, 1>(__nv_bfloat16 const*)") == "k5_cross_core"
+    assert fam("void ls_core::attn_kernel<80, 2, 1, void>(__nv_bfloat16 const*)") == \
+        "k5_cross_core"
     assert fam("ls_attn::temporal_kernel(...)") == "k3_temporal_core"
-    # K2: its temporal kernel, and its spatial core (D = 80) except in
-    # int8-dense, whose composed blocks run K4 there
+    # K2: its temporal kernel, and its spatial core by the instantiation's
+    # name (the same code at D = 80 is K4's in int8-dense's composed blocks)
     assert fam("void ls_tblock::temporal_block_kernel<40>(ls_tblock::Args, int)") == \
         "k2_temporal_block"
-    assert fam("void ls_core::attn_kernel<80, 2, 0>(__nv_bfloat16 const*)", "fused") == \
-        "k2_spatial_core"
-    assert fam("void ls_core::attn_kernel<80, 2, 0>(__nv_bfloat16 const*)", "int8-dense") == \
+    assert fam("void ls_core::attn_kernel<80, 2, 0, ls_attn::k2_spatial_core>(__nv_bfloat16 "
+               "const*)") == "k2_spatial_core"
+    assert fam("void ls_core::attn_kernel<80, 2, 0, void>(__nv_bfloat16 const*)") == \
         "k4_spatial_core"
-    assert fam("void ls_core::attn_kernel<80, 2, 1>(__nv_bfloat16 const*)", "fused") == \
-        "k5_cross_core"
     assert fam("sm90_xmma_fprop_implicit_gemm_bf16bf16") == "library_convolution"
     assert fam("nvjet_tst_320x128_64x3") == "other"
     assert fam("void at::native::vectorized_elementwise_kernel<4, ...>") == "elementwise"
     # overlapping and nested intervals count once, gaps not at all
     assert profile_forward._busy([(0.0, 2.0), (1.0, 3.0), (5.0, 6.0), (5.2, 5.4)]) == 4.0
     assert set(profile_forward.CONFIGS) == {"default", "fused", "int8", "int8-dense"}
+
+
+def _unhooked(hooked: str) -> list:
+    """The preprocessor's view of a hooked header with LS_PIECES = 0: each
+    hook's #else branch, as lines."""
+    kept, skipping = [], []
+    for line in hooked.splitlines():
+        if line.startswith("#if LS_PIECES"):
+            skipping.append(True)
+        elif line == "#else" and skipping:
+            skipping[-1] = False
+        elif line == "#endif" and skipping:
+            skipping.pop()
+        elif not any(skipping):
+            kept.append(line)
+    return kept
 
 
 def test_attn_pieces_hooks_fit_the_attention_core():
@@ -366,19 +381,9 @@ def test_attn_pieces_hooks_fit_the_attention_core():
     assert hooked.count("#if LS_PIECES &") == 8  # copies, q k^T, p v, softmax: twice each
     for bit in (1, 2, 4, 8):
         assert hooked.count(f"#if LS_PIECES & {bit}\n") == 2  # both tilings
-    # the preprocessor's view with LS_PIECES = 0: each hook's #else branch
-    kept, skipping = [], []
-    for line in hooked.splitlines():
-        if line.startswith("#if LS_PIECES"):
-            skipping.append(True)
-        elif line == "#else" and skipping:
-            skipping[-1] = False
-        elif line == "#endif" and skipping:
-            skipping.pop()
-        elif not any(skipping):
-            kept.append(line)
     strip = lambda text: [ln.split("//")[0].rstrip() for ln in text.splitlines()]
-    assert [ln for ln in strip("\n".join(kept)) if ln] == [ln for ln in strip(source) if ln]
+    assert [ln for ln in strip("\n".join(_unhooked(hooked))) if ln] == \
+        [ln for ln in strip(source) if ln]
     with pytest.raises(ValueError, match="has moved"):
         attn_pieces.hooked_header(source.replace("wgmma_ss_n32(s, q_desc", "wgmma_ss_n32(t, q_desc"))
     assert set(attn_pieces.DEFAULT_PIECES) >= {0, 1, 2, 4, 8, 15}
@@ -386,25 +391,17 @@ def test_attn_pieces_hooks_fit_the_attention_core():
 
 def test_block_pieces_hooks_fit_the_temporal_kernel():
     """The K2 pieces script patches `#if` hooks into a copy of
-    ``csrc/temporal_block.cuh`` by exact text: each finds its piece once, and
-    with nothing taken out the hooked source is the kernel's."""
+    ``csrc/temporal_block.cuh`` by exact text (``attn_pieces``' machinery):
+    each finds its piece once, and with nothing taken out the hooked source
+    is the kernel's."""
     source = (block_pieces._build.SRC_DIR / "temporal_block.cuh").read_text()
-    hooked = block_pieces.hooked_header(source)
+    hooked = attn_pieces.hooked_header(source, block_pieces.HOOKS, "block_pieces")
     for bit, n in ((1, 1), (2, 1), (4, 1), (8, 2)):  # LayerNorm, attention, epilogue, copies
         assert hooked.count(f"#if LS_PIECES & {bit}\n") == n
-    kept, skipping = [], []  # the preprocessor's view with LS_PIECES = 0
-    for line in hooked.splitlines():
-        if line.startswith("#if LS_PIECES"):
-            skipping.append(True)
-        elif line == "#else" and skipping:
-            skipping[-1] = False
-        elif line == "#endif" and skipping:
-            skipping.pop()
-        elif not any(skipping):
-            kept.append(line)
-    assert kept == source.splitlines()
+    assert _unhooked(hooked) == source.splitlines()
     with pytest.raises(ValueError, match="has moved"):
-        block_pieces.hooked_header(source.replace("auto ln_tile = [&]() {", "auto ln = [&]() {"))
+        attn_pieces.hooked_header(source.replace("auto ln_tile = [&]() {", "auto ln = [&]() {"),
+                                  block_pieces.HOOKS, "block_pieces")
 
 
 @pytest.mark.parametrize("script", [profile_forward, gemm_split, attn_pieces, block_pieces])

@@ -298,17 +298,14 @@ def test_accumulator_fragments_feed_mma_sync_as_they_stand(d):
 def test_host_limits_and_ring_schedule():
     """Every served and probed shape fits the block's shared memory (221 KB
     at both served widths); head dims off 40 / 80 and C past the LayerNorm
-    pass's reach are refused, and the wrapper refuses the same; the loader's
-    decode walks the consumer's order: each head's k-tiles, then each
-    output pass's (none at D = 80, where the template runs that product)."""
+    pass's reach are refused; the loader's decode walks the consumer's
+    order: each head's k-tiles, then each output pass's (none at D = 80,
+    where the template runs that product)."""
     for c, heads in ((320, 8), (640, 8), (120, 3), (200, 5), (160, 4), (160, 2)):
         assert kernel_takes(c, c, heads), (c, heads)
     assert smem_bytes(40, 320, 320) == smem_bytes(80, 640, 640) == 226304
     for c, heads in ((72, 9), (400, 10), (1280, 8), (800, 10)):
         assert not kernel_takes(c, c, heads), (c, heads)
-        d = c // heads
-        assert c > p_ab.TEMPORAL_BLOCK_MAX_C.get(d, 0)
-    assert {d: 8 * VPL * CFG[d][2] for d in CFG} == p_ab.TEMPORAL_BLOCK_MAX_C
     heads, c = 5, 200
     want = [("qkv", h, kt) for h in range(heads) for kt in range(4)] \
         + [("out", nc, kt) for nc in range(2) for kt in range(4)]
