@@ -24,9 +24,9 @@ and without CUDA it exits nonzero before doing anything):
    composition of the GEGLU feed-forward; K10: dequantization, that
    composition and the row quantization), timed here and used nowhere in
    the port; count with ``torch.profiler`` the device kernels one call of
-   each kernel's wrapper launches at its first shape, and K2's and K7's at
-   every shape (K2's temporal mode must be ONE kernel, two at C = 640; K7
-   one); compute each kernel's bound, the least time the card
+   each kernel's wrapper launches at its first shape, and K2's, K3's, K7's
+   and K10's at every shape (K2's temporal mode must be ONE kernel, two at
+   C = 640; K3, K7 and K10 one); compute each kernel's bound, the least time the card
    could take for the same work, from the bytes of its inputs and outputs and the
    operations of its shapes, and for the attention kernels the time their
    exponentials alone need on the special-function units
@@ -389,7 +389,9 @@ def kernel_cases():
              "latentsync_tpu/ops/temporal_attention.py:47",
              [attn_args(256, 16, 1280), attn_args(64, 16, 1280),
               # the composed blocks of int8-dense at C = 320 and 640
-              attn_args(4096, 16, 320), attn_args(1024, 16, 640)], sdpa_rows),
+              attn_args(4096, 16, 320), attn_args(1024, 16, 640),
+              # q/k/v pitched inside one fused projection (head dim 40)
+              attn_args(64, 16, 320, sliced=True)], sdpa_rows),
         case("spatial_attention", ta.spatial_attention, ta.spatial_attention_reference,
              "latentsync_tpu_torch/csrc/spatial_attention.cu",
              "latentsync_tpu/ops/temporal_attention.py:173",
@@ -430,7 +432,8 @@ def kernel_cases():
         case("geglu_ffn_int8io", ffn.geglu_ffn_int8io, ffn.geglu_ffn_int8io_reference,
              "latentsync_tpu_torch/csrc/geglu_i8.cu", "latentsync_tpu/ops/ffn.py:338",
              [i8_args(131072, 320), i8_args(32768, 640),
-              i8_args(200, 72)],  # ragged M, N and last k-tile
+              i8_args(200, 72),  # ragged M, N and last k-tile
+              i8_args(300, 400)],  # the column split with a ragged last piece
              library_ffn_int8io),
         case("oneshot_attention", attention.oneshot_attention,
              attention.oneshot_attention_reference,
@@ -492,26 +495,31 @@ def compare(name: str, got, ref):
 
 # device kernels of the port that one call must launch, by shape label (no
 # torch kernel counted): K2's temporal mode is one kernel (two at C = 640,
-# where the output product runs on the GEMM template), K7 one
+# where the output product runs on the GEMM template), K3, K7 and K10 one
 KERNELS_A_CALL = {
     "self_attention_block": lambda label: (2 if "C=640" in label else 1)
     if label.startswith("temporal") else 4,
+    "temporal_attention": lambda label: 1,
     "group_norm_silu_streaming": lambda label: 1,
+    "geglu_ffn_int8io": lambda label: 1,
 }
 
 
-def kernels_a_call(fn, attempts: int = 3):
+def kernels_a_call(fn, attempts: int = 8):
     """(the port's device kernels, torch's device kernels) that one call of
     `fn` launches, from ``torch.profiler``: torch's are named ``at::...``
     (the wrapper's casts of parameters), the port's are not. A call launches
     at least one kernel, so a trace with none lost its events (it happens
-    on the card now and then): it is taken again, up to `attempts` times."""
+    on the card now and then, sometimes for several traces in a row): it is
+    taken again, up to `attempts` times, each after a longer pause."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     names = []
-    for _ in range(attempts):
+    for attempt in range(attempts):
+        if attempt:
+            time.sleep(0.25 * attempt)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()

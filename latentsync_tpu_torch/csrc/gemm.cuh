@@ -1,16 +1,16 @@
 // bf16 tensor-core GEMM template with bias, GEGLU and residual epilogues, and
 // the row passes that prepare its A operand: the matrix products of the TPU
-// kernels latentsync_tpu/ops/ffn.py _geglu_kernel, _qkv_kernel and
-// _geglu_i8_kernel and latentsync_tpu/ops/attn_block.py _kernel and
-// _cross_kernel (their q/k/v and output projections).
+// kernels latentsync_tpu/ops/ffn.py _geglu_kernel and _qkv_kernel and
+// latentsync_tpu/ops/attn_block.py _kernel and _cross_kernel (their q/k/v
+// and output projections), and of latentsync_tpu/ops/qmm.py _qmm_kernel in
+// its int8 mode.
 //
 //   C[m, n] = epi( sum_k A[m, k] * B[n, k] )      f32 accumulation
 //   epi     = + bias[n]                           (bias may be null)
 //           | (acc + bias) * gelu_erf(acc2 + bias2)   DUAL: the GEGLU
 //             up-projection, B the value rows and B2 the gate rows of w_up
 //           then + residual[m, n] in f32          (residual may be null)
-//           then one rounding to bf16, or an f32 store (F32OUT: K10's
-//           down-projection, whose rows a later pass quantizes)
+//           then one rounding to bf16
 //   up to three B operands with an output each share one launch and one A
 //   (K9: q, k, v); a block's column tile lies inside one of them.
 //
@@ -18,16 +18,11 @@
 // the matrix unit wants, so weights are used as stored.
 //
 // A is always plain bf16 here. Where a caller wants A' = bf16(LN(A))
-// (K1, K2's spatial mode, K5) or A' = bf16(code * scale) of int8 codes (K10), a row pass
-// (ln_rows, dequant_rows: one warp a row, 16-byte accesses) writes A' once to
-// a scratch buffer the wrapper allocates, and the product reads it like any
-// A: the normalisation runs once a row, not once for every column block of
-// the product as it did when it was this template's prologue. (Dequantizing
-// K10's codes inside the up-projection's load instead, 8 codes a thread
-// through registers into the ring, was measured 20 % slower for the whole
-// chain, PERF.md: every column tile of a row panel converts the panel's
-// codes again, 20 times a code at C = 320, beside an epilogue that already
-// fills the arithmetic pipes.) Rounding point unchanged: LN output to bf16.
+// (K1, K2's spatial mode, K5), a row pass (ln_rows: one warp a row, 16-byte
+// accesses) writes A' once to a scratch buffer the wrapper allocates, and
+// the product reads it like any A: the normalisation runs once a row, not
+// once for every column block of the product as it did when it was this
+// template's prologue. Rounding point unchanged: LN output to bf16.
 //
 // Design of the product. An output tile is 128 rows x BN columns (BN = 160
 // or 64, picked on the host by pick_bn; DUAL: 64 value and 64 gate
@@ -114,7 +109,6 @@ struct Args {
   const float* bias_gate;
   const bf16* res;  // residual (m, n) with row pitch ldr, or null
   int ldr;
-  float* c_f32;  // F32OUT: f32 C with row pitch ldc, instead of c
   // gemm_s8: the f32 scales of A's rows and B's rows, and a bf16 bias or null
   const float* a_scale;
   const float* b_scale;
@@ -164,8 +158,8 @@ struct Tile {
   static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;
 };
 
-// E: bf16, or int8_t for the int8 mode (then neither DUAL nor F32OUT)
-template <int BN, bool DUAL, bool F32OUT, typename E>
+// E: bf16, or int8_t for the int8 mode (then not DUAL)
+template <int BN, bool DUAL, typename E>
 __global__ void __launch_bounds__(THREADS, 2)  // registers capped for two blocks an SM
     gemm_kernel(const Args p, int tiles_n, int tiles_total) {
   using T = Tile<BN, DUAL>;
@@ -175,7 +169,7 @@ __global__ void __launch_bounds__(THREADS, 2)  // registers capped for two block
   constexpr int CE = 16 / (int)sizeof(E);         // elements of a 16-byte copy
   using Acc = std::conditional_t<S8, int, float>;
   static_assert(BN % 32 == 0 && T::STAGE_BYTES % 1024 == 0, "tile");
-  static_assert(!S8 || (!DUAL && !F32OUT), "the int8 mode has K8's epilogue only");
+  static_assert(!S8 || !DUAL, "the int8 mode has K8's epilogue only");
   extern __shared__ unsigned char smem_raw[];
   const unsigned smem_base = ((unsigned)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
 
@@ -382,36 +376,27 @@ __global__ void __launch_bounds__(THREADS, 2)  // registers capped for two block
             v10 += rv.x; v11 += rv.y;
           }
         }
-        if (F32OUT) {
-          float* c0 = p.c_f32 + (size_t)row0 * p.ldc + col;
-          if (in_n && row0 < p.m) *reinterpret_cast<float2*>(c0) = make_float2(v00, v01);
-          if (in_n && row1 < p.m)
-            *reinterpret_cast<float2*>(c0 + (size_t)8 * p.ldc) = make_float2(v10, v11);
-        } else {
-          lo[jj] = pack_bf16(v00, v01);
-          hi[jj] = pack_bf16(v10, v11);
-        }
+        lo[jj] = pack_bf16(v00, v01);
+        hi[jj] = pack_bf16(v10, v11);
       }
-      if (!F32OUT) {
-        // lane t4 now takes the 8 columns of tile 4q + t4 from its quad
-        quad_transpose(lo, t4);
-        quad_transpose(hi, t4);
-        const int col8 = n0 + 8 * (4 * q + t4);
-        if (col8 < p.n) {
-          if (row0 < p.m)
-            *reinterpret_cast<uint4*>(c_op + (size_t)row0 * p.ldc + col8) =
-                make_uint4(lo[0], lo[1], lo[2], lo[3]);
-          if (row1 < p.m)
-            *reinterpret_cast<uint4*>(c_op + (size_t)row1 * p.ldc + col8) =
-                make_uint4(hi[0], hi[1], hi[2], hi[3]);
-        }
+      // lane t4 now takes the 8 columns of tile 4q + t4 from its quad
+      quad_transpose(lo, t4);
+      quad_transpose(hi, t4);
+      const int col8 = n0 + 8 * (4 * q + t4);
+      if (col8 < p.n) {
+        if (row0 < p.m)
+          *reinterpret_cast<uint4*>(c_op + (size_t)row0 * p.ldc + col8) =
+              make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        if (row1 < p.m)
+          *reinterpret_cast<uint4*>(c_op + (size_t)row1 * p.ldc + col8) =
+              make_uint4(hi[0], hi[1], hi[2], hi[3]);
       }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Row passes that prepare A: one warp a row, 16-byte accesses
+// The row pass that prepares A: one warp a row, 16-byte accesses
 // ---------------------------------------------------------------------------
 
 // out[r] = bf16(LN(x[r])): two-pass f32 statistics like the reference (the
@@ -470,30 +455,6 @@ static inline cudaError_t ln_rows(const bf16* x, int m, int k, int ldx, float ep
   return cudaGetLastError();
 }
 
-// out[r, :] = bf16(code[r, :] * scale[r]): eight codes a thread
-static __global__ void dequant_rows_kernel(const int8_t* __restrict__ xq,
-                                           const float* __restrict__ scale, long long vecs,
-                                           int vecs_per_row, bf16* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= vecs) return;
-  const uint2 qv = reinterpret_cast<const uint2*>(xq)[i];
-  const signed char* qb = reinterpret_cast<const signed char*>(&qv);
-  const float sc = scale[i / vecs_per_row];
-  uint4 v;
-  bf16* e = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-  for (int t = 0; t < 8; ++t) e[t] = __float2bfloat16((float)qb[t] * sc);
-  reinterpret_cast<uint4*>(out)[i] = v;
-}
-
-static inline cudaError_t dequant_rows(const int8_t* xq, const float* scale, int m, int k,
-                                       bf16* out, cudaStream_t s) {
-  if (m <= 0 || k <= 0 || k % 8) return cudaErrorInvalidValue;
-  const long long vecs = (long long)m * (k / 8);
-  dequant_rows_kernel<<<(unsigned)((vecs + 255) / 256), 256, 0, s>>>(xq, scale, vecs, k / 8, out);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
@@ -508,10 +469,10 @@ static inline int pick_bn(int m, int n, int nb, bool dual) {
   return !dual && n % 160 == 0 && blocks160 >= SMS ? 160 : 64;
 }
 
-template <int BN, bool DUAL, bool F32OUT, typename E = bf16>
+template <int BN, bool DUAL, typename E = bf16>
 cudaError_t launch(const Args& p, cudaStream_t s) {
   using T = Tile<BN, DUAL>;
-  cudaError_t e = ls_allow_smem(gemm_kernel<BN, DUAL, F32OUT, E>, T::SMEM_BYTES);
+  cudaError_t e = ls_allow_smem(gemm_kernel<BN, DUAL, E>, T::SMEM_BYTES);
   if (e != cudaSuccess) return e;
   // as many blocks as the card holds at once; each walks its share of the tiles
   static int resident = 0;
@@ -520,7 +481,7 @@ cudaError_t launch(const Args& p, cudaStream_t s) {
     if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
       return e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemm_kernel<BN, DUAL, F32OUT, E>,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemm_kernel<BN, DUAL, E>,
                                                       THREADS, T::SMEM_BYTES);
     if (e != cudaSuccess) return e;
     if (sms * per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -530,29 +491,25 @@ cudaError_t launch(const Args& p, cudaStream_t s) {
   const long long tiles = (long long)tiles_n * p.nb * ((p.m + BM - 1) / BM);
   if (tiles > 0x7fff0000LL) return cudaErrorInvalidValue;  // the walk's counter adds gridDim.x
   const int blocks = tiles < resident ? (int)tiles : resident;
-  gemm_kernel<BN, DUAL, F32OUT, E><<<blocks, THREADS, T::SMEM_BYTES, s>>>(p, tiles_n,
-                                                                         (int)tiles);
+  gemm_kernel<BN, DUAL, E><<<blocks, THREADS, T::SMEM_BYTES, s>>>(p, tiles_n, (int)tiles);
   return cudaGetLastError();
 }
 
-// One launch of the template. DUAL when p.b_gate is set, F32OUT when p.c_f32
-// is; p.nb = 0 means one operand. Shapes it does not take are refused:
+// One launch of the template. DUAL when p.b_gate is set; p.nb = 0 means one
+// operand. Shapes it does not take are refused:
 // k and n multiples of 8 (16-byte copies and stores), pitches multiples of 8,
 // offsets within 32 bits.
 static inline cudaError_t gemm(const Args& args, cudaStream_t s) {
   Args p = args;
   if (p.nb == 0) p.nb = 1;
   const bool dual = p.b_gate != nullptr;
-  const bool f32out = p.c_f32 != nullptr;
   if (p.m <= 0 || p.n <= 0 || p.k <= 0 || p.k % 8 || p.n % 8 || p.lda % 8 || p.ldb % 8 ||
-      p.ldc % (f32out ? 2 : 8) || (p.res != nullptr && p.ldr % 2) || (p.nb != 1 && p.nb != 3) ||
-      ((dual || f32out) && p.nb != 1) || (dual && f32out) ||
-      (long long)p.m * p.lda > 0x7fffffffLL || (long long)p.n * p.ldb > 0x7fffffffLL)
+      p.ldc % 8 || (p.res != nullptr && p.ldr % 2) || (p.nb != 1 && p.nb != 3) ||
+      (dual && p.nb != 1) || (long long)p.m * p.lda > 0x7fffffffLL ||
+      (long long)p.n * p.ldb > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  if (dual) return launch<64, true, false>(p, s);
-  const bool wide = pick_bn(p.m, p.n, p.nb, dual) == 160;
-  if (f32out) return wide ? launch<160, false, true>(p, s) : launch<64, false, true>(p, s);
-  return wide ? launch<160, false, false>(p, s) : launch<64, false, false>(p, s);
+  if (dual) return launch<64, true>(p, s);
+  return pick_bn(p.m, p.n, p.nb, dual) == 160 ? launch<160, false>(p, s) : launch<64, false>(p, s);
 }
 
 // One launch of the int8 mode (K8): A and B int8 codes with their row scales
@@ -561,14 +518,14 @@ static inline cudaError_t gemm(const Args& args, cudaStream_t s) {
 // and ldc no multiples of 8, more than one operand, any other epilogue.
 static inline cudaError_t gemm_s8(const Args& p, cudaStream_t s) {
   if (p.m <= 0 || p.n <= 0 || p.k <= 0 || p.k % 16 || p.n % 8 || p.lda % 16 || p.ldb % 16 ||
-      p.ldc % 8 || p.nb > 1 || p.b_gate != nullptr || p.c_f32 != nullptr ||
+      p.ldc % 8 || p.nb > 1 || p.b_gate != nullptr ||
       p.a_scale == nullptr || p.b_scale == nullptr || p.bias != nullptr || p.res != nullptr ||
       (long long)p.m * p.lda > 0x7fffffffLL || (long long)p.n * p.ldb > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   Args q = p;
   q.nb = 1;
-  return pick_bn(q.m, q.n, 1, false) == 160 ? launch<160, false, false, int8_t>(q, s)
-                                              : launch<64, false, false, int8_t>(q, s);
+  return pick_bn(q.m, q.n, 1, false) == 160 ? launch<160, false, int8_t>(q, s)
+                                              : launch<64, false, int8_t>(q, s);
 }
 
 }  // namespace ls_gemm

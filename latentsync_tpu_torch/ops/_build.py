@@ -51,7 +51,7 @@ _SIGNATURES = {
     "ls_group_norm_silu_streaming": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "ls_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     "ls_qkv_proj": [*[_P] * 7, _I, _I, _I, _P],
-    "ls_geglu_ffn_int8io": [_P, _P, _I, _I, *[_P] * 10],
+    "ls_geglu_ffn_int8io": [_P, _P, _I, _I, *[_P] * 7],
     "ls_oneshot_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "ls_flash_kernel": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }

@@ -33,6 +33,9 @@ import torch.nn.functional as F
 
 from . import _build
 
+# the widest C of K10's one-launch kernel: its f32 result must fit the
+# registers of two warpgroups (csrc/geglu_i8.cu)
+GEGLU_I8_MAX_C = 640
 # rows the wrappers take; the GEMM template itself refuses a product whose
 # row offsets (rows x pitch) pass 32 bits, and the wrapper then raises
 _MAX_ROWS = 65535 * 128
@@ -202,7 +205,9 @@ def geglu_ffn_int8io_reference(x_i8, x_scale, w_up, b_up, w_down, b_down):
 def geglu_ffn_int8io(x_i8: torch.Tensor, x_scale: torch.Tensor, w_up, b_up, w_down, b_down):
     """(x_i8 (M, C) int8, x_scale (M, 1) f32) → (out_i8 (M, C), out_scale
     (M, 1)): GEGLU on rowwise-quantized activations, weights in bf16
-    (layouts as ``geglu_ffn``). The output feeds the next call as it is."""
+    (layouts as ``geglu_ffn``). The output feeds the next call as it is.
+    On the card: one launch that keeps x, the hidden and the f32 result on
+    chip, for C % 8 == 0 up to ``GEGLU_I8_MAX_C``."""
     if x_i8.device.type == "cpu":
         return geglu_ffn_int8io_reference(x_i8, x_scale, w_up, b_up, w_down, b_down)
     if x_i8.dim() != 2:
@@ -213,31 +218,27 @@ def geglu_ffn_int8io(x_i8: torch.Tensor, x_scale: torch.Tensor, w_up, b_up, w_do
             or x_scale.numel() != m):
         raise ValueError(f"geglu_ffn_int8io: weights {tuple(w_up.shape)}, {tuple(w_down.shape)} "
                          f"or scales {tuple(x_scale.shape)} do not fit x {tuple(x_i8.shape)}")
-    if c % 8 or m > _MAX_ROWS:
-        raise ValueError(f"geglu_ffn_int8io: no kernel for M={m}, C={c} (C % 8 must be 0)")
+    if c % 8 or c > GEGLU_I8_MAX_C or m * c >= 2**31:
+        raise ValueError(f"geglu_ffn_int8io: no kernel for M={m}, C={c} (C % 8 must be 0, "
+                         f"C <= {GEGLU_I8_MAX_C})")
     dev = x_i8.device
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     x_i8 = x_i8.contiguous()
     xs = x_scale.reshape(m).contiguous()
-    # every buffer the kernels read stays referenced until after the launch
+    # every buffer the kernel reads stays referenced until after the launch
     w_up = w_up.to(bf).contiguous()
     w_down = w_down.to(bf).contiguous()
     b_up = b_up.to(device=dev, dtype=f32).contiguous()
     b_down = b_down.to(device=dev, dtype=f32).contiguous()
-    # scratch of the chain: the dequantized x, the hidden, the f32 result
-    xdq = torch.empty((m, c), device=dev, dtype=bf)
-    hidden = torch.empty((m, inner), device=dev, dtype=bf)
-    res = torch.empty((m, c), device=dev, dtype=f32)
     out = torch.empty((m, c), device=dev, dtype=i8)
     out_scale = torch.empty((m, 1), device=dev, dtype=f32)
-    _build.check_cuda("geglu_ffn_int8io", x_i8, xs, w_up, b_up, w_down, b_down, hidden, res,
-                      out, out_scale, dtypes=(i8, f32, bf, f32, bf, f32, bf, f32, i8, f32))
+    _build.check_cuda("geglu_ffn_int8io", x_i8, xs, w_up, b_up, w_down, b_down, out, out_scale,
+                      dtypes=(i8, f32, bf, f32, bf, f32, i8, f32))
     if m == 0:
         return out, out_scale
     _build.call("ls_geglu_ffn_int8io", x_i8.data_ptr(), xs.data_ptr(), m, c, w_up.data_ptr(),
-                b_up.data_ptr(), w_down.data_ptr(), b_down.data_ptr(), xdq.data_ptr(),
-                hidden.data_ptr(), res.data_ptr(), out.data_ptr(), out_scale.data_ptr(),
-                _build.stream(x_i8))
+                b_up.data_ptr(), w_down.data_ptr(), b_down.data_ptr(), out.data_ptr(),
+                out_scale.data_ptr(), _build.stream(x_i8))
     geglu_ffn_int8io.launches += 1
     return out, out_scale
 

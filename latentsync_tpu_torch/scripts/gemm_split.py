@@ -3,8 +3,9 @@
     python -m latentsync_tpu_torch.scripts.gemm_split [--iters 20]
 
 Times K1 (``geglu_ffn`` with its LayerNorm and residual), K9 (``qkv_proj``),
-K10 (``geglu_ffn_int8io``) and K8 (``quantized_matmul``: its quantizing row
-pass and the template's int8 mode) at the served and probed full-width
+K10 (``geglu_ffn_int8io``, one kernel of its own beside the template) and
+K8 (``quantized_matmul``: its quantizing row pass and the template's int8
+mode) at the served and probed full-width
 shapes, K1, K9 and K8 beside the PyTorch library composition of the same
 function (cuBLAS products around separate LayerNorm, GELU and residual
 passes for K1, one ``F.linear`` on the concatenated weight for K9,
@@ -78,8 +79,8 @@ extern "C" int tiles_qmm(const void* xq, const float* ascale, const void* wq, co
   p.bias_bf16 = static_cast<const bf16*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bn) {
-    case 64: return (int)ls_gemm::launch<64, false, false, int8_t>(p, s);
-    case 160: return (int)ls_gemm::launch<160, false, false, int8_t>(p, s);
+    case 64: return (int)ls_gemm::launch<64, false, int8_t>(p, s);
+    case 160: return (int)ls_gemm::launch<160, false, int8_t>(p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -45,8 +45,7 @@ FAMILIES = [
     ("k2_temporal_block", ("temporal_block",)),
     # K2's spatial core: the attention core instantiated for K2 alone
     ("k2_spatial_core", ("k2_spatial_core",)),
-    ("gemm_template", ("ls_gemm", "gemm_kernel", "row_stats", "ln_rows", "dequant_rows",
-                       "qkv_kernel")),
+    ("gemm_template", ("ls_gemm", "gemm_kernel", "row_stats", "ln_rows", "qkv_kernel")),
     ("k4_spatial_core", ("ls_core", "attn_kernel", "spatial_kernel")),
     ("k3_temporal_core", ("temporal",)),
     ("groupnorm_kernels", ("gn_", "group_norm_silu")),

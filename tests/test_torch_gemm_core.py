@@ -1,7 +1,7 @@
 """The arithmetic of the bf16 GEMM template, emulated in plain torch.
 
 ``csrc/gemm.cuh`` (the products of K1 ``geglu_ffn``, K2
-``self_attention_block``, K5, K9 ``qkv_proj`` and K10) cannot run without a
+``self_attention_block``, K5 and K9 ``qkv_proj``) cannot run without a
 card, so what it computes is kept testable here. ``product`` repeats the K
 loop: 64-wide k-tiles with a zero-filled last one, f32 accumulation tile by
 tile; ``ln_rows`` the row pass that prepares A once a row (two-pass f32
@@ -183,11 +183,12 @@ def test_block_emulation_matches_plain_version(temporal, b, s, c, heads):
 
 @pytest.mark.parametrize("m,c", [(1, 72), (130, 64), (200, 72)])
 def test_int8_chain_emulation_matches_plain_version(m, c):
-    """K10: a row pass rounds bf16(code * scale) once a row, the products
-    run on it like any A, the down-projection stores f32 and a row pass
-    quantizes. Against the plain version: scales within 2^-6 relative, codes
-    within 1 (another summation order can move a value across a rounding
-    boundary)."""
+    """K10's rounding points on whole-row products: bf16(code * scale) once
+    a row, the GEGLU rounded to bf16, the f32 down-projection, then the row
+    quantization (the one-launch kernel's own chunk schedule is emulated in
+    ``test_torch_geglu_i8_core.py``). Against the plain version: scales
+    within 2^-6 relative, codes within 1 (another summation order can move a
+    value across a rounding boundary)."""
     _, w_up, b_up, w_dn, b_dn, _, _ = _ffn_inputs(31 * m + c, m, c)
     rng = np.random.default_rng(m + c)
     codes, scales = p_ffn.quantize_rowwise(_r(rng, m, c))

@@ -91,6 +91,32 @@ def test_temporal_attention_kernel(rand, b, hd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,hd,sliced", [
+    (256, 1280, False), (64, 1280, False),  # the default and fused forwards (D = 160)
+    (4096, 320, False), (1024, 640, False),  # int8-dense's composed blocks (D = 40, 80)
+    (64, 320, True), (16, 640, True)])       # q/k/v pitched in one fused projection
+def test_temporal_attention_kernel_served_shapes(rand, b, hd, sliced):
+    """K3 at its served shapes: one launch, within the tolerance."""
+    if sliced:
+        qkv = rand(b, 16, 3 * hd)
+        q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
+    else:
+        q, k, v = rand(b, 16, hd), rand(b, 16, hd), rand(b, 16, hd)
+    before = ta.temporal_attention.launches
+    _check(ta.temporal_attention(q, k, v, 8), ta.temporal_attention_reference(q, k, v, 8))
+    assert ta.temporal_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,heads,d", [(3, 1, 8), (5, 2, 24), (2, 4, 64), (7, 3, 256)])
+def test_temporal_attention_kernel_other_head_dims(rand, b, heads, d):
+    """Head dims off the served ones: a single k8 step (8), k16 steps and a
+    k8 tail (24), an even count of 8-column tiles (64), a wide head (256)."""
+    q, k, v = (rand(b, 16, heads * d, s=2.0) for _ in range(3))
+    _check(ta.temporal_attention(q, k, v, heads), ta.temporal_attention_reference(q, k, v, heads))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,s,hd", [(2, 1024, 320), (3, 256, 640), (4, 64, 1280),
                                     (4, 16, 1280), (2, 100, 320)])
 def test_spatial_attention_kernel(rand, b, s, hd):
@@ -758,3 +784,29 @@ def test_geglu_ffn_int8io_kernel_ragged(rand, m, c):
     (64, 320)."""
     args = _i8_args(rand, m, c)
     check_int8io(ffn.geglu_ffn_int8io(*args), ffn.geglu_ffn_int8io_reference(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", [(300, 400), (77, 328), (64, 640)])
+def test_geglu_ffn_int8io_kernel_column_split(rand, m, c):
+    """K10 above C = 320, where two warpgroups split the output columns and
+    merge their row amax: a ragged last piece (400, 328) and the widest C."""
+    args = _i8_args(rand, m, c)
+    check_int8io(ffn.geglu_ffn_int8io(*args), ffn.geglu_ffn_int8io_reference(*args))
+
+
+@pytest.mark.cuda
+def test_geglu_ffn_int8io_allocates_only_its_outputs(rand):
+    """K10 is one launch with no scratch buffer: the call's peak allocation
+    is its two outputs; C past the kernel's widest is refused."""
+    args = _i8_args(rand, 4096, 320)
+    ffn.geglu_ffn_int8io(*args)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = ffn.geglu_ffn_int8io(*args)
+    torch.cuda.synchronize()
+    outputs = sum(t.numel() * t.element_size() for t in out)
+    assert torch.cuda.max_memory_allocated() - base <= outputs + 2 * 512  # allocator rounding
+    with pytest.raises(ValueError):
+        ffn.geglu_ffn_int8io(*_i8_args(rand, 64, ffn.GEGLU_I8_MAX_C + 8))
