@@ -14,7 +14,8 @@ and without CUDA it exits nonzero before doing anything):
    the kernels only the kernel probe runs (K9 fused q/k/v projection, K10
    int8-in/int8-out GEGLU, K11 one-shot attention, K12 streaming attention,
    and the flash route at head dims 40 and 80), at every shape the probe
-   gives them at its default 4 windows; K1, K2 and K9 also at one shape
+   gives them at its default 4 windows (K10 up to C = 1280); K2's temporal
+   mode and K3 also at F = 8 and 24 frames; K1, K2 and K9 also at one shape
    whose K is no multiple of the GEMM template's 64-deep k-tile and whose M
    and N are ragged; time both with CUDA events, and beside them the one
    PyTorch library call that computes the same function, where there is
@@ -43,7 +44,9 @@ and without CUDA it exits nonzero before doing anything):
    on a small input; the median of 5 warm batch-4 forwards of each, the
    GroupNorm shapes of one fused forward and the K8 shapes of one
    int8-dense forward, which must be those phase 2 checked, with K8's
-   launches at each shape and the sum of their bounds;
+   launches at each shape and the sum of their bounds; one default forward
+   at F = 24 (window batch 1), finite, with K2 and K3 launched as often as
+   the route predicts from each block's shape;
 4. hold ``finish`` with its decoded chunks as host copies behind CUDA
    events (pinned memory, fetched on a thread) bitwise against the same
    chunks fetched in turn; serve three requests through the port's HTTP
@@ -62,7 +65,16 @@ and without CUDA it exits nonzero before doing anything):
    in process at full width and its default 4 windows for its modes ffn,
    ffn8, spat and attn: every measurement it prints must be finite, and
    K9, K10 and K11 must have launched there; K12, which nothing in either
-   package calls, is driven through its entry point at its three shapes.
+   package calls, is driven through its entry point at its three shapes;
+8. onboard a synthetic talking head with the port's ``prepare_video`` on the
+   card (the packaged fallback FAN behind the Haar box stage, the served
+   VAE's weights from a file: bundle and ``_latents.npz``), hold the card's
+   landmarks against the CPU port's on the same 16 frames (TF32 off, and
+   for comparison on), time the FAN per 128 crops, and serve one request
+   with no bundle (stage 3, face detection and alignment, on the card) and
+   one from the new bundle, which must record no ``device_vae_encode``;
+   frame counts, and the default configuration's kernels (and no other)
+   launched in this phase.
 
 The line before the last is a JSON object with each kernel's launches on
 its path (``"path"``: the served configuration, ``probe`` or, for K12,
@@ -313,7 +325,8 @@ def kernel_cases():
         """``torch._int_mm`` on codes quantized once a shape (in the warm-up,
         untimed) and its dequantization: the product and epilogue of K8
         without its quantization."""
-        key = (x.data_ptr(), w.data_ptr())
+        # shapes too: a freed shape's memory comes back for the next one
+        key = (x.data_ptr(), w.data_ptr(), tuple(x.shape), tuple(w.shape))
         if key not in i8_cache:
             i8_cache.clear()
             xq, ascale = qmm.quantize_activations(x)
@@ -332,7 +345,7 @@ def kernel_cases():
         return x + F.linear(o, wo, bo)
 
     def library_qkv(x, wq, wk, wv):
-        key = (wq.data_ptr(), wk.data_ptr(), wv.data_ptr())
+        key = (wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), tuple(wq.shape))
         if key not in cat_cache:  # concatenated once a shape, in the warm-up
             cat_cache.clear()
             cat_cache[key] = torch.cat([wq, wk, wv])
@@ -383,7 +396,11 @@ def kernel_cases():
              [block_args(4096, 16, 320, True), block_args(1024, 16, 640, True),
               block_args(64, 256, 640, False),
               # M = 208 (a row tile and a part), K = 120 (a short last k-tile)
-              block_args(13, 16, 120, True, heads=3)], library_block),
+              block_args(13, 16, 120, True, heads=3),
+              # F != 16: sequences padded to 16 tile rows (F = 8) and to 32 (F = 24)
+              block_args(4096, 8, 320, True), block_args(4096, 24, 320, True),
+              block_args(1024, 8, 640, True), block_args(1024, 24, 640, True)],
+             library_block),
         case("temporal_attention", ta.temporal_attention, ta.temporal_attention_reference,
              "latentsync_tpu_torch/csrc/temporal_attention.cu",
              "latentsync_tpu/ops/temporal_attention.py:47",
@@ -391,7 +408,9 @@ def kernel_cases():
               # the composed blocks of int8-dense at C = 320 and 640
               attn_args(4096, 16, 320), attn_args(1024, 16, 640),
               # q/k/v pitched inside one fused projection (head dim 40)
-              attn_args(64, 16, 320, sliced=True)], sdpa_rows),
+              attn_args(64, 16, 320, sliced=True),
+              # F != 16: one row tile, keys past F masked (8); two row tiles (24)
+              attn_args(256, 8, 1280), attn_args(256, 24, 1280)], sdpa_rows),
         case("spatial_attention", ta.spatial_attention, ta.spatial_attention_reference,
              "latentsync_tpu_torch/csrc/spatial_attention.cu",
              "latentsync_tpu/ops/temporal_attention.py:173",
@@ -433,7 +452,9 @@ def kernel_cases():
              "latentsync_tpu_torch/csrc/geglu_i8.cu", "latentsync_tpu/ops/ffn.py:338",
              [i8_args(131072, 320), i8_args(32768, 640),
               i8_args(200, 72),  # ragged M, N and last k-tile
-              i8_args(300, 400)],  # the column split with a ragged last piece
+              i8_args(300, 400),  # the column split with a ragged last piece
+              # the probe's third level: column groups across blocks, the row pass
+              i8_args(8192, 1280)],
              library_ffn_int8io),
         case("oneshot_attention", attention.oneshot_attention,
              attention.oneshot_attention_reference,
@@ -495,13 +516,14 @@ def compare(name: str, got, ref):
 
 # device kernels of the port that one call must launch, by shape label (no
 # torch kernel counted): K2's temporal mode is one kernel (two at C = 640,
-# where the output product runs on the GEMM template), K3, K7 and K10 one
+# where the output product runs on the GEMM template), K3 and K7 one, K10
+# one (two at C = 1280: the column-split kernel and its row pass)
 KERNELS_A_CALL = {
     "self_attention_block": lambda label: (2 if "C=640" in label else 1)
     if label.startswith("temporal") else 4,
     "temporal_attention": lambda label: 1,
     "group_norm_silu_streaming": lambda label: 1,
-    "geglu_ffn_int8io": lambda label: 1,
+    "geglu_ffn_int8io": lambda label: 2 if label.endswith("C=1280") else 1,
 }
 
 
@@ -776,6 +798,61 @@ def time_forwards(unet, device) -> bool:
     return ok
 
 
+def check_unet_frames(unet, device, frames: int = 24) -> bool:
+    """One default forward at F = `frames` (window batch 1 × CFG 2): eps
+    finite and of the expected shape, and K2 and K3 launched as often as
+    the route predicts from each attention block's input shape (forward
+    pre-hooks on the transformer blocks: a temporal block's sequences go to
+    K2 where ``fused_route`` takes them, else to K3; a spatial block's to K2
+    where it takes them). Counts are set to 0 just before the forward and
+    read just after."""
+    import torch
+
+    from latentsync_tpu_torch.models import unet3d
+    from latentsync_tpu_torch.ops import attn_block
+    from latentsync_tpu_torch.ops import temporal_attention as ta
+
+    want = collections.Counter()
+
+    def temporal_hook(mod, inp):
+        _, f, c = inp[0].shape
+        for _ in mod.attention_blocks:
+            want["K2" if attn_block.fused_route(f, c, c, True, mod.heads) else "K3"] += 1
+
+    def spatial_hook(mod, inp):
+        _, s_len, c = inp[0].shape
+        if attn_block.fused_route(s_len, c, mod.attn1.weights()[0].shape[0], False, mod.heads):
+            want["K2"] += 1
+
+    hooks = [m.register_forward_pre_hook(temporal_hook) for m in unet.modules()
+             if isinstance(m, unet3d.TemporalTransformerBlock)]
+    hooks += [m.register_forward_pre_hook(spatial_hook) for m in unet.modules()
+              if isinstance(m, unet3d.BasicTransformerBlock)]
+    gen = torch.Generator().manual_seed(SEED + 6)
+    cfg = unet.config
+    x = torch.randn((2, cfg.in_channels, frames, 32, 32), generator=gen).to(device, torch.bfloat16)
+    audio = torch.randn((2, frames, 50, cfg.cross_attention_dim), generator=gen).to(
+        device, torch.bfloat16)
+    t = torch.full((2,), 501, device=device)
+    try:
+        with torch.inference_mode(), configured("default"):
+            attn_block.self_attention_block.launches = ta.temporal_attention.launches = 0
+            eps = unet(x, t, audio)
+            torch.cuda.synchronize()
+            got = {"K2": attn_block.self_attention_block.launches,
+                   "K3": ta.temporal_attention.launches}
+    finally:
+        for h in hooks:
+            h.remove()
+    finite = bool(torch.isfinite(eps.float()).all())
+    good = finite and tuple(eps.shape) == (2, cfg.out_channels, frames, 32, 32) \
+        and got == dict(want) and want["K2"] > 0 and want["K3"] > 0
+    log(f"unet default eps (2, 4, {frames}, 32, 32) at F = {frames}: finite={finite} "
+        f"launches K2={got['K2']} K3={got['K3']} (route predicts K2={want['K2']} "
+        f"K3={want['K3']}) {'ok' if good else 'FAIL'}")
+    return good
+
+
 def qmm_bound_ms(m: int, k: int, n: int) -> float:
     """K8's bound at one shape: x, w and the output moved once (2MK + 2NK +
     2MN bytes) against 2MNK int8 operations."""
@@ -793,7 +870,7 @@ def make_avatar(root: str, n_frames: int = 40, size: int = 576, crop_at: int = 3
     matrix, 256² faces as the 2×2 average of the 512² crop, 512 boxes."""
     import numpy as np
 
-    from latentsync_tpu_torch.utils.media import StreamingVideoWriter, write_audio
+    from latentsync_tpu_torch.utils.media import StreamingVideoWriter
 
     rng = np.random.default_rng(SEED)
     yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
@@ -810,15 +887,7 @@ def make_avatar(root: str, n_frames: int = 40, size: int = 576, crop_at: int = 3
     np.savez(os.path.join(root, "avatar.npz"), faces=faces,
              boxes=np.tile([0, 0, 512, 512], (n_frames, 1)),
              affine_matrices=np.repeat(mat[None], n_frames, 0))
-    audios = {}
-    for sec in (1.2, 2.4):
-        path = os.path.join(root, f"speech_{sec}.wav")
-        tt = np.arange(int(16000 * sec)) / 16000.0
-        wave = 0.3 * np.sin(2 * np.pi * 220 * tt) * (1 + np.sin(2 * np.pi * 3 * tt)) \
-            + 0.05 * rng.standard_normal(tt.shape)
-        write_audio(path, wave.astype(np.float32))
-        audios[sec] = path
-    return audios
+    return {sec: write_speech(os.path.join(root, f"speech_{sec}.wav"), sec) for sec in (1.2, 2.4)}
 
 
 def check_finish_fetch(pipeline, device) -> bool:
@@ -970,6 +1039,188 @@ def wait_all(base: str, jobs, timeout_s: float = 900):
     return done
 
 
+# card vs CPU landmarks of the same frames (the FAN's f32 convolutions with
+# TF32 off on the card): most points agree to float rounding; a point whose
+# two neighbouring heatmap values are nearly equal may flip its ±0.25 px
+# refinement, which moves it by at most half a heatmap pixel (2 crop px at
+# a 256² crop, scaled to the frame)
+LM_CLOSE_PX, LM_CLOSE_SHARE, LM_MAX_PX = 0.05, 0.95, 4.0
+
+
+def make_face_video(path: str, n_frames: int = 48, size: int = 320):
+    """A synthetic talking head drawn with OpenCV (RGB): a skin-toned head
+    on a plain background, brows, eyes, a nose and a mouth that opens and
+    closes, moving a little; written at 25 fps. Returns the frames."""
+    import cv2
+    import numpy as np
+
+    from latentsync_tpu_torch.utils.media import StreamingVideoWriter
+
+    rng = np.random.default_rng(SEED)
+    frames = []
+    for t in range(n_frames):
+        img = np.zeros((size, size, 3), np.uint8)
+        img[:] = (70, 90, 110)
+        cx = size // 2 + int(round(6 * math.sin(t / 7)))
+        cy = int(size * 0.45) + int(round(4 * math.cos(t / 9)))
+        cv2.ellipse(img, (cx, cy), (70, 92), 0, 0, 360, (224, 180, 150), -1)
+        for side in (-1, 1):
+            cv2.line(img, (cx + side * 42, cy - 36), (cx + side * 14, cy - 40), (60, 40, 30), 4)
+            cv2.ellipse(img, (cx + side * 28, cy - 18), (12, 6), 0, 0, 360, (250, 250, 250), -1)
+            cv2.circle(img, (cx + side * 28, cy - 18), 4, (40, 30, 20), -1)
+        cv2.line(img, (cx, cy - 10), (cx - 5, cy + 18), (170, 120, 100), 3)
+        opening = 3 + int(round(10 * abs(math.sin(t / 3))))
+        cv2.ellipse(img, (cx, cy + 46), (26, opening), 0, 0, 360, (120, 40, 50), -1)
+        noisy = img.astype(np.float32) + rng.normal(0, 3, img.shape)
+        frames.append(np.clip(noisy, 0, 255).astype(np.uint8))
+    frames = np.stack(frames)
+    writer = StreamingVideoWriter(path, fps=25, frame_hw=(size, size))
+    writer.append(frames)
+    writer.close()
+    return frames
+
+
+def write_speech(path: str, sec: float) -> str:
+    """`sec` seconds of a 220 Hz tone, amplitude-modulated at 3 Hz, with
+    seeded noise: a 16 kHz WAV."""
+    import numpy as np
+
+    from latentsync_tpu_torch.utils.media import write_audio
+
+    rng = np.random.default_rng(SEED)
+    tt = np.arange(int(16000 * sec)) / 16000.0
+    wave = 0.3 * np.sin(2 * np.pi * 220 * tt) * (1 + np.sin(2 * np.pi * 3 * tt)) \
+        + 0.05 * rng.standard_normal(tt.shape)
+    write_audio(path, wave.astype(np.float32))
+    return path
+
+
+def landmark_agreement(a, b):
+    """(largest distance in px, share of points within LM_CLOSE_PX)."""
+    import numpy as np
+
+    d = np.linalg.norm(np.asarray(a, np.float64) - np.asarray(b, np.float64), axis=-1)
+    return float(d.max()), float((d <= LM_CLOSE_PX).mean())
+
+
+def check_onboarding(pipeline, vae, device, counters):
+    """Phase 8: onboard a synthetic talking head with the port's
+    ``prepare_video`` on the card (the packaged fallback FAN behind the Haar
+    box stage, the served VAE's weights from a file), hold the card's
+    landmarks against the CPU port's on the same frames, time the FAN, then
+    serve one request with no bundle (stage 3 on the card) and one from the
+    new bundle with its ``_latents.npz`` (no VAE encode). Counts are set to
+    0 before the onboarding and read after the two requests: the default
+    configuration's kernels must launch and no other."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from latentsync_tpu_torch.models.face_detection import FANLandmarkDetector, HaarBoxDetector
+    from latentsync_tpu_torch.scripts import prepare_video
+    from latentsync_tpu_torch.utils.convert import load_state_dict_file
+    from latentsync_tpu_torch.utils.image_processor import FALLBACK_FAN_PATH
+    from latentsync_tpu_torch.utils.media import read_video
+
+    ok = True
+    saved = {k: os.environ.pop(k, None) for k in (
+        "LATENTSYNC_FAN_CKPT", "LATENTSYNC_S3FD_CKPT", "LATENTSYNC_NO_FALLBACK_FAN")}
+    try:
+        with tempfile.TemporaryDirectory() as root, configured("default"):
+            n_frames = 48
+            video = os.path.join(root, "talker.mp4")
+            make_face_video(video, n_frames)
+            speech = write_speech(os.path.join(root, "speech.wav"), 1.2)
+            vae_path = os.path.join(root, "vae.pt")
+            torch.save(vae.state_dict(), vae_path)
+            for fn in counters:
+                fn.launches = 0
+            out = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(out):
+                rc = prepare_video.main(["--video", video, "--avatar-id", "talker", "--store",
+                                         os.path.join(root, "store"), "--vae-ckpt", vae_path,
+                                         "--device", "cuda"])
+            record = json.loads(out.getvalue().strip().splitlines()[-1])
+            with np.load(record["bundle"]) as bundle:
+                faces, mats = bundle["faces"], bundle["affine_matrices"]
+            good = rc == 0 and faces.shape == (n_frames, 256, 256, 3) \
+                and os.path.isfile(record["latents"]) and bool(np.isfinite(mats).all())
+            ok &= good
+            log(f"onboarding prepare_video on cuda: {n_frames} frames in "
+                f"{time.time() - t0:.3f}s (faces {record['faces_s']:.3f}s, latents "
+                f"{record['latents_s']:.3f}s) bundle faces {faces.shape} "
+                f"{'ok' if good else 'FAIL'}")
+
+            # the card's landmarks against the CPU port's on the same frames
+            clip = list(read_video(video, change_fps=True, fps=25)[:16])
+            sd = load_state_dict_file(FALLBACK_FAN_PATH)
+            lm = {}
+            for name, dev, tf32 in (("card", device, False), ("card_tf32", device, True),
+                                    ("cpu", "cpu", False)):
+                det = FANLandmarkDetector(sd, face_detector=HaarBoxDetector(), device=dev,
+                                          allow_tf32=tf32)
+                lm[name] = det.detect_batch(clip)
+            worst, share = landmark_agreement(lm["card"], lm["cpu"])
+            worst32, share32 = landmark_agreement(lm["card_tf32"], lm["cpu"])
+            good = bool(np.isfinite(lm["card"]).all()) and worst <= LM_MAX_PX \
+                and share >= LM_CLOSE_SHARE
+            ok &= good
+            log(f"landmarks card vs CPU, 16 frames x 68 points: max {worst:.4g} px, "
+                f"{100 * share:.2f}% within {LM_CLOSE_PX} px (TF32 off, the FAN's setting; "
+                f"with TF32 on: max {worst32:.4g} px, {100 * share32:.2f}%) "
+                f"{'ok' if good else 'FAIL'}")
+
+            # the FAN forward (and decode, and the coordinates' fetch) per 128 crops
+            det = FANLandmarkDetector(sd, device=device)
+            crops = np.repeat(faces, 3, axis=0)[:128]
+            det.landmarks(crops)
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                det.landmarks(crops)
+                times.append((time.perf_counter() - t0) * 1e3)
+            log(f"FAN forward per 128 crops (fallback, 1 module, 128 wide): "
+                f"median_ms={sorted(times)[1]:.3f} all_ms={[round(v, 3) for v in times]}")
+
+            # one request with no bundle: stage 3 on the card
+            res = pipeline(video, speech, os.path.join(root, "nobundle.mp4"))
+            frames = read_video(res.video_path, change_fps=False).shape[0]
+            tm = res.elapsed
+            good = res.num_frames == frames == 32 and "device_vae_encode" in tm
+            ok &= good
+            log(f"request without a bundle: frames={frames} (want 32) faces_s={tm['faces']:.3f} "
+                f"({tm['faces'] / (n_frames / 25):.3f} s per second of video) "
+                f"stages={json.dumps(tm, sort_keys=True)} {'ok' if good else 'FAIL'}")
+
+            # one request from the new bundle and its latents: no VAE encode
+            res = pipeline(record["video"], speech, os.path.join(root, "bundle.mp4"),
+                           data_path=record["bundle"])
+            frames = read_video(res.video_path, change_fps=False).shape[0]
+            tm = res.elapsed
+            good = res.num_frames == frames == 32 and "device_vae_encode" not in tm \
+                and "device_denoise" in tm
+            ok &= good
+            log(f"request from the onboarded bundle and its _latents.npz: frames={frames} "
+                f"(want 32) device_vae_encode recorded={'device_vae_encode' in tm} "
+                f"stages={json.dumps(tm, sort_keys=True)} {'ok' if good else 'FAIL'}")
+            torch.cuda.synchronize()
+            for fn in counters:
+                want_some = fn.__name__ in ON_PATH["default"]
+                good = fn.launches > 0 if want_some else fn.launches == 0
+                ok &= good
+                log(f"launches on the onboarding path: {fn.__name__}={fn.launches} "
+                    f"{'ok' if good else 'FAIL'}{'' if want_some else ' (must be 0)'}")
+    finally:
+        for k, v in saved.items():
+            if v is not None:
+                os.environ[k] = v
+    return ok
+
+
 def run_probe(device, counters):
     """Phase 7: the port's kernel probe in process, at full width and its
     default 4 windows, for the modes that run K9 (ffn), K10 (ffn8), K11
@@ -994,9 +1245,9 @@ def run_probe(device, counters):
         ok &= good
         if not good:
             log(f"probe measurement {rec.get('name')}: FAIL (not finite and positive)")
-    good = len(probe.results) == 31
+    good = len(probe.results) == 33
     ok &= good
-    log(f"probe: {len(probe.results)} measurements (want 31) {'ok' if good else 'FAIL'}")
+    log(f"probe: {len(probe.results)} measurements (want 33) {'ok' if good else 'FAIL'}")
     with torch.inference_mode():
         for b, s, d in FLASH_KERNEL_SHAPES:
             q = probe.randn(b, s, d)
@@ -1084,8 +1335,10 @@ def main() -> int:
         log(f"models: unet {n_params / 1e6:.1f}M params, init {time.time() - t0:.1f}s")
         good = check_unet(unet.eval(), device)
         good &= time_forwards(unet, device)
+        good &= check_unet_frames(unet, device)
         ok &= good
-        log(f"phase 3 (full-width UNet, four configurations): {'ok' if good else 'FAIL'}")
+        log(f"phase 3 (full-width UNet, four configurations; F = 24): "
+            f"{'ok' if good else 'FAIL'}")
 
         phase = "serving"
         pipeline = LipsyncPipeline(unet, vae, Audio2Feature(whisper), cfg,
@@ -1113,6 +1366,11 @@ def main() -> int:
         ok &= good
         log(f"phase 7 (kernel probe at full width: ffn, ffn8, spat, attn; K12's entry point): "
             f"{'ok' if good else 'FAIL'}")
+        phase = "onboarding"
+        good = check_onboarding(pipeline, vae, device, counters)
+        ok &= good
+        log(f"phase 8 (onboarding with the FAN face path on the card; a request without a "
+            f"bundle and one from the new bundle): {'ok' if good else 'FAIL'}")
         for k in kernels:
             if k["name"] in PROBE_PATH:
                 k["path"], k["launches"] = PROBE_PATH[k["name"]], probe_launches[k["name"]]

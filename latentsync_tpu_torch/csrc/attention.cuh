@@ -16,12 +16,12 @@ namespace ls_attn {
 // Temporal core (K3). Replaces the TPU kernel latentsync_tpu/ops/
 // temporal_attention.py _kernel (frame-major (F, heads) fold + block-
 // diagonal mask). Defined once, in temporal_attention.cu, on mma.sync
-// behind a cp.async ring (design and bound there). F = 16; any D % 8 == 0
-// whose ring fits shared memory.
+// behind a cp.async ring (design and bound there). 1 <= F <= 24; any
+// D % 8 == 0 whose ring fits shared memory.
 // ---------------------------------------------------------------------------
 
 cudaError_t temporal(const bf16* q, const bf16* k, const bf16* v, int ldq, int ldk, int ldv,
-                     bf16* o, int ldo, int batch, int heads, int d, float scale,
+                     bf16* o, int ldo, int batch, int frames, int heads, int d, float scale,
                      cudaStream_t s);
 
 // ---------------------------------------------------------------------------

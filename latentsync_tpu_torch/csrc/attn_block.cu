@@ -4,7 +4,8 @@
 // (pallas_call at attn_block.py:238), in both its temporal mode (16-frame
 // sequences, positional encoding added after the LN) and its spatial mode.
 //
-// Temporal mode (ls_temporal_block): one launch that keeps LN(x), q/k/v and
+// Temporal mode (ls_temporal_block, 1 <= F <= 24 frames a sequence): one
+// launch that keeps LN(x), q/k/v and
 // the attention output on chip, as the TPU kernel kept them in VMEM; at head
 // dim 80 (C = 640) the attention output goes to the scratch `attn` and the
 // output product to the GEMM template (design, traffic and bound:
@@ -22,13 +23,13 @@
 #include "attention.cuh"
 #include "temporal_block.cuh"
 
-extern "C" int ls_temporal_block(const void* x, int batch, int c, int inner, int heads,
-                                 const float* ln_w, const float* ln_b, float eps, const void* pe,
-                                 const void* wq, const void* wk, const void* wv, const void* wo,
-                                 const float* bo, float scale, void* attn, void* out,
-                                 void* stream) {
-  return (int)ls_tblock::temporal_block(x, batch, c, inner, heads, ln_w, ln_b, eps, pe, wq, wk,
-                                         wv, wo, bo, scale, attn, out,
+extern "C" int ls_temporal_block(const void* x, int batch, int frames, int c, int inner,
+                                 int heads, const float* ln_w, const float* ln_b, float eps,
+                                 const void* pe, const void* wq, const void* wk, const void* wv,
+                                 const void* wo, const float* bo, float scale, void* attn,
+                                 void* out, void* stream) {
+  return (int)ls_tblock::temporal_block(x, batch, frames, c, inner, heads, ln_w, ln_b, eps, pe,
+                                         wq, wk, wv, wo, bo, scale, attn, out,
                                          static_cast<cudaStream_t>(stream));
 }
 

@@ -49,8 +49,19 @@
 //     hidden chunk into a shared (double-buffered) hidden tile that both
 //     read; a ring stage holds one weight tile for each warpgroup; the two
 //     meet once a chunk and merge their row amax through shared memory.
-// Above 640 columns the result would need a third warpgroup's registers: the
-// kernel refuses such C. The row block's height is its FLOP per byte of
+//   - 640 < C <= 1280 (WIDE): the result of a row block would need four
+//     warpgroups' registers. So the output columns also split ACROSS blocks:
+//     a block owns 64 rows and one group of up to 640 output columns (ten
+//     64-column pieces), split between its two warpgroups as above; each
+//     group's block recomputes the whole hidden of its rows (the up-products
+//     run once a group). x of 64 rows at C = 1280 takes 160 KB of shared
+//     memory, so the biases stay in device memory (L1) and the ring has three
+//     stages. A block cannot see the other groups' row amax, so it writes its
+//     f32 result (with bd) to a scratch (M, C) buffer, and a row pass of this
+//     file (quantize_rows_kernel: one warp a row, the row's amax, then the
+//     codes and the scale, rounded as below) merges the groups. The wrapper
+//     allocates the scratch.
+// The row block's height is its FLOP per byte of
 // weights read from L2 (each row block reads all 24 C^2 bytes): 2.5 GB a call
 // at (131072, 320), 5.0 GB at (32768, 640). What the time goes to, by pieces
 // taken out (scripts/ffn8_pieces.py, PERF.md): the products take about a
@@ -59,7 +70,8 @@
 //
 // Bound: operations, 24 M C^2 FLOP on the tensor cores (0.326 ms at (131072,
 // 320) and at (32768, 640) on an NVIDIA H100 80GB HBM3 at 700 W); device
-// memory moves 2 M C bytes of codes.
+// memory moves 2 M C bytes of codes. WIDE does 40 M C^2 FLOP for the 24 of the
+// function (two groups at C = 1280) and moves the scratch twice more.
 #include <cuda.h>
 
 #include "gemm.cuh"
@@ -71,28 +83,33 @@ using namespace ls_wg;
 constexpr int THREADS = 384;           // a producer warpgroup, two consumer warpgroups
 constexpr int TILE = 64 * 128;         // a weight tile: 64 rows x 64 bf16 of K
 constexpr int NPW = 5;                 // 64-column pieces of the result a warpgroup holds
-constexpr int X_BYTES = 80 * 1024;     // dequantized x: 128 x 320 or 64 x 640 bf16
 constexpr int H_BYTES = 2 * TILE;      // hidden tiles (one a warpgroup, or two shared)
 constexpr int RED_BYTES = 2 * 64 * 4;  // the row amax of each warpgroup (SPLIT)
-constexpr int MAX_C = 640;
-constexpr int BIAS_BYTES = 9 * MAX_C * 4;  // b_up (8C) and b_dn (C), f32
-// chunks of 8 codes of x a consumer thread converts a row block, at most:
-// 64 rows x C / 8 over 128 threads (C <= 320) or 256 (C <= 640)
-constexpr int XCH = 64 * (MAX_C / 8) / 256;
+constexpr int GROUP_C = 640;           // output columns of a block, at most
+constexpr int MAX_C = 1280;
+// chunks of 8 codes of x a consumer thread converts at once: 64 rows x C / 8
+// over 128 threads (C <= 320) or 256 (C <= 640); WIDE takes two passes
+constexpr int XCH = 64 * (GROUP_C / 8) / 256;
 constexpr int MAX_STAGES = 16;  // ring stages, at most (a full and an empty mbarrier each)
 
-// SPLIT: the two warpgroups split the output columns (C > 320)
-template <bool SPLIT>
+// SPLIT: the two warpgroups split the output columns (C > 320); WIDE: the
+// blocks split them too, in groups of GROUP_C (C > 640)
+template <bool SPLIT, bool WIDE>
 struct Cfg {
   static constexpr int ROWS = SPLIT ? 64 : 128;  // rows of x a block owns
   static constexpr int TPS = SPLIT ? 2 : 1;      // weight tiles a ring stage
   static constexpr int STAGE_BYTES = TPS * TILE;
+  // dequantized x: 128 x 320, 64 x 640 or 64 x 1280 bf16
+  static constexpr int X_BYTES = WIDE ? 160 * 1024 : 80 * 1024;
+  // b_up (8C) and b_dn (C) in f32; WIDE reads them from device memory
+  static constexpr int BIAS_BYTES = WIDE ? 0 : 9 * GROUP_C * 4;
   static constexpr int FIXED =
       1024 + X_BYTES + H_BYTES + RED_BYTES + BIAS_BYTES + 2 * MAX_STAGES * 8;
   static constexpr int STAGES_FIT = (232448 - FIXED) / STAGE_BYTES;
   static constexpr int STAGES = STAGES_FIT < MAX_STAGES ? STAGES_FIT : MAX_STAGES;
   static constexpr int SMEM = FIXED + STAGES * STAGE_BYTES;
-  static_assert(STAGES >= 4 && SMEM <= 232448, "shared memory");
+  static_assert(STAGES >= (WIDE ? 3 : 4) && SMEM <= 232448 && (SPLIT || !WIDE),
+                "shared memory");
 };
 
 struct Args {
@@ -103,6 +120,7 @@ struct Args {
   const float* b_dn;  // (C)
   int8_t* out;
   float* out_scale;
+  float* res;  // WIDE: the f32 result (M, C), quantized by quantize_rows_kernel
 };
 
 __device__ __forceinline__ void mbar_init(unsigned bar, int count) {
@@ -154,23 +172,25 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-template <bool SPLIT>
+template <bool SPLIT, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
     geglu_i8_kernel(const Args p, const __grid_constant__ CUtensorMap tm_up,
                     const __grid_constant__ CUtensorMap tm_dn, int row_blocks) {
-  using K = Cfg<SPLIT>;
+  using K = Cfg<SPLIT, WIDE>;
   extern __shared__ unsigned char smem_raw[];
   const unsigned base = ((unsigned)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
   unsigned char* const gbase = smem_raw + (base - (unsigned)__cvta_generic_to_shared(smem_raw));
   const unsigned x_s = base;
-  const unsigned h_s = x_s + X_BYTES;
+  const unsigned h_s = x_s + K::X_BYTES;
   const unsigned ring = h_s + H_BYTES;
-  const int red_off = X_BYTES + H_BYTES + K::STAGES * K::STAGE_BYTES;
+  const int red_off = K::X_BYTES + H_BYTES + K::STAGES * K::STAGE_BYTES;
   float* red = reinterpret_cast<float*>(gbase + red_off);
-  float* const b_up = red + 2 * 64;  // the biases, read by every row block
-  float* const b_dn = b_up + 8 * MAX_C;
+  // the biases, read by every row block: in shared memory, or (WIDE) device memory
+  float* const b_up_s = red + 2 * 64;
+  const float* const b_up = WIDE ? p.b_up : b_up_s;
+  const float* const b_dn = WIDE ? p.b_dn : b_up_s + 8 * GROUP_C;
   // a "tiles landed" and a "stage free" mbarrier a stage
-  const unsigned full = base + red_off + RED_BYTES + BIAS_BYTES;
+  const unsigned full = base + red_off + RED_BYTES + K::BIAS_BYTES;
   const unsigned empty = full + 8 * MAX_STAGES;
 
   const int tid = threadIdx.x;
@@ -178,13 +198,22 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int inner = 4 * c;
   const int kt = (c + 63) >> 6;                // k-tiles of x (and of a value/gate row)
   const int np = kt;                           // 64-column pieces of the result
-  const int npw = SPLIT ? (np + 1) >> 1 : np;  // of a consumer warpgroup
   const int nsc = (inner + 63) >> 6;           // hidden chunks of 64 columns
   const int up_steps = SPLIT ? kt : 2 * kt;
-  const int per_sc = up_steps + npw;           // ring steps a chunk
+  // a block's units: a row block and (WIDE) a group of output pieces
+  const int groups = WIDE ? (np + GROUP_C / 64 - 1) / (GROUP_C / 64) : 1;
+  const int units = row_blocks * groups;
+  // the unit's first piece and the pieces each consumer warpgroup holds
+  auto group_first = [&](int u) { return WIDE ? (u % groups) * (GROUP_C / 64) : 0; };
+  auto group_npw = [&](int u) {
+    const int gnp = WIDE ? min(GROUP_C / 64, np - group_first(u)) : np;
+    return SPLIT ? (gnp + 1) >> 1 : gnp;
+  };
 
-  for (int i = tid; i < 2 * inner; i += THREADS) b_up[i] = p.b_up[i];
-  for (int i = tid; i < c; i += THREADS) b_dn[i] = p.b_dn[i];
+  if (!WIDE) {
+    for (int i = tid; i < 2 * inner; i += THREADS) b_up_s[i] = p.b_up[i];
+    for (int i = tid; i < c; i += THREADS) b_up_s[8 * GROUP_C + i] = p.b_dn[i];
+  }
   if (tid == 0) {
     for (int s = 0; s < K::STAGES; ++s) {
       mbar_init(full + 8 * s, 1);  // the producer's arrival, with the tiles' bytes
@@ -202,7 +231,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     int stage = 0;
     unsigned par = 0;
     long long step = 0;
-    for (int rb = blockIdx.x; rb < row_blocks; rb += gridDim.x) {
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int gp0 = group_first(u);
+      const int npw = group_npw(u);
+      const int per_sc = up_steps + npw;  // ring steps a chunk
       for (int sc = 0; sc < nsc; ++sc) {
         const int c0 = 64 * sc;
         for (int r = 0; r < per_sc; ++r, ++step) {
@@ -221,7 +253,7 @@ __global__ void __launch_bounds__(THREADS, 1)
               tma_load(dst + TILE / 2, &tm_up, 64 * kk, inner + hc0, bar);
             } else {
               // the rows of Wd (output columns) of the piece, the chunk's columns
-              const int piece = (SPLIT ? slot * npw : 0) + r - up_steps;
+              const int piece = gp0 + (SPLIT ? slot * npw : 0) + r - up_steps;
               tma_load(dst, &tm_dn, c0, 64 * piece, bar);
             }
           }
@@ -265,15 +297,18 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   };
 
-  for (int rb = blockIdx.x; rb < row_blocks; rb += gridDim.x) {
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int rb = WIDE ? u / groups : u;
+    const int gp0 = group_first(u);
+    const int npw = group_npw(u);
     // ---- x of the row block, dequantized once: bf16(code * scale); without
     // the split each warpgroup converts its own 64 rows. Every load of the
-    // thread's share (XCH chunks of 8 codes at most) is in flight before the
-    // first conversion ----
-    {
-      const int per_row = kt * 8;  // 8-code chunks a row, zeros past C
+    // thread's share of a pass (XCH chunks of 8 codes at most; one pass up to
+    // C = 640) is in flight before the first conversion ----
+    const int per_row = kt * 8;  // 8-code chunks a row, zeros past C
+    for (int pass = 0; pass * XCH * bar_threads < 64 * per_row; ++pass) {
       const int r0 = SPLIT ? 0 : 64 * wg;
-      const int first = SPLIT ? ct : ct - 128 * wg;
+      const int first = (SPLIT ? ct : ct - 128 * wg) + pass * XCH * bar_threads;
       uint2 codes[XCH];
       float scl[XCH];
 #pragma unroll
@@ -318,7 +353,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int c0 = 64 * sc;
       // the chunk's hidden tile: the warpgroup's own, or the shared one of this parity
       const int hbuf = SPLIT ? (sc & 1) : wg;
-      unsigned char* const h_gen = gbase + X_BYTES + hbuf * TILE;
+      unsigned char* const h_gen = gbase + K::X_BYTES + hbuf * TILE;
       // ---- up-projection and GEGLU, one or both halves of the chunk ----
       for (int hh = 0; hh < (SPLIT ? 1 : 2); ++hh) {
         const int half = SPLIT ? wg : hh;
@@ -374,14 +409,15 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
 
-    // ---- epilogue: + bd, row amax, codes and scales ----
+    // ---- epilogue: + bd, row amax, codes and scales (WIDE: + bd, the f32
+    // result to the scratch) ----
     const int row0 = rb * K::ROWS + (SPLIT ? 0 : wg * 64) + hrow;
     const int row1 = row0 + 8;
     float a0 = 0.f, a1 = 0.f;
 #pragma unroll
     for (int pc = 0; pc < NPW; ++pc) {
       if (pc < npw) {
-        const int n0 = 64 * ((SPLIT ? wg * npw : 0) + pc);
+        const int n0 = 64 * (gp0 + (SPLIT ? wg * npw : 0) + pc);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int col = n0 + 8 * j + 2 * t4;
@@ -394,10 +430,19 @@ __global__ void __launch_bounds__(THREADS, 1)
             r[3] += bd.y;
             a0 = fmaxf(a0, fmaxf(fabsf(r[0]), fabsf(r[1])));
             a1 = fmaxf(a1, fmaxf(fabsf(r[2]), fabsf(r[3])));
+            if (WIDE) {
+              if (row0 < p.m)
+                *reinterpret_cast<float2*>(p.res + (size_t)row0 * c + col) =
+                    make_float2(r[0], r[1]);
+              if (row1 < p.m)
+                *reinterpret_cast<float2*>(p.res + (size_t)row1 * c + col) =
+                    make_float2(r[2], r[3]);
+            }
           }
         }
       }
     }
+    if (WIDE) continue;  // the row pass quantizes
 #pragma unroll
     for (int x = 1; x < 4; x <<= 1) {
       a0 = fmaxf(a0, __shfl_xor_sync(LS_FULL_MASK, a0, x));
@@ -417,7 +462,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int pc = 0; pc < NPW; ++pc) {
       if (pc < npw) {
-        const int n0 = 64 * ((SPLIT ? wg * npw : 0) + pc);
+        const int n0 = 64 * (gp0 + (SPLIT ? wg * npw : 0) + pc);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int col = n0 + 8 * j + 2 * t4;
@@ -440,6 +485,34 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (row1 < p.m) p.out_scale[row1] = s1;
     }
   }
+}
+
+// WIDE's second pass: one warp a row of the f32 result, the row's amax, then
+// codes and scale as the one-launch epilogue rounds them
+__global__ void __launch_bounds__(256)
+    quantize_rows_kernel(const float* __restrict__ res, int m, int c, int8_t* __restrict__ out,
+                         float* __restrict__ out_scale) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (row >= m) return;
+  const float* r = res + (size_t)row * c;
+  float a = 0.f;
+  for (int i = 4 * lane; i < c; i += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(r + i);
+    a = fmaxf(a, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
+  }
+#pragma unroll
+  for (int x = 1; x < 32; x <<= 1) a = fmaxf(a, __shfl_xor_sync(LS_FULL_MASK, a, x));
+  const float sc = a / 127.0f + 1e-12f;
+  for (int i = 4 * lane; i < c; i += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(r + i);
+    *reinterpret_cast<char4*>(out + (size_t)row * c + i) =
+        make_char4((signed char)__float2int_rn(__fdiv_rn(v.x, sc)),
+                   (signed char)__float2int_rn(__fdiv_rn(v.y, sc)),
+                   (signed char)__float2int_rn(__fdiv_rn(v.z, sc)),
+                   (signed char)__float2int_rn(__fdiv_rn(v.w, sc)));
+  }
+  if (lane == 0) out_scale[row] = sc;
 }
 
 // cuTensorMapEncodeTiled, looked up through cudaGetDriverEntryPoint (no link to libcuda)
@@ -477,13 +550,13 @@ static bool weight_map(CUtensorMap* map, const void* ptr, int rows, int cols, in
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool SPLIT>
+template <bool SPLIT, bool WIDE>
 cudaError_t launch(const Args& a, const void* w_up, const void* w_dn, cudaStream_t s) {
-  using K = Cfg<SPLIT>;
+  using K = Cfg<SPLIT, WIDE>;
   alignas(64) CUtensorMap tm_up, tm_dn;
   if (!weight_map(&tm_up, w_up, 8 * a.c, a.c, 32) || !weight_map(&tm_dn, w_dn, a.c, 4 * a.c, 64))
     return cudaErrorInvalidValue;
-  cudaError_t e = ls_allow_smem(geglu_i8_kernel<SPLIT>, K::SMEM);
+  cudaError_t e = ls_allow_smem(geglu_i8_kernel<SPLIT, WIDE>, K::SMEM);
   if (e != cudaSuccess) return e;
   static int sms = 0;
   if (sms == 0) {
@@ -493,21 +566,31 @@ cudaError_t launch(const Args& a, const void* w_up, const void* w_dn, cudaStream
       return e;
   }
   const int row_blocks = (a.m + K::ROWS - 1) / K::ROWS;
-  const int blocks = row_blocks < sms ? row_blocks : sms;  // one block an SM
-  geglu_i8_kernel<SPLIT><<<blocks, THREADS, K::SMEM, s>>>(a, tm_up, tm_dn, row_blocks);
+  const int pieces = (a.c + 63) / 64;
+  const int units = row_blocks * (WIDE ? (pieces + GROUP_C / 64 - 1) / (GROUP_C / 64) : 1);
+  const int blocks = units < sms ? units : sms;  // one block an SM
+  geglu_i8_kernel<SPLIT, WIDE><<<blocks, THREADS, K::SMEM, s>>>(a, tm_up, tm_dn, row_blocks);
+  e = cudaGetLastError();
+  if (!WIDE || e != cudaSuccess) return e;
+  quantize_rows_kernel<<<(a.m + 7) / 8, 256, 0, s>>>(a.res, a.m, a.c, a.out, a.out_scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// `scratch`: (m, c) f32 for C > GROUP_C (the WIDE result), else unused
 extern "C" int ls_geglu_ffn_int8io(const void* xi, const float* xs, int m, int c, const void* w_up,
                                    const float* b_up, const void* w_down, const float* b_down,
-                                   void* out_codes, float* out_scales, void* stream) {
-  if (m < 0 || c <= 0 || c % 8 || c > MAX_C || (long long)m * c > 0x7fffffffLL)
+                                   void* out_codes, float* out_scales, float* scratch,
+                                   void* stream) {
+  if (m < 0 || c <= 0 || c % 8 || c > MAX_C || (long long)m * c > 0x7fffffffLL ||
+      (c > GROUP_C && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
   const Args a = {static_cast<const int8_t*>(xi), xs, m, c, b_up, b_down,
-                  static_cast<int8_t*>(out_codes), out_scales};
+                  static_cast<int8_t*>(out_codes), out_scales, scratch};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(c > 320 ? launch<true>(a, w_up, w_down, s) : launch<false>(a, w_up, w_down, s));
+  if (c > GROUP_C) return (int)launch<true, true>(a, w_up, w_down, s);
+  return (int)(c > 320 ? launch<true, false>(a, w_up, w_down, s)
+                       : launch<false, false>(a, w_up, w_down, s));
 }

@@ -1,5 +1,6 @@
 // K2 in temporal mode: the whole self-attention block, keeping q/k/v on chip
-//   out = x + Wo . SelfAttn_16 frames, per head(QKV(bf16(LN(x)) + pe)) + bo
+//   out = x + Wo . SelfAttn_F frames, per head(QKV(bf16(LN(x)) + pe)) + bo,
+//   1 <= F <= 24
 // Replaces latentsync_tpu/ops/attn_block.py _kernel in temporal mode
 // (pallas_call at attn_block.py:238), which kept LN(x), q/k/v and the
 // attention output in VMEM. The port's first version was a chain of four
@@ -13,10 +14,18 @@
 // probabilities go to the tensor cores as bf16, unnormalised (p <= 1), and
 // the row sum is taken over the f32 values.
 //
-// Design. Persistent blocks walk row tiles of whole 16-frame sequences, a
-// warpgroup 64 rows; warp w of a warpgroup owns rows 16w..16w+15: exactly
-// one sequence. Shared memory holds, all in the 128-byte swizzle of
-// wgmma.cuh (k-tiles of the tile's rows x 64 bf16):
+// Frames. Inside a row tile each sequence is padded to TS = 16 MT rows (MT
+// = 1 for F <= 16, 2 for 16 < F <= 24): tile row r is frame r % TS of
+// sequence (tile rows before it + r) / TS. The rows past F are zero-filled
+// when x is copied in, take no positional encoding, their keys get a logit
+// of -inf before the row max, and nothing is stored from them; x, out and
+// the attention output keep their B F real rows. At F = 16 the mapping is
+// the identity.
+//
+// Design. Persistent blocks walk row tiles of whole sequences, a warpgroup
+// 64 rows; warp w of a warpgroup owns rows 16w..16w+15: exactly one
+// sequence at MT = 1, half of one at MT = 2. Shared memory holds, all in
+// the 128-byte swizzle of wgmma.cuh (k-tiles of the tile's rows x 64 bf16):
 //   ln  the tile's x, copied in by cp.async, then normalised in place (LPR
 //       lanes a row, f32 two-pass statistics) into bf16 LN(x) + pe: the A
 //       operand of the q/k/v products;
@@ -36,6 +45,11 @@
 // the softmax stay in registers; p's accumulator tiles are the A fragment of
 // p v; v's 8 x 8 tiles are transposed in registers by movmatrix into p v's
 // B fragments. q/k/v reach neither device nor shared memory.
+// At MT = 2 a sequence spans two warps: a block is one warpgroup (64 rows,
+// two sequences), and each head's k and v rows go through a shared-memory
+// tile (rows padded to an odd number of 16-byte chunks) from which each warp
+// loads its sequence's 32 keys by ldmatrix, as K3 does
+// (temporal_attention.cu); q stays in registers.
 //
 // What bounds it (measured on an NVIDIA H100 80GB HBM3 at 700 W with pieces
 // taken out, PERF.md): one block an SM (221 KB) runs its phases one after
@@ -69,7 +83,7 @@ namespace ls_tblock {
 
 using namespace ls_wg;
 
-constexpr int TF = 16;           // frames of a sequence: one m16 tile
+constexpr int MAX_F = 24;        // frames of a sequence, at most (two m16 tiles)
 constexpr int RB = 128;          // bytes of a k-tile row: 64 bf16
 constexpr int VPL = 5;           // 16-byte vectors a lane in the LN pass
 constexpr int SMEM_MAX = 232448; // dynamic shared memory a block may have
@@ -92,14 +106,23 @@ struct Cfg<80> {
   static constexpr int NWG = 2, STAGES = 2, LPR = 16, NO = 0;
   static constexpr bool OUT = false;
 };
+// warpgroups a block at MT row tiles a sequence: one at MT = 2, where the
+// shared k / v tile takes the room of the second
+template <int D, int MT>
+__host__ __device__ constexpr int nwg() {
+  return MT == 1 ? Cfg<D>::NWG : 1;
+}
+// bytes between two rows of the MT = 2 k / v tile: D bf16 padded to an odd
+// number of 16-byte chunks
+__host__ __device__ constexpr int kv_row_bytes(int d) { return ((d / 8) | 1) * 16; }
 
 struct Args {
-  const bf16* x;  // (m, c), m = batch * 16
-  int m, c, inner, heads;
+  const bf16* x;  // (m, c), m = batch * f
+  int m, batch, f, c, inner, heads;
   const float* ln_w;
   const float* ln_b;
   float eps;
-  const bf16* pe;  // (16, c) or null
+  const bf16* pe;  // (f, c) or null
   const bf16* wq;  // (inner, c) each
   const bf16* wk;
   const bf16* wv;
@@ -120,6 +143,36 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d (16 x 8, f32) += a (16 x 8) x b (8 x 8): the tail k-step of D % 16 == 8
+__device__ __forceinline__ void mma1688(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
 // the 8 x 8 bf16 matrix held one pair a lane (lane 4g + t: row g, columns
 // 2t, 2t+1), transposed in the same layout
 __device__ __forceinline__ uint32_t transpose8x8(uint32_t v) {
@@ -136,10 +189,12 @@ __device__ __forceinline__ void mma_n(float (&d)[N / 2], uint64_t da, uint64_t d
   if constexpr (N == 240) wgmma_ss_n240(d, da, db, 1);
 }
 
-template <int D>
-__global__ void __launch_bounds__(128 * Cfg<D>::NWG, 1)
+template <int D, int MT>
+__global__ void __launch_bounds__(128 * nwg<D, MT>(), 1)
     temporal_block_kernel(const Args p, int tiles) {
-  constexpr int NWG = Cfg<D>::NWG;
+  constexpr int NWG = nwg<D, MT>();
+  constexpr int TS = 16 * MT;              // tile rows of a sequence
+  constexpr int KVB = kv_row_bytes(D);     // MT = 2: a row of the k / v tile
   constexpr int NO = Cfg<D>::NO;
   constexpr int STAGES = Cfg<D>::STAGES;
   constexpr bool OUT = Cfg<D>::OUT;
@@ -180,6 +235,15 @@ __global__ void __launch_bounds__(128 * Cfg<D>::NWG, 1)
   const int n_qkv = p.heads * ktc;
   const int n_out = OUT ? ((c + NO - 1) / NO) * kti : 0;
   const int per_tile = n_qkv + n_out;   // ring k-tiles a row tile consumes
+  const unsigned kv_off = ring_off + STAGES * STAGE_BYTES;  // MT = 2: k rows, then v rows
+
+  // the row of x / out that tile row r of row tile w holds, or -1 (a row
+  // past F, or a sequence past the batch); BM is a multiple of TS
+  auto grow = [&](int w, int r) {
+    const int fr = r % TS;
+    const int sq = (w * BM + r) / TS;
+    return fr < p.f && sq < p.batch ? sq * p.f + fr : -1;
+  };
 
   // byte offset of 16-byte chunk `i` (of a row's 8-column chunks) of row r
   // in the ln or o region
@@ -202,14 +266,14 @@ __global__ void __launch_bounds__(128 * Cfg<D>::NWG, 1)
     }
   }
 
-  // x of row tile w into the ln region (rows past M zero-filled); the copies
-  // join the next commit group of the ring
+  // x of row tile w into the ln region (rows past F or past the batch
+  // zero-filled); the copies join the next commit group of the ring
   auto load_x = [&](int w) {
     for (int idx = tid; idx < BM * vpr; idx += THREADS) {
       const int r = idx / vpr;
       const int i = idx - r * vpr;
-      const int row = w * BM + r;
-      const bool in_m = row < p.m;
+      const int row = grow(w, r);
+      const bool in_m = row >= 0;
       cp_async16z(base + at(ln_off, r, i), p.x + (in_m ? (size_t)row * c + 8 * i : 0),
                   in_m ? 16 : 0);
     }
@@ -322,7 +386,8 @@ __global__ void __launch_bounds__(128 * Cfg<D>::NWG, 1)
         }
       }
       const float rstd = rsqrtf(row_sum(sq) / c + p.eps);
-      const bf16* per = p.pe == nullptr ? nullptr : p.pe + (size_t)(r % TF) * c;
+      const int fr = r % TS;  // a row past F takes no positional encoding
+      const bf16* per = p.pe == nullptr || fr >= p.f ? nullptr : p.pe + (size_t)fr * c;
 #pragma unroll
       for (int j = 0; j < VPL; ++j) {
         const int i = sl + LPR * j;
@@ -358,7 +423,7 @@ __global__ void __launch_bounds__(128 * Cfg<D>::NWG, 1)
   uint32_t qa[KS][4];      // q k^T's A fragments
   uint32_t kb[2][KS][2];   // its B fragments, keys 0-7 and 8-15
   uint32_t vp[DT][2];      // v's 8 x 8 tiles, keys 0-7 and 8-15
-  uint32_t pa[4];          // the probabilities: p v's A fragment
+  uint32_t pa[MT][4];      // the probabilities: p v's A fragments, 16 keys each
   float inv0 = 0.f, inv1 = 0.f;
   auto pack = [&](const float (&acc)[NQ / 2]) {
 #pragma unroll
@@ -368,35 +433,88 @@ __global__ void __launch_bounds__(128 * Cfg<D>::NWG, 1)
       qa[kk][1] = pack_bf16(acc[4 * j0 + 2], acc[4 * j0 + 3]);
       qa[kk][2] = j1 < DT ? pack_bf16(acc[4 * j1], acc[4 * j1 + 1]) : 0u;
       qa[kk][3] = j1 < DT ? pack_bf16(acc[4 * j1 + 2], acc[4 * j1 + 3]) : 0u;
+      if constexpr (MT == 1) {
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {  // keys 8nt..8nt+7 are rows g (+ 8nt) of k
-        kb[nt][kk][0] = pack_bf16(acc[4 * (DT + j0) + 2 * nt], acc[4 * (DT + j0) + 2 * nt + 1]);
-        kb[nt][kk][1] = j1 < DT ? pack_bf16(acc[4 * (DT + j1) + 2 * nt],
-                                            acc[4 * (DT + j1) + 2 * nt + 1])
-                                : 0u;
+        for (int nt = 0; nt < 2; ++nt) {  // keys 8nt..8nt+7 are rows g (+ 8nt) of k
+          kb[nt][kk][0] =
+              pack_bf16(acc[4 * (DT + j0) + 2 * nt], acc[4 * (DT + j0) + 2 * nt + 1]);
+          kb[nt][kk][1] = j1 < DT ? pack_bf16(acc[4 * (DT + j1) + 2 * nt],
+                                              acc[4 * (DT + j1) + 2 * nt + 1])
+                                  : 0u;
+        }
       }
     }
+    if constexpr (MT == 1) {
 #pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      vp[j][0] = pack_bf16(acc[4 * (2 * DT + j)], acc[4 * (2 * DT + j) + 1]);
-      vp[j][1] = pack_bf16(acc[4 * (2 * DT + j) + 2], acc[4 * (2 * DT + j) + 3]);
+      for (int j = 0; j < DT; ++j) {
+        vp[j][0] = pack_bf16(acc[4 * (2 * DT + j)], acc[4 * (2 * DT + j) + 1]);
+        vp[j][1] = pack_bf16(acc[4 * (2 * DT + j) + 2], acc[4 * (2 * DT + j) + 3]);
+      }
+    } else {  // this warp's 16 rows of k and v into the shared tile, for both warps of the pair
+      const int kr = warp * 16 + g;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {
+          const float* a = acc + 4 * ((1 + kv) * DT + j);
+          unsigned char* at = gbase + kv_off + kv * BM * KVB + kr * KVB + (8 * j + 2 * t4) * 2;
+          *reinterpret_cast<uint32_t*>(at) = pack_bf16(a[0], a[1]);
+          *reinterpret_cast<uint32_t*>(at + 8 * KVB) = pack_bf16(a[2], a[3]);
+        }
+      }
+      __syncthreads();  // the pair's k / v rows are in place (the block is one warpgroup)
     }
   };
   auto piece = [&](auto pc, int h, int w) {
     constexpr int PC = decltype(pc)::value;
     if constexpr (PC > NJG) {
       return;
-    } else if constexpr (PC == 0) {  // logits and softmax of rows g and g + 8 over 16 keys
-      float s[2][4];
+    } else if constexpr (PC == 0) {  // logits and softmax of rows g and g + 8 over 16 MT keys
+      float s[2 * MT][4];
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
+      for (int nt = 0; nt < 2 * MT; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+      if constexpr (MT == 1) {
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk) mma16816(s[nt], qa[kk], kb[nt][kk][0], kb[nt][kk][1]);
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) mma16816(s[nt], qa[kk], kb[nt][kk][0], kb[nt][kk][1]);
+      } else {  // keys from the shared k tile: this warp's sequence starts at row 32 (warp / 2)
+        const unsigned ks = base + kv_off + (warp >> 1) * 32 * KVB;
+        const int b_row = (lane & 7) + (lane >> 4) * 8;
+        const int b_col = ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+          for (int kt = 0; kt < 2; ++kt) {
+            if (16 * kk + 16 <= D) {
+              uint32_t b[4];
+              ldsm_x4(b, ks + (16 * kt + b_row) * KVB + (16 * kk + b_col) * 2);
+              mma16816(s[2 * kt], qa[kk], b[0], b[1]);
+              mma16816(s[2 * kt + 1], qa[kk], b[2], b[3]);
+            } else {  // D % 16 == 8: the last k-step is 8 deep
+              uint32_t b[2];
+              ldsm_x2(b, ks + (16 * kt + (lane & 15)) * KVB + 16 * kk * 2);
+              mma1688(s[2 * kt], qa[kk][0], qa[kk][1], b[0]);
+              mma1688(s[2 * kt + 1], qa[kk][0], qa[kk][1], b[1]);
+            }
+          }
+        }
       }
-      float m0 = fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1]));
-      float m1 = fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3]));
+      if (p.f < TS) {  // keys past F take no part
+#pragma unroll
+        for (int nt = 0; nt < 2 * MT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (8 * nt + 2 * t4 + (e & 1) >= p.f) s[nt][e] = -INFINITY;
+      }
+      float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 2 * MT; ++nt) {
+        m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
+        m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
+      }
 #pragma unroll
       for (int o = 1; o < 4; o <<= 1) {
         m0 = fmaxf(m0, __shfl_xor_sync(LS_FULL_MASK, m0, o));
@@ -404,7 +522,7 @@ __global__ void __launch_bounds__(128 * Cfg<D>::NWG, 1)
       }
       float l0 = 0.f, l1 = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
+      for (int nt = 0; nt < 2 * MT; ++nt) {
         s[nt][0] = __expf((s[nt][0] - m0) * p.scale);
         s[nt][1] = __expf((s[nt][1] - m0) * p.scale);
         s[nt][2] = __expf((s[nt][2] - m1) * p.scale);
@@ -419,11 +537,14 @@ __global__ void __launch_bounds__(128 * Cfg<D>::NWG, 1)
       }
       inv0 = 1.f / l0;
       inv1 = 1.f / l1;
-      // the two 8-key tiles of p are one 16-deep A fragment
-      pa[0] = pack_bf16(s[0][0], s[0][1]);
-      pa[1] = pack_bf16(s[0][2], s[0][3]);
-      pa[2] = pack_bf16(s[1][0], s[1][1]);
-      pa[3] = pack_bf16(s[1][2], s[1][3]);
+      // two 8-key tiles of p are one 16-deep A fragment
+#pragma unroll
+      for (int kq = 0; kq < MT; ++kq) {
+        pa[kq][0] = pack_bf16(s[2 * kq][0], s[2 * kq][1]);
+        pa[kq][1] = pack_bf16(s[2 * kq][2], s[2 * kq][3]);
+        pa[kq][2] = pack_bf16(s[2 * kq + 1][0], s[2 * kq + 1][1]);
+        pa[kq][3] = pack_bf16(s[2 * kq + 1][2], s[2 * kq + 1][3]);
+      }
     } else {  // o's 8-column tiles 4(PC-1) .. 4(PC-1)+3
       constexpr int J0 = 4 * (PC - 1);
       constexpr int JN = DT - J0 < 4 ? DT - J0 : 4;  // tiles of this group
@@ -432,7 +553,17 @@ __global__ void __launch_bounds__(128 * Cfg<D>::NWG, 1)
 #pragma unroll
       for (int jj = 0; jj < JN; ++jj) {
         float o[4] = {0.f, 0.f, 0.f, 0.f};
-        mma16816(o, pa, transpose8x8(vp[J0 + jj][0]), transpose8x8(vp[J0 + jj][1]));
+        if constexpr (MT == 1) {
+          mma16816(o, pa[0], transpose8x8(vp[J0 + jj][0]), transpose8x8(vp[J0 + jj][1]));
+        } else {  // v's B fragments from the shared v tile, 16 keys a step
+          const unsigned vs = base + kv_off + BM * KVB + (warp >> 1) * 32 * KVB;
+#pragma unroll
+          for (int kq = 0; kq < 2; ++kq) {
+            uint32_t b[2];
+            ldsm_x2_t(b, vs + (16 * kq + (lane & 15)) * KVB + 16 * (J0 + jj));
+            mma16816(o, pa[kq], b[0], b[1]);
+          }
+        }
         lo[jj] = pack_bf16(o[0] * inv0, o[1] * inv0);
         hi[jj] = pack_bf16(o[2] * inv1, o[3] * inv1);
         if (OUT) {  // into the o region: A of the output product
@@ -444,14 +575,15 @@ __global__ void __launch_bounds__(128 * Cfg<D>::NWG, 1)
       if (!OUT) {  // to device memory, 16 bytes a lane after a quad transpose
         ls_gemm::quad_transpose(lo, t4);
         ls_gemm::quad_transpose(hi, t4);
-        const int row0 = w * BM + orow;
+        const int row0 = grow(w, orow);
+        const int row1 = grow(w, orow + 8);
         if (J0 + t4 < DT) {
           const size_t col = (size_t)h * D + 8 * (J0 + t4);
-          if (row0 < p.m)
+          if (row0 >= 0)
             *reinterpret_cast<uint4*>(p.o + (size_t)row0 * p.inner + col) =
                 make_uint4(lo[0], lo[1], lo[2], lo[3]);
-          if (row0 + 8 < p.m)
-            *reinterpret_cast<uint4*>(p.o + (size_t)(row0 + 8) * p.inner + col) =
+          if (row1 >= 0)
+            *reinterpret_cast<uint4*>(p.o + (size_t)row1 * p.inner + col) =
                 make_uint4(hi[0], hi[1], hi[2], hi[3]);
         }
       }
@@ -490,8 +622,8 @@ __global__ void __launch_bounds__(128 * Cfg<D>::NWG, 1)
     if constexpr (OUT) {
       // ---- output product, bias and residual; the next tile's x starts
       // into the ln region, which it leaves alone ----
-      const int row0 = w * BM + wg * 64 + warp * 16 + g;
-      const int row1 = row0 + 8;
+      const int row0 = grow(w, wg * 64 + warp * 16 + g);
+      const int row1 = grow(w, wg * 64 + warp * 16 + g + 8);
       for (int nc = 0; nc * NO < c; ++nc) {
         const int n0 = nc * NO;
         // the accumulators start at the residual plus the bias (f32), so the
@@ -504,12 +636,12 @@ __global__ void __launch_bounds__(128 * Cfg<D>::NWG, 1)
           if (col < c) {
             const float2 bv = *reinterpret_cast<const float2*>(p.bo + col);
             v0 = v1 = bv;
-            if (row0 < p.m) {
+            if (row0 >= 0) {
               const float2 rv = __bfloat1622float2(
                   *reinterpret_cast<const bf162*>(p.x + (size_t)row0 * c + col));
               v0.x += rv.x; v0.y += rv.y;
             }
-            if (row1 < p.m) {
+            if (row1 >= 0) {
               const float2 rv = __bfloat1622float2(
                   *reinterpret_cast<const bf162*>(p.x + (size_t)row1 * c + col));
               v1.x += rv.x; v1.y += rv.y;
@@ -543,10 +675,10 @@ __global__ void __launch_bounds__(128 * Cfg<D>::NWG, 1)
           ls_gemm::quad_transpose(hi, t4);
           const int col8 = n0 + 8 * (4 * q + t4);
           if (col8 < c) {
-            if (row0 < p.m)
+            if (row0 >= 0)
               *reinterpret_cast<uint4*>(p.out + (size_t)row0 * c + col8) =
                   make_uint4(lo[0], lo[1], lo[2], lo[3]);
-            if (row1 < p.m)
+            if (row1 >= 0)
               *reinterpret_cast<uint4*>(p.out + (size_t)row1 * c + col8) =
                   make_uint4(hi[0], hi[1], hi[2], hi[3]);
           }
@@ -562,16 +694,16 @@ __global__ void __launch_bounds__(128 * Cfg<D>::NWG, 1)
   cp_async_wait<0>();  // no copy is left in flight when the block ends
 }
 
-template <int D>
+template <int D, int MT>
 cudaError_t launch(const Args& p, cudaStream_t s) {
-  constexpr int BM = 64 * Cfg<D>::NWG;
+  constexpr int BM = 64 * nwg<D, MT>();
   constexpr int NS = Cfg<D>::NO > 3 * D ? Cfg<D>::NO : 3 * D;
   const int ktc = (p.c + 63) / 64;
   const int kti = Cfg<D>::OUT ? (p.inner + 63) / 64 : 0;
-  const long long smem =
-      (long long)(ktc + kti) * BM * RB + (long long)Cfg<D>::STAGES * NS * RB + 1024;
+  const long long smem = (long long)(ktc + kti) * BM * RB + (long long)Cfg<D>::STAGES * NS * RB +
+                         (MT == 2 ? 2LL * BM * kv_row_bytes(D) : 0LL) + 1024;
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-  cudaError_t e = ls_allow_smem(temporal_block_kernel<D>, (size_t)smem);
+  cudaError_t e = ls_allow_smem(temporal_block_kernel<D, MT>, (size_t)smem);
   if (e != cudaSuccess) return e;
   static int sms = 0;
   if (sms == 0) {
@@ -580,9 +712,9 @@ cudaError_t launch(const Args& p, cudaStream_t s) {
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
       return e;
   }
-  const int tiles = (p.m + BM - 1) / BM;
+  const int tiles = (p.batch * 16 * MT + BM - 1) / BM;
   const int blocks = tiles < sms ? tiles : sms;
-  temporal_block_kernel<D><<<blocks, 128 * Cfg<D>::NWG, (size_t)smem, s>>>(p, tiles);
+  temporal_block_kernel<D, MT><<<blocks, 128 * nwg<D, MT>(), (size_t)smem, s>>>(p, tiles);
   if ((e = cudaGetLastError()) != cudaSuccess || Cfg<D>::OUT) return e;
   // D = 80: the output product, bias and residual on the GEMM template
   ls_gemm::Args o = {};
@@ -608,28 +740,33 @@ static inline int max_c(int d) {
 
 // K2's temporal mode: one launch at head dim 40 (C up to 320), two at 80 (C
 // up to 640: this kernel, then the output product on the GEMM template,
-// p.o its scratch); inner = heads * D, C a multiple of 8 (and what shared
-// memory holds); refused otherwise.
+// p.o its scratch); 1 <= F <= 24, inner = heads * D, C a multiple of 8 (and
+// what shared memory holds); refused otherwise.
 static inline cudaError_t temporal_block(const Args& p, cudaStream_t s) {
-  if (p.m <= 0 || p.m % TF || p.c <= 0 || p.c % 8 || p.heads <= 0 || p.inner % p.heads ||
-      (long long)p.m * p.c > 0x7fffffffLL || (long long)p.m * p.inner > 0x7fffffffLL)
+  if (p.batch <= 0 || p.f < 1 || p.f > MAX_F || p.m != p.batch * p.f || p.c <= 0 || p.c % 8 ||
+      p.heads <= 0 || p.inner % p.heads || (long long)p.batch * 32 * p.c > 0x7fffffffLL ||
+      (long long)p.m * p.inner > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   const int d = p.inner / p.heads;
   if (p.c > max_c(d)) return cudaErrorInvalidValue;
-  if (d == 40) return launch<40>(p, s);
-  if (p.o != nullptr) return launch<80>(p, s);
+  const bool two = p.f > 16;
+  if (d == 40) return two ? launch<40, 2>(p, s) : launch<40, 1>(p, s);
+  if (d == 80 && p.o != nullptr) return two ? launch<80, 2>(p, s) : launch<80, 1>(p, s);
   return cudaErrorInvalidValue;
 }
 
 // The same from the entry point's flat arguments (ls_temporal_block)
-static inline cudaError_t temporal_block(const void* x, int batch, int c, int inner, int heads,
+static inline cudaError_t temporal_block(const void* x, int batch, int frames, int c, int inner,
+                                         int heads,
                                          const float* ln_w, const float* ln_b, float eps,
                                          const void* pe, const void* wq, const void* wk,
                                          const void* wv, const void* wo, const float* bo,
                                          float scale, void* attn, void* out, cudaStream_t s) {
   Args p = {};
   p.x = static_cast<const bf16*>(x);
-  p.m = batch * TF;
+  p.m = batch * frames;
+  p.batch = batch;
+  p.f = frames;
   p.c = c;
   p.inner = inner;
   p.heads = heads;

@@ -39,9 +39,9 @@ _SIGNATURES = {
     "ls_attn_block_max_c": [_I, _I],
     "ls_attn_block": [_P, _I, _I, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P,
                       _F, _P, _P, _P, _P, _P],
-    "ls_temporal_block": [_P, _I, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P, _F,
+    "ls_temporal_block": [_P, _I, _I, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P, _F,
                           _P, _P, _P],
-    "ls_temporal_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _P],
+    "ls_temporal_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F, _P],
     "ls_spatial_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F,
                              _I, _P],
     "ls_flash_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _P],
@@ -51,7 +51,7 @@ _SIGNATURES = {
     "ls_group_norm_silu_streaming": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "ls_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     "ls_qkv_proj": [*[_P] * 7, _I, _I, _I, _P],
-    "ls_geglu_ffn_int8io": [_P, _P, _I, _I, *[_P] * 7],
+    "ls_geglu_ffn_int8io": [_P, _P, _I, _I, *[_P] * 8],
     "ls_oneshot_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "ls_flash_kernel": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }

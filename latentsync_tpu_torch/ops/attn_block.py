@@ -4,7 +4,8 @@ Counterpart of ``latentsync_tpu/ops/attn_block.py``.
 
 ``self_attention_block`` (K2) on a CUDA tensor routes like the
 reference: where the TPU ran its fused block kernel (temporal mode at
-C = 320 and 640, spatial mode at S ≤ 256 with C = 640), it launches
+C = 320 and 640 with 8 ≤ F ≤ 24 frames, spatial mode at S ≤ 256 with
+C = 640), it launches
 ``csrc/attn_block.cu``: one kernel in temporal mode (two at C = 640), a
 chain of four in spatial mode; where the reference's weight or
 VMEM budget sent the block to its composed lowering (C = 1280, and
@@ -43,7 +44,7 @@ from . import _build
 from .attention import dot_product_attention, dot_product_attention_reference
 from .ffn import layer_norm_f32, linear
 from .temporal_attention import (
-    TEMPORAL_FRAMES,
+    TEMPORAL_MAX_FRAMES,
     spatial_attention,
     spatial_attention_reference,
     temporal_attention,
@@ -70,11 +71,20 @@ def fused_attn_block_enabled() -> bool:
     return os.environ.get("LATENTSYNC_FUSED_ATTN", "1") != "0"
 
 
-def fused_route(s: int, c: int, inner: int, temporal: bool) -> bool:
-    """Whether the reference ran this block as its fused TPU kernel."""
-    if (3 * c * inner + inner * c) * 2 > _FUSED_WEIGHT_BYTES:
+def fused_route(s: int, c: int, inner: int, temporal: bool, heads: int = 8) -> bool:
+    """Whether the reference ran this block as its fused TPU kernel
+    (``attn_block.py:455-465``): its weight budget, and in temporal mode
+    ``8 <= F``, ``F * heads <= 512`` and a batch block whose VMEM estimate
+    fits 6 MB (``_pick_block``: the estimate grows with the block, so one
+    sequence a block decides it). `heads` defaults to the UNet's 8."""
+    weights = (3 * c * inner + inner * c) * 2
+    if weights > _FUSED_WEIGHT_BYTES:
         return False
-    return temporal or s <= _FUSED_SPATIAL_MAX_S
+    if not temporal:
+        return s <= _FUSED_SPATIAL_MAX_S
+    t = s * heads
+    vmem = weights + s * c * 6 + 3 * s * inner * 4 + s * inner * 2 + t * t * 8
+    return 8 <= s and t <= 512 and vmem <= 6 * 2**20
 
 
 def cross_fused_route(b: int, s: int, sk: int, c: int, cc: int, inner: int) -> bool:
@@ -141,12 +151,25 @@ def self_attention_block(x: torch.Tensor, ln_scale, ln_bias, wq, wk, wv, wo, bo,
             pe=pe, eps=eps)
     b, s, c = x.shape
     inner = wq.shape[0]
-    if not fused_route(s, c, inner, temporal):
+    if not fused_route(s, c, inner, temporal, heads):
         return self_attention_composed(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads,
                                        temporal=temporal, pe=pe, eps=eps)
+    return self_attention_block_fused(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads,
+                                      temporal=temporal, pe=pe, eps=eps)
+
+
+def self_attention_block_fused(x: torch.Tensor, ln_scale, ln_bias, wq, wk, wv, wo, bo,
+                               heads: int, *, temporal: bool = False,
+                               pe: Optional[torch.Tensor] = None,
+                               eps: float = 1e-6) -> torch.Tensor:
+    """K2's kernels on a CUDA tensor, whatever the route: what
+    ``self_attention_block`` launches on the fused route (its count goes up
+    here); raises for a shape they do not take (temporal mode: 1 <= F <= 24)."""
+    b, s, c = x.shape
+    inner = wq.shape[0]
     d = inner // heads
-    if c % 8 or d % 8 or inner != heads * d or (temporal and s != TEMPORAL_FRAMES) \
-            or c > block_max_c(temporal, d):
+    frames_ok = not temporal or 1 <= s <= TEMPORAL_MAX_FRAMES
+    if c % 8 or d % 8 or inner != heads * d or not frames_ok or c > block_max_c(temporal, d):
         raise ValueError(f"self_attention_block: no kernel for S={s}, C={c}, "
                          f"inner={inner}, heads={heads}, temporal={temporal}")
     dt = x.dtype
@@ -166,7 +189,7 @@ def self_attention_block(x: torch.Tensor, ln_scale, ln_bias, wq, wk, wv, wo, bo,
         # output product (csrc/temporal_block.cuh)
         attn = torch.empty((b * s, inner), device=dev, dtype=dt) if d == 80 else None
         _build.call(
-            "ls_temporal_block", x.data_ptr(), b, c, inner, heads, ln_w.data_ptr(),
+            "ls_temporal_block", x.data_ptr(), b, s, c, inner, heads, ln_w.data_ptr(),
             ln_b.data_ptr(), eps, _build.ptr(pe_b), w_q.data_ptr(), w_k.data_ptr(),
             w_v.data_ptr(), w_o.data_ptr(), b_o.data_ptr(), scale, _build.ptr(attn),
             out.data_ptr(), _build.stream(x))

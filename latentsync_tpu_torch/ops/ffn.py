@@ -33,9 +33,12 @@ import torch.nn.functional as F
 
 from . import _build
 
-# the widest C of K10's one-launch kernel: its f32 result must fit the
-# registers of two warpgroups (csrc/geglu_i8.cu)
-GEGLU_I8_MAX_C = 640
+# the widest C of K10 (csrc/geglu_i8.cu): one launch up to
+# GEGLU_I8_GROUP_C, whose f32 result fits the registers of two warpgroups;
+# above it the blocks split the output columns, write the f32 result to a
+# scratch buffer, and a row pass of the same file quantizes it
+GEGLU_I8_MAX_C = 1280
+GEGLU_I8_GROUP_C = 640
 # rows the wrappers take; the GEMM template itself refuses a product whose
 # row offsets (rows x pitch) pass 32 bits, and the wrapper then raises
 _MAX_ROWS = 65535 * 128
@@ -206,8 +209,10 @@ def geglu_ffn_int8io(x_i8: torch.Tensor, x_scale: torch.Tensor, w_up, b_up, w_do
     """(x_i8 (M, C) int8, x_scale (M, 1) f32) → (out_i8 (M, C), out_scale
     (M, 1)): GEGLU on rowwise-quantized activations, weights in bf16
     (layouts as ``geglu_ffn``). The output feeds the next call as it is.
-    On the card: one launch that keeps x, the hidden and the f32 result on
-    chip, for C % 8 == 0 up to ``GEGLU_I8_MAX_C``."""
+    On the card, for C % 8 == 0: one launch that keeps x, the hidden and the
+    f32 result on chip up to ``GEGLU_I8_GROUP_C``; up to ``GEGLU_I8_MAX_C``
+    the column-split launch writes its f32 result to a scratch buffer that
+    the row pass quantizes."""
     if x_i8.device.type == "cpu":
         return geglu_ffn_int8io_reference(x_i8, x_scale, w_up, b_up, w_down, b_down)
     if x_i8.dim() != 2:
@@ -236,9 +241,10 @@ def geglu_ffn_int8io(x_i8: torch.Tensor, x_scale: torch.Tensor, w_up, b_up, w_do
                       dtypes=(i8, f32, bf, f32, bf, f32, i8, f32))
     if m == 0:
         return out, out_scale
+    res = torch.empty((m, c), device=dev, dtype=f32) if c > GEGLU_I8_GROUP_C else None
     _build.call("ls_geglu_ffn_int8io", x_i8.data_ptr(), xs.data_ptr(), m, c, w_up.data_ptr(),
                 b_up.data_ptr(), w_down.data_ptr(), b_down.data_ptr(), out.data_ptr(),
-                out_scale.data_ptr(), _build.stream(x_i8))
+                out_scale.data_ptr(), _build.ptr(res), _build.stream(x_i8))
     geglu_ffn_int8io.launches += 1
     return out, out_scale
 

@@ -2,8 +2,8 @@
 
 Counterparts of ``latentsync_tpu/ops/temporal_attention.py``:
 
-- ``temporal_attention``: attention across the F = 16 frames of each
-  sequence (``csrc/temporal_attention.cu``);
+- ``temporal_attention``: attention across the F frames of each
+  sequence, 1 <= F <= 24 (``csrc/temporal_attention.cu``);
 - ``spatial_attention``: per-head attention over the S tokens of each
   frame, any S ≥ 1, head dims 40, 80 and 160
   (``csrc/spatial_attention.cu`` on the ``wgmma`` core of
@@ -27,7 +27,9 @@ import torch
 from . import _build
 from .attention import dot_product_attention_reference
 
-TEMPORAL_FRAMES = 16
+# frames of a sequence the temporal kernels take, at most (two m16 row tiles;
+# the motion modules' positional encoding has 24 rows)
+TEMPORAL_MAX_FRAMES = 24
 SPATIAL_HEAD_DIMS = (40, 80, 160)
 # query rows a block of the spatial kernel can own (a warpgroup owns 64)
 SPATIAL_BLOCK_QS = (64, 128)
@@ -71,19 +73,20 @@ def spatial_block_q(s: int) -> int:
 
 def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        heads: int, scale: Optional[float] = None) -> torch.Tensor:
-    """q, k, v: (B, F=16, heads·D) → (B, F, heads·D)."""
+    """q, k, v: (B, F, heads·D) → (B, F, heads·D), 1 ≤ F ≤ 24 on the card."""
     if q.device.type == "cpu":
         return temporal_attention_reference(q, k, v, heads, scale)
     b, f, hd = q.shape
     d = hd // heads
-    if f != TEMPORAL_FRAMES or d % 8 or hd != heads * d:
-        raise ValueError(f"temporal_attention: needs F=16 and D % 8 == 0, got F={f}, D={d}")
+    if not 1 <= f <= TEMPORAL_MAX_FRAMES or d % 8 or hd != heads * d:
+        raise ValueError(f"temporal_attention: needs 1 <= F <= {TEMPORAL_MAX_FRAMES} and "
+                         f"D % 8 == 0, got F={f}, D={d}")
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     o = torch.empty(q.shape, device=q.device, dtype=q.dtype)
     _build.check_cuda("temporal_attention", q, k, v, o)
     _build.call("ls_temporal_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 _rows(q, "q"), _rows(k, "k"), _rows(v, "v"), o.data_ptr(), _rows(o, "o"),
-                b, heads, d, scale, _build.stream(q))
+                b, f, heads, d, scale, _build.stream(q))
     temporal_attention.launches += 1
     return o
 

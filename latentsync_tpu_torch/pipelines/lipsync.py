@@ -1,8 +1,12 @@
 """LipsyncPipeline: avatar video + audio in → lip-synced video out.
 
-Counterpart of ``latentsync_tpu/pipelines/lipsync.py`` on the serving
-path (``data_path`` = a precomputed ``{faces, boxes, affine_matrices}``
-bundle) at reference semantics: 16-frame windows denoised in batches
+Counterpart of ``latentsync_tpu/pipelines/lipsync.py`` at reference
+semantics. A request names an avatar video and either a precomputed
+``{faces, boxes, affine_matrices}`` bundle (``data_path``; with the
+``_latents.npz`` artifact of ``precompute_avatar_latents`` beside it, the
+VAE encode is skipped) or none, and then the FAN face path aligns every
+frame (``ImageProcessor.affine_transform_batch``, the landmark model on the
+pipeline's device). Then: 16-frame windows denoised in batches
 with classifier-free guidance folded into the batch (unconditional =
 zero audio first, conditional second), DDIM, one noise frame shared by
 every frame, VAE decode, mouth composite and the host inverse-warp
@@ -26,20 +30,20 @@ current stream and read once, after the request's last fetch: no
 synchronisation is added inside the request. The reference's int8 switches (``LATENTSYNC_INT8``,
 ``LATENTSYNC_INT8_DENSE``) are read by the models at each call, so one
 pipeline serves whichever configuration the environment names at that
-call. Not ported yet: face detection (requests without a bundle raise),
-DeepCache and the CFG interval (their switches raise rather than serve
-another operating point), the onboarding latent artifact, and
-``run_pipelined``.
+call. Not ported yet: DeepCache and the CFG interval (their switches raise
+rather than serve another operating point) and ``run_pipelined``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import os
 import queue
 import tempfile
 import threading
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -144,12 +148,17 @@ def _fetched(piece) -> np.ndarray:
 
 
 class LipsyncPipeline:
-    def __init__(self, unet: UNet3DConditionModel, vae: AutoencoderKL,
-                 audio_encoder: Audio2Feature,
+    def __init__(self, unet: Optional[UNet3DConditionModel], vae: AutoencoderKL,
+                 audio_encoder: Optional[Audio2Feature],
                  config: LatentSyncConfig = LatentSyncConfig(),
                  dtype: torch.dtype = torch.bfloat16,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, landmark_detector=None):
+        """`landmark_detector`: the face path's landmark source; by default
+        ``ImageProcessor``'s (the FAN on this pipeline's device). `unet` and
+        `audio_encoder` may be None for a pipeline that only onboards
+        (``precompute_avatar_latents``); it serves no request."""
         self.config = config
+        self.landmark_detector = landmark_detector
         self.dtype = dtype
         # the pipeline runs on the card unless the caller asks for another
         # device: models built on the CPU are moved, never followed there
@@ -157,9 +166,10 @@ class LipsyncPipeline:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("LipsyncPipeline: no CUDA device (torch.cuda.is_available() is "
                                "false); pass device='cpu' to run on the CPU")
-        self.unet = unet.to(self.device, dtype).eval()
+        self.unet = None if unet is None else unet.to(self.device, dtype).eval()
         self.vae = vae.to(self.device, dtype).eval()
-        audio_encoder.model.to(self.device)
+        if audio_encoder is not None:
+            audio_encoder.model.to(self.device)
         self.audio_encoder = audio_encoder
         self.scheduler = DDIMScheduler.create(config.scheduler)
         # build the paste-back library now: a missing toolchain fails here,
@@ -186,18 +196,24 @@ class LipsyncPipeline:
             end.record()
             events.setdefault(name, []).append((start, end))
 
+    def _processor(self, res: int, mask_image) -> ImageProcessor:
+        return ImageProcessor(res, mask=self.config.data.mask, mask_image=mask_image,
+                              landmark_detector=self.landmark_detector, device=self.device)
+
     @torch.inference_mode()
     def _vae_encode_pair(self, faces_u8: np.ndarray, keep: np.ndarray, chunk: int = 64):
-        """uint8 faces (N, H, W, 3) + KEEP mask (1, H, W, 3) → scaled
-        (masked_latents, ref_latents), each (N, h, w, 4) float32."""
+        """uint8 faces (N, H, W, 3) + KEEP mask, (1, H, W, C) shared by the
+        clip or (N, H, W, C) one a frame → scaled (masked_latents,
+        ref_latents), each (N, h, w, 4) float32."""
         cfg = self.config.vae
         m = torch.from_numpy(np.ascontiguousarray(keep)).to(self.device).permute(0, 3, 1, 2)
         zms, zrs = [], []
         for i in range(0, len(faces_u8), chunk):
             f = torch.from_numpy(faces_u8[i:i + chunk]).to(self.device)
             pix = (f.float() / 255.0 * 2.0 - 1.0).permute(0, 3, 1, 2)
+            mk = m if m.shape[0] == 1 else m[i:i + chunk]
             zr = scale_latents(self.vae.encode(pix.to(self.dtype)), cfg)
-            zm = scale_latents(self.vae.encode((pix * m).to(self.dtype)), cfg)
+            zm = scale_latents(self.vae.encode((pix * mk).to(self.dtype)), cfg)
             zms.append(zm.float().permute(0, 2, 3, 1))
             zrs.append(zr.float().permute(0, 2, 3, 1))
         return torch.cat(zms), torch.cat(zrs)
@@ -245,10 +261,12 @@ class LipsyncPipeline:
                 video_fps: int = 25, audio_sample_rate: int = 16000, seed: int = 1247,
                 mask_image_path: Optional[str] = None, data_path: Optional[str] = None,
                 height: Optional[int] = None) -> JobState:
-        """Stages 1-4: bundle faces, audio features, VAE encodes, shared noise."""
-        if not data_path:
-            raise NotImplementedError(
-                "face detection is not ported yet: pass data_path, an affine bundle")
+        """Stages 1-4: faces (the bundle's, or the face path's), audio
+        features, VAE encodes (or the bundle's latent artifact), shared
+        noise."""
+        if self.unet is None or self.audio_encoder is None:
+            raise RuntimeError("LipsyncPipeline: built without a UNet or an audio encoder, it "
+                               "only onboards (precompute_avatar_latents)")
         t_start = time.time()
         cfg = self.config
         res = height or cfg.data.resolution
@@ -256,9 +274,15 @@ class LipsyncPipeline:
 
         t0 = time.time()
         mask_image = load_fixed_mask(res, mask_image_path)
-        processor = ImageProcessor(res, mask=cfg.data.mask, mask_image=mask_image)
-        faces, boxes, matrices = load_affine_bundle(data_path)
-        frames = read_video(video_path, change_fps=False)
+        processor = self._processor(res, mask_image)
+        stored_latents = None
+        if data_path:
+            faces, boxes, matrices = load_affine_bundle(data_path)
+            frames = read_video(video_path, change_fps=False)
+            stored_latents = self._stored_latents(data_path, len(faces), res, mask_image)
+        else:
+            frames = read_video(video_path, change_fps=True, fps=video_fps)
+            faces, boxes, matrices = processor.affine_transform_batch(frames)
         timings["faces"] = time.time() - t0
 
         t0 = time.time()
@@ -289,11 +313,18 @@ class LipsyncPipeline:
         masks = np.ascontiguousarray(
             np.broadcast_to(keep[..., :1], pixel_values.shape[:3] + (1,)))
         lat_hw = res // cfg.vae.scale_factor
-        with self._device_stage(device_events, "vae_encode"):
-            masked_lat, ref_lat = self._vae_encode_pair(faces_rs, keep)
+        if stored_latents is not None:  # the onboarding artifact: no encode
+            masked_lat, ref_lat = (
+                torch.from_numpy(lrepeat.repeat_to_length(z, num_chunks)[:total]).to(self.device)
+                for z in stored_latents)
+        else:
+            with self._device_stage(device_events, "vae_encode"):
+                masked_lat, ref_lat = self._vae_encode_pair(faces_rs, keep)
         idx = _nearest_indices(keep.shape[1], lat_hw)
         keep_small = torch.from_numpy(keep[:, :, :, :1])[:, idx][:, :, idx].to(self.device)
-        mask_small = keep_small.expand(total, lat_hw, lat_hw, 1)
+        # one mask for the clip, or one a frame (the landmark modes)
+        mask_small = keep_small.expand(total, lat_hw, lat_hw, 1) if keep.shape[0] == 1 \
+            else keep_small
         timings["vae_encode"] = time.time() - t0
 
         # one frame of noise repeated over every frame of every window
@@ -315,6 +346,66 @@ class LipsyncPipeline:
             num_windows=num_windows, video_fps=video_fps,
             audio_sample_rate=audio_sample_rate, lat_hw=lat_hw, processor=processor,
             timings=timings, start_time=t_start, device_events=device_events)
+
+    def _stored_latents(self, data_path: str, n_faces: int, res: int, mask_image):
+        """The bundle's ``_latents.npz`` (masked, reference latents) when it
+        fits this request: this pipeline's VAE weights and mask (its
+        fingerprint), the bundle's face count, the resolution and the mask
+        mode. An artifact without a fingerprint (a legacy one) is taken on
+        the rest, with a warning; a stale one is ignored, and the request
+        encodes."""
+        lat_path = os.path.splitext(data_path)[0] + "_latents.npz"
+        if not os.path.isfile(lat_path):
+            return None
+        with np.load(lat_path, allow_pickle=False) as d:
+            legacy = "fingerprint" not in d.files
+            fits = (legacy or str(d["fingerprint"]) == self._artifact_fingerprint(mask_image)) \
+                and d["masked_lat"].shape[0] == n_faces and int(d["resolution"]) == res \
+                and str(d["mask_mode"]) == self.config.data.mask
+            latents = (d["masked_lat"], d["ref_lat"]) if fits else None
+        if latents is None:
+            warnings.warn(f"avatar latent artifact {lat_path} is stale (VAE weights, mask or "
+                          "shape changed since onboarding): encoding this request; re-run "
+                          "precompute_avatar_latents", stacklevel=2)
+        elif legacy:
+            warnings.warn(f"avatar latent artifact {lat_path} has no VAE-weights fingerprint; "
+                          "accepted on shape, resolution and mask mode: re-run "
+                          "precompute_avatar_latents to add one", stacklevel=2)
+        return latents
+
+    def _artifact_fingerprint(self, mask_image) -> str:
+        """Identity of what the avatar latents depend on besides the video:
+        the VAE's state dict (every name and shape, and the first 16 values
+        of four tensors spread over it) and the mask image."""
+        h = hashlib.md5()
+        items = list(self.vae.state_dict().items())
+        for name, t in items:
+            h.update(name.encode())
+            h.update(str(tuple(t.shape)).encode())
+        for _, t in items[::max(1, len(items) // 4)][:4]:
+            h.update(t.detach().reshape(-1)[:16].float().cpu().numpy().tobytes())
+        if mask_image is not None:
+            h.update(np.ascontiguousarray(mask_image).tobytes())
+        return h.hexdigest()
+
+    def precompute_avatar_latents(self, data_path: str, mask_image_path: Optional[str] = None,
+                                  height: Optional[int] = None) -> str:
+        """Onboarding: VAE-encode a bundle's faces once and keep (masked_lat,
+        ref_lat) beside it as ``<bundle>_latents.npz``, with the resolution,
+        the mask mode and the fingerprint; ``prepare`` then skips the
+        encode. Returns the artifact's path."""
+        res = height or self.config.data.resolution
+        mask_image = load_fixed_mask(res, mask_image_path)
+        faces, _, _ = load_affine_bundle(data_path)
+        processor = self._processor(res, mask_image)
+        faces_rs = processor.resize_batch(faces)
+        masked_lat, ref_lat = self._vae_encode_pair(faces_rs, processor.keep_mask(faces_rs))
+        lat_path = os.path.splitext(data_path)[0] + "_latents.npz"
+        np.savez(lat_path, masked_lat=masked_lat.float().cpu().numpy(),
+                 ref_lat=ref_lat.float().cpu().numpy(), resolution=res,
+                 mask_mode=self.config.data.mask,
+                 fingerprint=self._artifact_fingerprint(mask_image))
+        return lat_path
 
     def denoise_decode_chunks(self, state: JobState, num_inference_steps: int = 20,
                               guidance_scale: float = 1.5, window_batch: int = 2):

@@ -62,13 +62,13 @@ HOOKS = [
 
 HARNESS = r'''
 #include "temporal_block.cuh"
-extern "C" int ls_block_pieces(const void* x, int batch, int c, int inner, int heads,
-                               const float* ln_w, const float* ln_b, float eps, const void* pe,
-                               const void* wq, const void* wk, const void* wv, const void* wo,
-                               const float* bo, float scale, void* attn, void* out,
-                               void* stream) {
-  return (int)ls_tblock::temporal_block(x, batch, c, inner, heads, ln_w, ln_b, eps, pe, wq, wk,
-                                         wv, wo, bo, scale, attn, out,
+extern "C" int ls_block_pieces(const void* x, int batch, int frames, int c, int inner,
+                               int heads, const float* ln_w, const float* ln_b, float eps,
+                               const void* pe, const void* wq, const void* wk, const void* wv,
+                               const void* wo, const float* bo, float scale, void* attn,
+                               void* out, void* stream) {
+  return (int)ls_tblock::temporal_block(x, batch, frames, c, inner, heads, ln_w, ln_b, eps, pe,
+                                         wq, wk, wv, wo, bo, scale, attn, out,
                                          static_cast<cudaStream_t>(stream));
 }
 '''
@@ -95,7 +95,7 @@ def run(pieces=DEFAULT_PIECES, iters: int = 20, emit=lambda rec: print(json.dump
 
         def call(run_pieces):
             code = run_pieces(
-                x.data_ptr(), b, c, c, heads, ln_w.data_ptr(), ln_b.data_ptr(), 1e-6,
+                x.data_ptr(), b, 16, c, c, heads, ln_w.data_ptr(), ln_b.data_ptr(), 1e-6,
                 pe.data_ptr(), *[w.data_ptr() for w in ws], bo.data_ptr(),
                 1.0 / math.sqrt(c // heads), attn.data_ptr(), out.data_ptr(), stream)
             if code != 0:

@@ -4,10 +4,10 @@
 
 Times K3 (``temporal_attention``) at its four served shapes (the default
 and fused forwards' C = 1280 blocks at batch 4 and 1, the int8-dense
-forward's composed blocks at C = 320 and 640), K6 (``group_norm_silu``) at
-every shape one fused forward gives it (``--which k6`` builds the
-full-width UNet once and counts its launches by shape) and K10
-(``geglu_ffn_int8io``) at the probe's two shapes. For each: ``--calls``
+forward's composed blocks at C = 320 and 640) and at F = 8 and 24 frames,
+K6 (``group_norm_silu``) at every shape one fused forward gives it
+(``--which k6`` builds the full-width UNet once and counts its launches by
+shape) and K10 (``geglu_ffn_int8io``) at the probe's three shapes. For each: ``--calls``
 calls under ``torch.profiler`` after two warm-ups; ``device_ms`` is the
 device time of the port's kernels (every device kernel whose name is not
 ``at::...``) over the calls, ``kernels_a_call`` their count over the calls,
@@ -45,9 +45,11 @@ from .micro_probe import gpu_line
 MEM_RATE = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 # (B, F, heads * D) of K3 with 8 heads: default / fused at C = 1280 (batch 4
-# and the 1-window batch), int8-dense's composed blocks at C = 320 and 640
-K3_SHAPES = [(256, 16, 1280), (64, 16, 1280), (4096, 16, 320), (1024, 16, 640)]
-K10_SHAPES = [(131072, 320), (32768, 640)]
+# and the 1-window batch), int8-dense's composed blocks at C = 320 and 640;
+# then windows of 8 and 24 frames (one row tile with keys masked, two tiles)
+K3_SHAPES = [(256, 16, 1280), (64, 16, 1280), (4096, 16, 320), (1024, 16, 640),
+             (256, 8, 1280), (256, 24, 1280), (4096, 24, 320)]
+K10_SHAPES = [(131072, 320), (32768, 640), (8192, 1280)]
 
 
 def _nbytes(*ts) -> int:

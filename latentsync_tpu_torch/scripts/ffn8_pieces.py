@@ -99,7 +99,7 @@ def run(pieces=DEFAULT_PIECES, iters: int = 20, emit=lambda rec: print(json.dump
         def call(run_pieces):
             code = run_pieces(xi.data_ptr(), scales.data_ptr(), m, c, w_up.data_ptr(),
                               b_up.data_ptr(), w_dn.data_ptr(), b_dn.data_ptr(), out.data_ptr(),
-                              out_scale.data_ptr(), stream)
+                              out_scale.data_ptr(), None, stream)
             if code != 0:
                 raise RuntimeError(f"ffn8_pieces: CUDA error {code}")
 

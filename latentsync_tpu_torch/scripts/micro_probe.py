@@ -132,8 +132,8 @@ class Probe:
 _KERNEL_OPS = {
     "ls_geglu_ffn": lambda a: 24 * a[1] * a[2] ** 2,
     "ls_attn_block": lambda a: a[1] * a[2] * (8 * a[3] * a[4] + 4 * a[2] * a[4]),
-    "ls_temporal_block": lambda a: a[1] * 16 * (8 * a[2] * a[3] + 64 * a[3]),
-    "ls_temporal_attention": lambda a: 4 * a[8] * 16 * 16 * a[9] * a[10],
+    "ls_temporal_block": lambda a: a[1] * a[2] * (8 * a[3] * a[4] + 4 * a[2] * a[4]),
+    "ls_temporal_attention": lambda a: 4 * a[8] * a[9] ** 2 * a[10] * a[11],
     "ls_spatial_attention": lambda a: 4 * a[8] * a[9] ** 2 * a[10] * a[11],
     "ls_flash_attention": lambda a: 4 * a[7] * a[9] * a[8] ** 2 * a[10],
     "ls_cross_attn_block": lambda a: a[2] * (4 * a[3] * a[4] * a[7] + 4 * a[5] * a[6] * a[7]
@@ -408,7 +408,7 @@ def probe_ffn(p: Probe, shapes=None):
 def probe_ffn8(p: Probe, shapes=None):
     """K1 with bf16 activations against K10, whose int8 activations and row
     scales feed the next iteration as they would flow between ops."""
-    for m, c in shapes or ffn_shapes(p, ((1024, 320), (256, 640))):
+    for m, c in shapes or ffn_shapes(p):
         inner = 4 * c
         x = p.randn(m, c)
         w_up, b_up, w_dn, b_dn = _ffn_weights(p, c)

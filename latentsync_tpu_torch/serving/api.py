@@ -2,8 +2,9 @@
 
 Counterpart of ``latentsync_tpu/serving/api.py`` in its non-batched mode:
 a bounded job queue (429 when full) drained by ONE worker thread that
-owns the GPU. Avatars resolve to pre-uploaded videos with precomputed
-affine bundles, so serving runs no face detection.
+owns the GPU. Avatars resolve to pre-uploaded videos with their
+precomputed affine bundles (``prepare_video``); an avatar without one runs
+the FAN face path in its request.
 """
 
 from __future__ import annotations

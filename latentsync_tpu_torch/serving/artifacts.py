@@ -1,4 +1,5 @@
-"""Avatar resolution: id → pre-uploaded video + precomputed affine bundle.
+"""Avatar artifacts: the affine bundle an onboarding writes, and avatar
+resolution (id → pre-uploaded video + bundle).
 
 Counterpart of ``latentsync_tpu/serving/artifacts.py`` (the upstream
 ``_rotated``/``_darken`` variant naming; the bundle is an ``.npz`` of
@@ -12,6 +13,20 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+
+
+def generate_affine_bundle(processor, video_path: str, bundle_path: str, fps: int = 25) -> str:
+    """Align every frame of a video (read at `fps`) with `processor`
+    (``ImageProcessor.affine_transform_batch``: the landmark model takes the
+    whole clip) and write the bundle. Returns its path."""
+    from ..utils.media import read_video
+
+    frames = read_video(video_path, change_fps=True, fps=fps)
+    faces, boxes, matrices = processor.affine_transform_batch(frames)
+    os.makedirs(os.path.dirname(bundle_path) or ".", exist_ok=True)
+    np.savez_compressed(bundle_path, faces=np.asarray(faces), boxes=np.asarray(boxes),
+                        affine_matrices=np.stack(matrices))
+    return bundle_path
 
 
 def load_affine_bundle(bundle_path: str):

@@ -10,7 +10,9 @@ sums tile by tile), the GEGLU epilogue rounded to bf16 (zeros past 4C), and
 the chunk's down-projection added onto the f32 result 64 output columns at
 a time; at C > 320 two warpgroups each own half of the output pieces and
 half of each chunk, and merge their row amax; then + bd, the row scale and
-the codes.
+the codes. Above C = 640 a block owns one group of at most ten output pieces
+(each group's block recomputes the hidden), writes its f32 result with bd,
+and a row pass takes each row's amax over all groups and quantizes.
 
 The emulation is held against the port's plain version
 (``geglu_ffn_int8io_reference``) and against the JAX package's Pallas
@@ -43,6 +45,8 @@ BK = 64              # bf16 of a k-tile, hidden columns of a chunk, output colum
 TILE = 64 * 128      # bytes of a weight tile
 NPW = 5              # result pieces a warpgroup holds
 X_BYTES = 80 * 1024
+X_BYTES_WIDE = 64 * 1280 * 2  # x of 64 rows at the widest C
+GROUP_PIECES = 10    # output pieces of a block above C = 640 (two warpgroups of five)
 H_BYTES = 2 * TILE
 RED_BYTES = 2 * 64 * 4
 BIAS_BYTES = 9 * 640 * 4  # b_up and b_dn at the widest C, f32
@@ -61,20 +65,35 @@ def split(c: int) -> bool:
     return c > 320
 
 
+def wide(c: int) -> bool:
+    """The blocks split the output columns too, in groups, above C = 640."""
+    return c > 64 * GROUP_PIECES
+
+
 def cfg(c: int):
     """(rows a block, weight tiles a stage, stages, dynamic shared memory):
-    as many stages as fit beside x, the hidden tiles, the biases and the
-    barriers, at most 16."""
+    as many stages as fit beside x, the hidden tiles, the biases (in device
+    memory when wide) and the barriers, at most 16."""
     rows, tps = (64, 2) if split(c) else (128, 1)
-    fixed = 1024 + X_BYTES + H_BYTES + RED_BYTES + BIAS_BYTES + BAR_BYTES
+    fixed = (1024 + (X_BYTES_WIDE if wide(c) else X_BYTES) + H_BYTES + RED_BYTES
+             + (0 if wide(c) else BIAS_BYTES) + BAR_BYTES)
     stages = min(16, (SMEM_MAX - fixed) // (tps * TILE))
     return rows, tps, stages, fixed + stages * tps * TILE
 
 
-def pieces(c: int):
-    """(k-tiles of x, output pieces, pieces a warpgroup)."""
+def groups(c: int):
+    """(first piece, pieces) of each block's group of output pieces."""
     kt = -(-c // BK)
-    return kt, kt, (kt + 1) // 2 if split(c) else kt
+    if not wide(c):
+        return [(0, kt)]
+    return [(g0, min(GROUP_PIECES, kt - g0)) for g0 in range(0, kt, GROUP_PIECES)]
+
+
+def pieces(c: int, group: int = 0):
+    """(k-tiles of x, output pieces, pieces a warpgroup holds in `group`)."""
+    kt = -(-c // BK)
+    gnp = groups(c)[group][1]
+    return kt, kt, (gnp + 1) // 2 if split(c) else gnp
 
 
 def accumulator_registers(c: int) -> int:
@@ -83,24 +102,26 @@ def accumulator_registers(c: int) -> int:
     return 32 * pieces(c)[2] + 32
 
 
-def loader_order(c: int):
+def loader_order(c: int, group: int = 0):
     """The weight tiles of one chunk in ring order, each stage a tuple of its
     tiles: ("up", half, k-tile) or ("down", piece)."""
-    kt, np_, npw = pieces(c)
+    kt, np_, npw = pieces(c, group)
+    g0 = groups(c)[group][0]
     if split(c):
         return [(("up", 0, k), ("up", 1, k)) for k in range(kt)] \
-            + [(("down", p), ("down", npw + p)) for p in range(npw)]
+            + [(("down", g0 + p), ("down", g0 + npw + p)) for p in range(npw)]
     return [(("up", h, k),) for h in range(2) for k in range(kt)] \
         + [(("down", p),) for p in range(np_)]
 
 
-def consumer_order(c: int):
+def consumer_order(c: int, group: int = 0):
     """What each warpgroup multiplies, step by step, in one chunk."""
-    kt, np_, npw = pieces(c)
+    kt, np_, npw = pieces(c, group)
+    g0 = groups(c)[group][0]
     out = []
     for wg in range(2):
         if split(c):
-            steps = [("up", wg, k) for k in range(kt)] + [("down", wg * npw + p)
+            steps = [("up", wg, k) for k in range(kt)] + [("down", g0 + wg * npw + p)
                                                           for p in range(npw)]
         else:
             steps = [("up", h, k) for h in range(2) for k in range(kt)] \
@@ -137,25 +158,26 @@ def emulate_geglu_i8(xi, xs, w_up, b_up, w_dn, b_dn):
         x = torch.zeros(rows, cp, dtype=BF)  # dequantized once a row block
         x[:n, :c] = (xi[r0:r0 + n].float() * xs[r0:r0 + n].reshape(-1, 1).float()).to(BF)
         x = x.float()
+        # every chunk's value and gate columns (each 32-column half is one
+        # weight tile per k-tile), f32 sums k-tile by k-tile as the kernel
+        # adds its steps; computed for all chunks at once, the sums of each
+        # element in the same order
+        up_v = torch.zeros(rows, ip)
+        up_g = torch.zeros(rows, ip)
+        for k0 in range(0, cp, BK):
+            up_v += x[:, k0:k0 + BK] @ wv[:, k0:k0 + BK].t()
+            up_g += x[:, k0:k0 + BK] @ wg[:, k0:k0 + BK].t()
+        hidden = torch.zeros(rows, ip, dtype=BF)  # zeros past 4C (zero-filled tiles)
+        hidden[:, :inner] = ((up_v[:, :inner] + b_up[:inner])
+                             * _gelu_erf(up_g[:, :inner] + b_up[inner:])).to(BF)
         acc = torch.zeros(rows, np_ * BK)
-        for c0 in range(0, inner, BK):
-            hidden = torch.zeros(rows, BK, dtype=BF)  # the chunk's tile
-            for half in range(2):  # one warpgroup's half (split) or both in turn
-                h0 = c0 + 32 * half
-                if h0 >= inner:
-                    continue  # zero-filled tiles: hidden stays 0
-                up = torch.zeros(rows, 64)  # 32 value columns, then their gates
-                b_tile = torch.cat([wv[h0:h0 + 32], wg[h0:h0 + 32]])
-                for k0 in range(0, cp, BK):
-                    up = up + x[:, k0:k0 + BK] @ b_tile[:, k0:k0 + BK].t()
-                cols = torch.arange(h0, h0 + 32)
-                hidden[:, 32 * half:32 * half + 32] = (
-                    (up[:, :32] + b_up[cols]) * _gelu_erf(up[:, 32:] + b_up[inner + cols])).to(BF)
-            for p in range(np_):  # 64 output columns a step, a warpgroup's pieces or all
-                acc[:, p * BK:(p + 1) * BK] += hidden.float() @ wd[p * BK:(p + 1) * BK,
-                                                                   c0:c0 + BK].t()
+        for c0 in range(0, inner, BK):  # each chunk's down-projection onto the f32 result
+            acc += hidden[:, c0:c0 + BK].float() @ wd[:, c0:c0 + BK].t()
         res = acc[:, :c] + b_dn
-        if split(c):  # each warpgroup's amax over its pieces, merged
+        if wide(c):  # each group's block writes its f32 result; the row pass takes the amax
+            amax = torch.stack([res[:, 64 * g0:64 * (g0 + gnp)].abs().amax(-1)
+                                for g0, gnp in groups(c)]).amax(0)
+        elif split(c):  # each warpgroup's amax over its pieces, merged
             cut = min(c, npw * BK)
             amax = torch.maximum(res[:, :cut].abs().amax(-1),
                                  res[:, cut:].abs().amax(-1) if cut < c else torch.zeros(rows))
@@ -203,7 +225,9 @@ def check_int8io(got, ref):
     (130, 200),   # K = 200 = 3 x 64 + 8, inner 800 = 12.5 chunks
     (256, 320),   # the probe's width, two row blocks
     (70, 400),    # the column split with a ragged last piece (7 pieces: 4 + 3)
-    (64, 640),    # the widest C: two warpgroups of five pieces
+    (64, 640),    # the widest C of one launch: two warpgroups of five pieces
+    (70, 1000),   # column groups of 10 and 6 pieces, the row pass merging them
+    (65, 1280),   # the widest C: two groups of ten pieces, a row past a row block
 ])
 def test_geglu_i8_emulation_matches_plain_version(m, c):
     args = _inputs(m + c, m, c)
@@ -214,7 +238,7 @@ def test_geglu_i8_emulation_matches_plain_version(m, c):
                  p_ffn.geglu_ffn_int8io_reference(*first, *args[2:]))
 
 
-@pytest.mark.parametrize("m,c", [(128, 64), (256, 128)])
+@pytest.mark.parametrize("m,c", [(128, 64), (256, 128), (128, 1280)])
 def test_geglu_i8_emulation_matches_the_pallas_kernel(m, c):
     """The JAX package's ``_geglu_i8_kernel`` in interpret mode (bm = bi =
     128), its weights (in, out), biases f32."""
@@ -241,30 +265,42 @@ def test_geglu_i8_emulation_all_zero_rows():
 
 
 def test_shared_memory_registers_and_widest_c():
-    """Both modes fit a block's shared memory (a ring of 13 stages of one
-    tile, or 6 of two); the accumulators take at most 192 of a consumer
-    thread's 232 registers at every C the kernel takes (160 of the result at
-    C = 320 and 640); past the widest C a warpgroup would need a sixth
-    piece, and the wrapper refuses it."""
+    """The three modes fit a block's shared memory (a ring of 13 stages of
+    one tile, 6 of two, or 3 of two beside x of 64 rows at C = 1280); the
+    accumulators take at most 192 of a consumer thread's 232 registers at
+    every C the kernel takes and in every group (160 of the result at
+    C = 320, 640 and 1280); past the widest C, x of 64 rows leaves no room
+    for three stages, and the wrapper refuses it."""
     assert cfg(320)[2:] == (13, 229632) and cfg(640)[2:] == (6, 221440)
-    assert all(cfg(c)[3] <= SMEM_MAX for c in (64, 320, 328, 640))
+    assert cfg(1280)[2:] == (3, 231168)
+    assert all(cfg(c)[3] <= SMEM_MAX for c in (64, 320, 328, 640, 648, 1280))
+    assert p_ffn.GEGLU_I8_GROUP_C == 64 * GROUP_PIECES
     for c in range(8, p_ffn.GEGLU_I8_MAX_C + 1, 8):
-        assert pieces(c)[2] <= NPW and accumulator_registers(c) <= 192 < CONSUMER_REGS, c
+        for g in range(len(groups(c))):
+            assert pieces(c, g)[2] <= NPW and accumulator_registers(c) <= 192 < CONSUMER_REGS
     assert accumulator_registers(320) == accumulator_registers(640) == 192
-    assert pieces(p_ffn.GEGLU_I8_MAX_C + 64)[2] > NPW
+    assert accumulator_registers(1280) == 192 and len(groups(1280)) == 2
+    beyond = p_ffn.GEGLU_I8_MAX_C + 64
+    assert (1024 + beyond * 128 + H_BYTES + RED_BYTES + BAR_BYTES + 3 * 2 * TILE) > SMEM_MAX
     assert cfg(320)[0] == 128 and cfg(328)[0] == 64
 
 
-@pytest.mark.parametrize("c", [72, 320, 400, 640])
+@pytest.mark.parametrize("c", [72, 320, 400, 640, 1000, 1280])
 def test_loader_order_is_the_consumers_order(c):
     """A ring stage holds what each warpgroup multiplies at that step (both
-    the same tile at C <= 320, one each when they split the columns)."""
-    stages = loader_order(c)
-    cons = consumer_order(c)
-    assert len(stages) == len(cons[0]) == len(cons[1])
-    for i, stage in enumerate(stages):
-        for wg in range(2):
-            assert cons[wg][i] == stage[wg if split(c) else 0]
+    the same tile at C <= 320, one each when they split the columns), in
+    every group of output pieces; the groups cover each piece once."""
+    covered = []
+    for g in range(len(groups(c))):
+        stages = loader_order(c, g)
+        cons = consumer_order(c, g)
+        assert len(stages) == len(cons[0]) == len(cons[1])
+        for i, stage in enumerate(stages):
+            for wg in range(2):
+                assert cons[wg][i] == stage[wg if split(c) else 0]
+        covered += [t[1] for st in stages for t in st if t[0] == "down"]
+    kt = pieces(c)[0]
+    assert sorted(p for p in set(covered) if p < kt) == list(range(kt))
 
 
 def _unhooked(hooked: str) -> list:

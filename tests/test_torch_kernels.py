@@ -108,6 +108,46 @@ def test_temporal_attention_kernel_served_shapes(rand, b, hd, sliced):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("f", [4, 8, 24])
+@pytest.mark.parametrize("b,hd", [(96, 320), (24, 640), (40, 1280)])
+def test_temporal_attention_kernel_any_frames(rand, f, b, hd):
+    """K3 at F != 16: one m16 row tile with keys past F masked (4, 8), two
+    row tiles (24); one launch, within the tolerance."""
+    q, k, v = (rand(b, f, hd, s=2.0) for _ in range(3))
+    before = ta.temporal_attention.launches
+    _check(ta.temporal_attention(q, k, v, 8), ta.temporal_attention_reference(q, k, v, 8))
+    assert ta.temporal_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_temporal_attention_kernel_frames_past_the_limit_raise(rand):
+    q = rand(4, ta.TEMPORAL_MAX_FRAMES + 1, 320)
+    with pytest.raises(ValueError, match="F <= 24"):
+        ta.temporal_attention(q, q, q, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [4, 8, 24])
+@pytest.mark.parametrize("b,c", [(37, 320), (13, 640)])
+def test_self_attention_block_kernel_temporal_any_frames(rand, f, b, c):
+    """K2's temporal kernel at F != 16 (sequences padded to 16 or 32 tile
+    rows inside the kernel, a batch that leaves the last row tile short),
+    through ``self_attention_block_fused``; ``self_attention_block`` routes
+    F = 4 to the composed block as the reference does (F < 8), and F = 8, 24
+    to the kernel."""
+    args = (rand(b, f, c), 1 + rand(c, s=0.1), rand(c, s=0.1),
+            *[rand(c, c, s=c**-0.5) for _ in range(4)], rand(c, s=0.1), 8)
+    pe = rand(f, c)
+    ref = attn_block.self_attention_block_reference(*args, temporal=True, pe=pe)
+    before = attn_block.self_attention_block.launches
+    _check(attn_block.self_attention_block_fused(*args, temporal=True, pe=pe), ref)
+    assert attn_block.self_attention_block.launches == before + 1
+    assert attn_block.fused_route(f, c, c, True) == (f >= 8)
+    _check(attn_block.self_attention_block(*args, temporal=True, pe=pe), ref)
+    assert attn_block.self_attention_block.launches == before + 1 + (f >= 8)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,heads,d", [(3, 1, 8), (5, 2, 24), (2, 4, 64), (7, 3, 256)])
 def test_temporal_attention_kernel_other_head_dims(rand, b, heads, d):
     """Head dims off the served ones: a single k8 step (8), k16 steps and a
@@ -275,7 +315,7 @@ def test_group_norm_kernels(rand, fn, shape, eps, silu):
 @pytest.mark.cuda
 def test_cuda_tensors_never_take_the_plain_version(rand, monkeypatch):
     """An unsupported shape on the card raises; it does not fall back."""
-    q = rand(2, 12, 64)  # F = 12: no temporal kernel
+    q = rand(2, 25, 64)  # F = 25: past the temporal kernel's 24 frames
     with pytest.raises(ValueError):
         ta.temporal_attention(q, q, q, 8)
     q = rand(2, 64, 320).float()  # the kernels take bf16 only
@@ -796,9 +836,23 @@ def test_geglu_ffn_int8io_kernel_column_split(rand, m, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,c", [(8192, 1280), (129, 1280), (200, 1000)])
+def test_geglu_ffn_int8io_kernel_wide(rand, m, c):
+    """K10 above C = 640: column groups across blocks, the f32 result in a
+    scratch buffer, the row pass merging the groups' amax (the probe's
+    (8192, 1280), a row past a row block, a ragged last group)."""
+    args = _i8_args(rand, m, c)
+    before = ffn.geglu_ffn_int8io.launches
+    got = ffn.geglu_ffn_int8io(*args)
+    assert ffn.geglu_ffn_int8io.launches == before + 1
+    check_int8io(got, ffn.geglu_ffn_int8io_reference(*args))
+
+
+@pytest.mark.cuda
 def test_geglu_ffn_int8io_allocates_only_its_outputs(rand):
-    """K10 is one launch with no scratch buffer: the call's peak allocation
-    is its two outputs; C past the kernel's widest is refused."""
+    """K10 up to C = 640 is one launch with no scratch buffer: the call's
+    peak allocation is its two outputs; C past the kernel's widest is
+    refused."""
     args = _i8_args(rand, 4096, 320)
     ffn.geglu_ffn_int8io(*args)
     torch.cuda.synchronize()

@@ -259,10 +259,13 @@ _FOREIGN = ("jax", "flax", "latentsync_tpu")
 
 
 def test_port_imports_no_jax():
-    """Importing the port's entry points (pipeline, server, probe) loads no
-    module of jax, flax or the JAX package."""
+    """Importing the port's entry points (pipeline, server, probe,
+    onboarding) and its face models loads no module of jax, flax or the JAX
+    package."""
     code = ("import sys, latentsync_tpu_torch.serving.api, latentsync_tpu_torch.pipelines."
-            "lipsync, latentsync_tpu_torch.scripts.micro_probe; "
+            "lipsync, latentsync_tpu_torch.scripts.micro_probe, "
+            "latentsync_tpu_torch.scripts.prepare_video, "
+            "latentsync_tpu_torch.models.face_detection; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {_FOREIGN!r}]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -32,6 +32,7 @@ from latentsync_tpu import config as jcfg
 from latentsync_tpu.audio.features import Audio2Feature as JAudio2Feature
 from latentsync_tpu.pipelines.lipsync import LipsyncPipeline as JPipeline
 from latentsync_tpu.utils.convert import convert_unet, convert_vae, convert_whisper_encoder
+from latentsync_tpu.utils.image_processor import load_fixed_mask as j_load_fixed_mask
 from latentsync_tpu_torch import config as pcfg
 from latentsync_tpu_torch.audio.features import Audio2Feature
 from latentsync_tpu_torch.models.unet3d import UNet3DConditionModel
@@ -42,7 +43,7 @@ from latentsync_tpu_torch.pipelines.lipsync import HostCopy, JobState, LipsyncPi
 from latentsync_tpu_torch.serving.api import ServingState, make_handler
 from latentsync_tpu_torch.serving.artifacts import AvatarStore
 from latentsync_tpu_torch.utils.convert import init_random_
-from latentsync_tpu_torch.utils.image_processor import load_fixed_mask, read_png
+from latentsync_tpu_torch.utils.image_processor import load_fixed_mask
 from latentsync_tpu_torch.utils.media import StreamingVideoWriter, read_video, write_audio
 
 RES, CROP_AT, FRAME_HW, N_FRAMES = 64, 16, 96, 20
@@ -89,8 +90,8 @@ def slice_setup(tmp_path_factory):
     write_audio(str(root / "speech.wav"),
                 (0.3 * rng.standard_normal(int(16000 * 1.2))).astype(np.float32))
     # a mask at the test resolution, so neither side resizes it
-    mask = read_png(os.path.join(os.path.dirname(pcfg.__file__), "utils", "assets", "mask.png"))
-    cv2.imwrite(str(root / "mask.png"), np.ascontiguousarray(mask[::4, ::4, ::-1]))
+    mask = cv2.imread(os.path.join(os.path.dirname(pcfg.__file__), "utils", "assets", "mask.png"))
+    cv2.imwrite(str(root / "mask.png"), np.ascontiguousarray(mask[::4, ::4]))
 
     cfg = _configs(pcfg)
     unet = init_random_(UNet3DConditionModel(cfg.unet), seed=11)
@@ -410,10 +411,11 @@ def test_http_server_serves_one_request(slice_setup, tmp_path):
 
 
 def test_mask_png_decodes_like_opencv():
-    """The port reads the mouth mask with zlib + numpy; OpenCV agrees."""
+    """The port decodes the mouth mask with OpenCV and resizes it with
+    LANCZOS4, as the JAX package does: equal at the mask's own size and at
+    others."""
     path = os.path.join(os.path.dirname(pcfg.__file__), "utils", "assets", "mask.png")
     ref = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
-    np.testing.assert_array_equal(read_png(path), ref)
     np.testing.assert_array_equal(load_fixed_mask(256), ref.astype(np.float32) / 255.0)
-    small = load_fixed_mask(64)  # other resolutions resize through native/restore.cpp
-    assert small.shape == (64, 64, 3) and 0.0 <= small.min() and small.max() <= 1.0
+    for res in (64, 200, 512):
+        np.testing.assert_array_equal(load_fixed_mask(res), j_load_fixed_mask(res))

@@ -9,13 +9,16 @@ steps (a k8 step at the end of a head dim with D % 16 == 8) from the
 fragments ldmatrix gives each lane at the kernel's lane addresses, the
 16 x 16 softmax in f32 with the probabilities normalised and rounded to bf16,
 p v from the probability accumulators as they stand (the A fragment) and v's
-fragments from ldmatrix.trans, o rounded once to bf16.
+fragments from ldmatrix.trans, o rounded once to bf16. Sequences of F != 16
+frames (1 <= F <= 24) use MT = 1 row tile up to 16 and MT = 2 above: the
+ring copies F rows into tiles of 16 MT rows whose other rows stay zero, keys
+past F get -inf before the row max, and only F rows are stored.
 
 The emulation is held against the port's plain version
 (``temporal_attention_reference``) and against the JAX package's Pallas
 ``_kernel`` in interpret mode (``temporal_attention(..., interpret=True)``),
-at head dims 40, 80 and 160 and on q/k/v pitched inside one fused
-projection. Tolerance: 2^-6 * max(1, max|plain|), the one the card check
+at head dims 40, 80 and 160, at F = 4, 8, 16 and 24, and on q/k/v
+pitched inside one fused projection. Tolerance: 2^-6 * max(1, max|plain|), the one the card check
 (``chip_smoke.py``) holds the kernel to; the emulation rounds where the
 plain version does and differs only in the order of its f32 sums.
 
@@ -34,7 +37,8 @@ from latentsync_tpu_torch.ops import temporal_attention as p_ta
 
 TOL_REL = 2.0**-6
 BF = torch.bfloat16
-TF = 16             # frames: the m16 tile
+TF = 16             # rows of an m16 tile
+MAX_F = 24          # frames a sequence, at most
 T_WARPS = 4         # warps a block, at most
 T_STAGES = 3        # ring stages a warp
 SMEM_MAX = 232448   # dynamic shared memory a block may have
@@ -50,13 +54,19 @@ def row_bytes(d: int) -> int:
     return ((d // 8) | 1) * 16
 
 
-def stage_bytes(d: int) -> int:
-    return 3 * TF * row_bytes(d)
+def row_tiles(f: int) -> int:
+    """MT: m16 row tiles a task (one up to 16 frames, two up to 24)."""
+    assert 1 <= f <= MAX_F
+    return 1 if f <= TF else 2
 
 
-def geometry(d: int):
+def stage_bytes(d: int, mt: int = 1) -> int:
+    return 3 * TF * mt * row_bytes(d)
+
+
+def geometry(d: int, mt: int = 1):
     """temporal_geometry: (warps a block, dynamic shared memory)."""
-    per_warp = T_STAGES * stage_bytes(d)
+    per_warp = T_STAGES * stage_bytes(d, mt)
     warps = min(T_WARPS, SMEM_MAX // per_warp)
     return warps, warps * per_warp
 
@@ -137,52 +147,73 @@ def accumulator_fragments(acc: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def core_tasks(qt, kt, vt, scale: float) -> torch.Tensor:
-    """One warp's work on T tasks at once: (T, 16, D) bf16 tiles -> bf16 o."""
+def core_tasks(qt, kt, vt, scale: float, frames: int = TF) -> torch.Tensor:
+    """One warp's work on T tasks at once: (T, 16 MT, D) bf16 tiles (rows
+    past `frames` zero) -> bf16 o of the same tile shape."""
     d = qt.shape[2]
-    s = torch.zeros(qt.shape[0], TF, TF)
-    kk = 0
-    while kk + 16 <= d:
-        a = ldmatrix(qt, lambda ln: (_a_addr(ln)[0], kk + _a_addr(ln)[1]), 4)
-        b = ldmatrix(kt, lambda ln: (_b_addr(ln)[0], kk + _b_addr(ln)[1]), 4)
-        s[:, :, :8] += mma(a, b[:, :, 0:2])
-        s[:, :, 8:] += mma(a, b[:, :, 2:4])
-        kk += 16
-    if kk < d:  # D % 16 == 8: the m16n8k8 step (x2 loads: lanes 0-15 address rows 0-15)
-        a = ldmatrix(qt, lambda ln: (ln & 15, kk), 2)
-        b = ldmatrix(kt, lambda ln: (ln & 15, kk), 2)
-        s[:, :, :8] += mma(a, b[:, :, 0:1])
-        s[:, :, 8:] += mma(a, b[:, :, 1:2])
+    mt = qt.shape[1] // TF
+    s = torch.zeros(qt.shape[0], TF * mt, TF * mt)
+    for r in range(mt):  # query row tile
+        q_r = qt[:, TF * r:TF * (r + 1)]
+        for c in range(mt):  # 16-key tile
+            k_c = kt[:, TF * c:TF * (c + 1)]
+            blk = torch.zeros(qt.shape[0], TF, TF)
+            kk = 0
+            while kk + 16 <= d:
+                a = ldmatrix(q_r, lambda ln: (_a_addr(ln)[0], kk + _a_addr(ln)[1]), 4)
+                b = ldmatrix(k_c, lambda ln: (_b_addr(ln)[0], kk + _b_addr(ln)[1]), 4)
+                blk[:, :, :8] += mma(a, b[:, :, 0:2])
+                blk[:, :, 8:] += mma(a, b[:, :, 2:4])
+                kk += 16
+            if kk < d:  # D % 16 == 8: the m16n8k8 step (x2 loads: lanes 0-15 address rows 0-15)
+                a = ldmatrix(q_r, lambda ln: (ln & 15, kk), 2)
+                b = ldmatrix(k_c, lambda ln: (ln & 15, kk), 2)
+                blk[:, :, :8] += mma(a, b[:, :, 0:1])
+                blk[:, :, 8:] += mma(a, b[:, :, 1:2])
+            s[:, TF * r:TF * (r + 1), TF * c:TF * (c + 1)] = blk
     s = s * scale
+    s[:, :, frames:] = -torch.inf  # keys past F
     e = torch.exp(s - s.amax(-1, keepdim=True))
     p = (e / e.sum(-1, keepdim=True)).to(BF)
-    pf = accumulator_fragments(p.float())  # the two 8-key tiles: one 16-deep A fragment
-    pa = torch.stack([pf[:, :, 0, 0:2], pf[:, :, 0, 2:4], pf[:, :, 1, 0:2], pf[:, :, 1, 2:4]],
-                     dim=2)
-    o = torch.zeros(qt.shape[0], TF, d)
-    cpr, j = d // 8, 0
-    while j + 2 <= cpr:
-        b = ldmatrix(vt, lambda ln: (_a_addr(ln)[0], 8 * j + _a_addr(ln)[1]), 4, trans=True)
-        o[:, :, 8 * j:8 * j + 8] = mma(pa, b[:, :, 0:2])
-        o[:, :, 8 * j + 8:8 * j + 16] = mma(pa, b[:, :, 2:4])
-        j += 2
-    if j < cpr:
-        b = ldmatrix(vt, lambda ln: (_a_addr(ln)[0], 8 * j), 2, trans=True)
-        o[:, :, 8 * j:8 * j + 8] = mma(pa, b)
+    o = torch.zeros(qt.shape[0], TF * mt, d)
+    cpr = d // 8
+    for r in range(mt):
+        o_r = torch.zeros(qt.shape[0], TF, d)
+        for c in range(mt):  # 16-key steps of p v
+            pf = accumulator_fragments(p[:, TF * r:TF * (r + 1), TF * c:TF * (c + 1)].float())
+            # two 8-key tiles: one 16-deep A fragment
+            pa = torch.stack([pf[:, :, 0, 0:2], pf[:, :, 0, 2:4], pf[:, :, 1, 0:2],
+                              pf[:, :, 1, 2:4]], dim=2)
+            v_c = vt[:, TF * c:TF * (c + 1)]
+            j = 0
+            while j + 2 <= cpr:
+                b = ldmatrix(v_c, lambda ln: (_a_addr(ln)[0], 8 * j + _a_addr(ln)[1]), 4,
+                             trans=True)
+                o_r[:, :, 8 * j:8 * j + 8] += mma(pa, b[:, :, 0:2])
+                o_r[:, :, 8 * j + 8:8 * j + 16] += mma(pa, b[:, :, 2:4])
+                j += 2
+            if j < cpr:
+                b = ldmatrix(v_c, lambda ln: (_a_addr(ln)[0], 8 * j), 2, trans=True)
+                o_r[:, :, 8 * j:8 * j + 8] += mma(pa, b)
+        o[:, TF * r:TF * (r + 1)] = o_r
     return o.to(BF)
 
 
 def emulate_temporal_core(q, k, v, heads: int, scale=None) -> torch.Tensor:
-    """(B, 16, heads * D) each (any row pitch) -> (B, 16, heads * D) bf16:
-    every (sequence, head) task's tiles as the ring holds them."""
+    """(B, F, heads * D) each (any row pitch) -> (B, F, heads * D) bf16:
+    every (sequence, head) task's tiles as the ring holds them (F rows
+    copied into 16 MT, the rest zero), and the F rows the kernel stores."""
     b, f, hd = q.shape
-    assert f == TF
     d = hd // heads
+    mt = row_tiles(f)
     scale = d ** -0.5 if scale is None else scale
-    tiles = [t.reshape(b, TF, heads, d).permute(0, 2, 1, 3).reshape(b * heads, TF, d)
-             for t in (q, k, v)]
-    o = core_tasks(*tiles, scale)  # task b * heads + h
-    return o.reshape(b, heads, TF, d).permute(0, 2, 1, 3).reshape(b, TF, hd)
+    tiles = []
+    for t in (q, k, v):
+        tile = torch.zeros(b * heads, TF * mt, d, dtype=BF)
+        tile[:, :f] = t.reshape(b, f, heads, d).permute(0, 2, 1, 3).reshape(b * heads, f, d)
+        tiles.append(tile)
+    o = core_tasks(*tiles, scale, f)[:, :f]  # task b * heads + h
+    return o.reshape(b, heads, f, d).permute(0, 2, 1, 3).reshape(b, f, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -194,12 +225,12 @@ def _r(rng, *shape, s=1.0):
     return torch.from_numpy((rng.standard_normal(shape) * s).astype(np.float32)).to(BF)
 
 
-def _qkv(seed, b, hd, sliced, s=1.0):
+def _qkv(seed, b, hd, sliced, s=1.0, f=TF):
     rng = np.random.default_rng(seed)
     if sliced:  # column slices of one (rows, 3 * inner) projection: row pitch 3 * inner
-        qkv = _r(rng, b, TF, 3 * hd, s=s)
+        qkv = _r(rng, b, f, 3 * hd, s=s)
         return qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
-    return tuple(_r(rng, b, TF, hd, s=s) for _ in range(3))
+    return tuple(_r(rng, b, f, hd, s=s) for _ in range(3))
 
 
 def _within(got, plain):
@@ -230,6 +261,29 @@ def test_temporal_core_emulation_matches_the_pallas_kernel(b, heads, d, sliced):
     """The JAX package's Pallas ``_kernel`` in interpret mode (frame-major
     (F, heads) fold, block-diagonal mask), one batch entry a grid step."""
     q, k, v = _qkv(17 * b + d, b, heads * d, sliced, s=2.0)
+    got = emulate_temporal_core(q, k, v, heads)
+    jb = lambda t: jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16)  # noqa: E731
+    ref = j_ta.temporal_attention(jb(q), jb(k), jb(v), heads, block=1, interpret=True)
+    _within(got.float(), np.asarray(jnp.asarray(ref, dtype=jnp.float32)))
+
+
+@pytest.mark.parametrize("b,heads,d,f,sliced", [
+    (3, 8, 40, 4, False),    # one tile, 12 zero rows: keys 4-15 masked
+    (2, 8, 80, 8, True),     # pitched
+    (2, 8, 160, 24, False),  # two row tiles, keys 24-31 masked
+    (3, 3, 24, 24, True),    # the k8 tail and an odd end at MT = 2
+    (2, 2, 40, 17, False),   # one frame past a tile
+    (4, 1, 8, 1, False),     # a single frame: p = 1
+])
+def test_temporal_core_emulation_any_frames_matches_plain_version(b, heads, d, f, sliced):
+    q, k, v = _qkv(b * d + f, b, heads * d, sliced, s=2.0, f=f)
+    got = emulate_temporal_core(q, k, v, heads)
+    _within(got.float(), p_ta.temporal_attention_reference(q, k, v, heads).float())
+
+
+@pytest.mark.parametrize("b,heads,d,f", [(4, 8, 40, 4), (4, 8, 80, 8), (2, 8, 160, 24)])
+def test_temporal_core_emulation_any_frames_matches_the_pallas_kernel(b, heads, d, f):
+    q, k, v = _qkv(31 * b + d + f, b, heads * d, False, s=2.0, f=f)
     got = emulate_temporal_core(q, k, v, heads)
     jb = lambda t: jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16)  # noqa: E731
     ref = j_ta.temporal_attention(jb(q), jb(k), jb(v), heads, block=1, interpret=True)
@@ -277,6 +331,10 @@ def test_shared_memory_limits_and_banks():
     assert geometry(160) == (4, 193536)
     assert geometry(256)[0] == 3 and geometry(256)[1] <= SMEM_MAX
     assert geometry(2048)[0] == 0  # the host refuses a head whose one-warp ring does not fit
+    # two row tiles (F > 16): twice the ring; D = 160 keeps two warps a block
+    assert geometry(40, 2) == (4, 4 * 3 * 7680) and geometry(80, 2) == (4, 4 * 3 * 16896)
+    assert geometry(160, 2) == (2, 2 * 3 * 32256)
+    assert [row_tiles(f) for f in (1, 16, 17, 24)] == [1, 1, 2, 2]
     for d in (8, 24, 40, 64, 80, 128, 160, 256):
         rb = row_bytes(d)
         assert rb >= 2 * d and (rb // 16) % 2 == 1
