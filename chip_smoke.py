@@ -69,8 +69,9 @@ and without CUDA it exits nonzero before doing anything):
 8. onboard a synthetic talking head with the port's ``prepare_video`` on the
    card (the packaged fallback FAN behind the Haar box stage, the served
    VAE's weights from a file: bundle and ``_latents.npz``), hold the card's
-   landmarks against the CPU port's on the same 16 frames (TF32 off, and
-   for comparison on), time the FAN per 128 crops, and serve one request
+   landmarks against the CPU port's on the same 16 frames, time the FAN per
+   128 crops (the fallback, and a 2DFAN4-shaped FAN of 4 modules x 256 with
+   seeded random weights, the size real weights have), and serve one request
    with no bundle (stage 3, face detection and alignment, on the card) and
    one from the new bundle, which must record no ``device_vae_encode``;
    frame counts, and the default configuration's kernels (and no other)
@@ -1118,9 +1119,10 @@ def check_onboarding(pipeline, vae, device, counters):
     import numpy as np
     import torch
 
-    from latentsync_tpu_torch.models.face_detection import FANLandmarkDetector, HaarBoxDetector
+    from latentsync_tpu_torch.models.face_detection import (FAN2D, FANLandmarkDetector,
+                                                            HaarBoxDetector)
     from latentsync_tpu_torch.scripts import prepare_video
-    from latentsync_tpu_torch.utils.convert import load_state_dict_file
+    from latentsync_tpu_torch.utils.convert import init_random_, load_state_dict_file
     from latentsync_tpu_torch.utils.image_processor import FALLBACK_FAN_PATH
     from latentsync_tpu_torch.utils.media import read_video
 
@@ -1157,34 +1159,34 @@ def check_onboarding(pipeline, vae, device, counters):
             # the card's landmarks against the CPU port's on the same frames
             clip = list(read_video(video, change_fps=True, fps=25)[:16])
             sd = load_state_dict_file(FALLBACK_FAN_PATH)
-            lm = {}
-            for name, dev, tf32 in (("card", device, False), ("card_tf32", device, True),
-                                    ("cpu", "cpu", False)):
-                det = FANLandmarkDetector(sd, face_detector=HaarBoxDetector(), device=dev,
-                                          allow_tf32=tf32)
-                lm[name] = det.detect_batch(clip)
-            worst, share = landmark_agreement(lm["card"], lm["cpu"])
-            worst32, share32 = landmark_agreement(lm["card_tf32"], lm["cpu"])
-            good = bool(np.isfinite(lm["card"]).all()) and worst <= LM_MAX_PX \
+            lm = {dev: FANLandmarkDetector(sd, face_detector=HaarBoxDetector(), device=dev)
+                  .detect_batch(clip) for dev in (device, "cpu")}
+            worst, share = landmark_agreement(lm[device], lm["cpu"])
+            good = bool(np.isfinite(lm[device]).all()) and worst <= LM_MAX_PX \
                 and share >= LM_CLOSE_SHARE
             ok &= good
             log(f"landmarks card vs CPU, 16 frames x 68 points: max {worst:.4g} px, "
-                f"{100 * share:.2f}% within {LM_CLOSE_PX} px (TF32 off, the FAN's setting; "
-                f"with TF32 on: max {worst32:.4g} px, {100 * share32:.2f}%) "
-                f"{'ok' if good else 'FAIL'}")
+                f"{100 * share:.2f}% within {LM_CLOSE_PX} px {'ok' if good else 'FAIL'}")
 
-            # the FAN forward (and decode, and the coordinates' fetch) per 128 crops
-            det = FANLandmarkDetector(sd, device=device)
+            # the FAN forward (and decode, and the coordinates' fetch) per 128
+            # crops: the fallback, and the size of real 2DFAN4 weights
+            fan4 = init_random_(FAN2D(4, 256), seed=SEED).state_dict()
             crops = np.repeat(faces, 3, axis=0)[:128]
-            det.landmarks(crops)
-            times = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
+            for label, state in (("fallback, 1 module x 128", sd),
+                                 ("2DFAN4 shape, 4 modules x 256, random weights", fan4)):
+                det = FANLandmarkDetector(state, device=device)
                 det.landmarks(crops)
-                times.append((time.perf_counter() - t0) * 1e3)
-            log(f"FAN forward per 128 crops (fallback, 1 module, 128 wide): "
-                f"median_ms={sorted(times)[1]:.3f} all_ms={[round(v, 3) for v in times]}")
+                times = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    det.landmarks(crops)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                good = bool(np.isfinite(det.landmarks(crops[:4])).all())
+                ok &= good
+                log(f"FAN forward per 128 crops ({label}): median_ms={sorted(times)[1]:.3f} "
+                    f"all_ms={[round(v, 3) for v in times]} {'ok' if good else 'FAIL'}")
+                del det
 
             # one request with no bundle: stage 3 on the card
             res = pipeline(video, speech, os.path.join(root, "nobundle.mp4"))

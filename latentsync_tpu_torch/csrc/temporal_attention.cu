@@ -43,6 +43,7 @@
 // f32 and rounded to bf16 before p v, the product summed in f32, o rounded
 // once to bf16.
 #include "attention.cuh"
+#include "mma_sync.cuh"
 #include "wgmma.cuh"
 
 namespace ls_attn {
@@ -51,64 +52,16 @@ using ls_wg::cp_async16s;
 using ls_wg::cp_async_commit;
 using ls_wg::cp_async_wait;
 using ls_wg::pack_bf16;
+using namespace ls_mma;
 
 constexpr int T_MAX_F = 24;   // frames of a sequence, at most (two m16 row tiles)
 constexpr int T_WARPS = 4;    // warps a block, at most
 constexpr int T_STAGES = 3;   // ring stages a warp: two tasks in flight while one computes
 constexpr int T_SMEM_MAX = 232448;
 
-// bytes between two rows of a tile: D bf16 padded to an odd number of chunks
-__host__ __device__ constexpr int t_row_bytes(int d) { return ((d / 8) | 1) * 16; }
 // one stage: q, k and v of one task, 16 MT rows each
 __host__ __device__ constexpr int t_stage_bytes(int d, int mt) {
-  return 3 * 16 * mt * t_row_bytes(d);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr)
-               : "memory");
-}
-
-// d (16 x 8, f32) += a (16 x 16) x b (16 x 8), bf16 fragments in registers
-__device__ __forceinline__ void mma_k16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                        uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d (16 x 8, f32) += a (16 x 8) x b (8 x 8): the last k-step of a head dim with D % 16 == 8
-__device__ __forceinline__ void mma_k8(float (&d)[4], const uint32_t (&a)[2], uint32_t b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b0));
+  return 3 * 16 * mt * odd_row_bytes(d);
 }
 
 // MT m16 row tiles a task: 16 MT query rows against 16 MT keys, F of each real
@@ -122,7 +75,7 @@ static __global__ void __launch_bounds__(32 * T_WARPS)
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int rb = t_row_bytes(d);
+  const int rb = odd_row_bytes(d);
   const int sb = 3 * TT * rb;
   unsigned char* ring = smem_raw + (size_t)warp * T_STAGES * sb;
   const unsigned ring_s = (unsigned)__cvta_generic_to_shared(ring);
@@ -213,8 +166,8 @@ static __global__ void __launch_bounds__(32 * T_WARPS)
         ldsm_x2(a, qs + (16 * mt + (lane & 15)) * rb + kk * 2);
 #pragma unroll
         for (int kt = 0; kt < MT; ++kt) {
-          mma_k8(s[mt][2 * kt], a, b[kt][0]);
-          mma_k8(s[mt][2 * kt + 1], a, b[kt][1]);
+          mma_k8(s[mt][2 * kt], a[0], a[1], b[kt][0]);
+          mma_k8(s[mt][2 * kt + 1], a[0], a[1], b[kt][1]);
         }
       }
     }

@@ -78,10 +78,12 @@
 #pragma once
 
 #include "gemm.cuh"
+#include "mma_sync.cuh"
 
 namespace ls_tblock {
 
 using namespace ls_wg;
+using namespace ls_mma;
 
 constexpr int MAX_F = 24;        // frames of a sequence, at most (two m16 tiles)
 constexpr int RB = 128;          // bytes of a k-tile row: 64 bf16
@@ -112,9 +114,6 @@ template <int D, int MT>
 __host__ __device__ constexpr int nwg() {
   return MT == 1 ? Cfg<D>::NWG : 1;
 }
-// bytes between two rows of the MT = 2 k / v tile: D bf16 padded to an odd
-// number of 16-byte chunks
-__host__ __device__ constexpr int kv_row_bytes(int d) { return ((d / 8) | 1) * 16; }
 
 struct Args {
   const bf16* x;  // (m, c), m = batch * f
@@ -132,46 +131,6 @@ struct Args {
   bf16* out;  // (m, c)
   bf16* o;    // !Cfg<D>::OUT: the attention output (m, inner)
 };
-
-// d (16 x 8, f32) += a (16 x 16, bf16) x b (16 x 8, bf16), fragments in registers
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d (16 x 8, f32) += a (16 x 8) x b (8 x 8): the tail k-step of D % 16 == 8
-__device__ __forceinline__ void mma1688(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(b0));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr)
-               : "memory");
-}
 
 // the 8 x 8 bf16 matrix held one pair a lane (lane 4g + t: row g, columns
 // 2t, 2t+1), transposed in the same layout
@@ -194,7 +153,7 @@ __global__ void __launch_bounds__(128 * nwg<D, MT>(), 1)
     temporal_block_kernel(const Args p, int tiles) {
   constexpr int NWG = nwg<D, MT>();
   constexpr int TS = 16 * MT;              // tile rows of a sequence
-  constexpr int KVB = kv_row_bytes(D);     // MT = 2: a row of the k / v tile
+  constexpr int KVB = odd_row_bytes(D);    // MT = 2: a row of the k / v tile
   constexpr int NO = Cfg<D>::NO;
   constexpr int STAGES = Cfg<D>::STAGES;
   constexpr bool OUT = Cfg<D>::OUT;
@@ -479,7 +438,7 @@ __global__ void __launch_bounds__(128 * nwg<D, MT>(), 1)
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-          for (int kk = 0; kk < KS; ++kk) mma16816(s[nt], qa[kk], kb[nt][kk][0], kb[nt][kk][1]);
+          for (int kk = 0; kk < KS; ++kk) mma_k16(s[nt], qa[kk], kb[nt][kk][0], kb[nt][kk][1]);
       } else {  // keys from the shared k tile: this warp's sequence starts at row 32 (warp / 2)
         const unsigned ks = base + kv_off + (warp >> 1) * 32 * KVB;
         const int b_row = (lane & 7) + (lane >> 4) * 8;
@@ -491,13 +450,13 @@ __global__ void __launch_bounds__(128 * nwg<D, MT>(), 1)
             if (16 * kk + 16 <= D) {
               uint32_t b[4];
               ldsm_x4(b, ks + (16 * kt + b_row) * KVB + (16 * kk + b_col) * 2);
-              mma16816(s[2 * kt], qa[kk], b[0], b[1]);
-              mma16816(s[2 * kt + 1], qa[kk], b[2], b[3]);
+              mma_k16(s[2 * kt], qa[kk], b[0], b[1]);
+              mma_k16(s[2 * kt + 1], qa[kk], b[2], b[3]);
             } else {  // D % 16 == 8: the last k-step is 8 deep
               uint32_t b[2];
               ldsm_x2(b, ks + (16 * kt + (lane & 15)) * KVB + 16 * kk * 2);
-              mma1688(s[2 * kt], qa[kk][0], qa[kk][1], b[0]);
-              mma1688(s[2 * kt + 1], qa[kk][0], qa[kk][1], b[1]);
+              mma_k8(s[2 * kt], qa[kk][0], qa[kk][1], b[0]);
+              mma_k8(s[2 * kt + 1], qa[kk][0], qa[kk][1], b[1]);
             }
           }
         }
@@ -554,14 +513,14 @@ __global__ void __launch_bounds__(128 * nwg<D, MT>(), 1)
       for (int jj = 0; jj < JN; ++jj) {
         float o[4] = {0.f, 0.f, 0.f, 0.f};
         if constexpr (MT == 1) {
-          mma16816(o, pa[0], transpose8x8(vp[J0 + jj][0]), transpose8x8(vp[J0 + jj][1]));
+          mma_k16(o, pa[0], transpose8x8(vp[J0 + jj][0]), transpose8x8(vp[J0 + jj][1]));
         } else {  // v's B fragments from the shared v tile, 16 keys a step
           const unsigned vs = base + kv_off + BM * KVB + (warp >> 1) * 32 * KVB;
 #pragma unroll
           for (int kq = 0; kq < 2; ++kq) {
             uint32_t b[2];
             ldsm_x2_t(b, vs + (16 * kq + (lane & 15)) * KVB + 16 * (J0 + jj));
-            mma16816(o, pa[kq], b[0], b[1]);
+            mma_k16(o, pa[kq], b[0], b[1]);
           }
         }
         lo[jj] = pack_bf16(o[0] * inv0, o[1] * inv0);
@@ -701,7 +660,7 @@ cudaError_t launch(const Args& p, cudaStream_t s) {
   const int ktc = (p.c + 63) / 64;
   const int kti = Cfg<D>::OUT ? (p.inner + 63) / 64 : 0;
   const long long smem = (long long)(ktc + kti) * BM * RB + (long long)Cfg<D>::STAGES * NS * RB +
-                         (MT == 2 ? 2LL * BM * kv_row_bytes(D) : 0LL) + 1024;
+                         (MT == 2 ? 2LL * BM * odd_row_bytes(D) : 0LL) + 1024;
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
   cudaError_t e = ls_allow_smem(temporal_block_kernel<D, MT>, (size_t)smem);
   if (e != cudaSuccess) return e;

@@ -7,14 +7,15 @@ as plain torch (cuDNN on the card) in NCHW; their state dicts use the
 upstream layouts (the ``face_alignment`` package's 2DFAN4 names, and the
 S3FD ``vgg.*`` / ``extras.*`` / ``loc.*`` / ``conf.*`` names), so a
 ``.pth`` loads as it is and ``utils/convert.py`` carries the JAX
-package's parameter trees over. Box decoding, NMS and tracking stay on
-the host in numpy, as in the reference; the FAN's heatmap decode runs on
-the device and returns only the 68 coordinate pairs.
+package's parameter trees over. Box decoding and NMS stay on the host in
+numpy, as in the reference; the FAN's heatmap decode runs on the device
+and returns only the 68 coordinate pairs.
 
-TF32. cuDNN runs f32 convolutions in TF32 by default on the card, and the
-decode's quarter-pixel sign refinement flips on small heatmap differences;
-the FAN forward turns TF32 off for its own convolutions only (measured in
-``chip_smoke.py``'s onboarding phase against the CPU).
+TF32. cuDNN may run f32 convolutions in TF32 on the card, and the decode's
+quarter-pixel sign refinement flips on small heatmap differences; the FAN
+forward turns TF32 off for its own convolutions only
+(``chip_smoke.py``'s onboarding phase holds the card's landmarks against
+the CPU's).
 """
 
 from __future__ import annotations
@@ -58,55 +59,6 @@ def nms(boxes: np.ndarray, scores: np.ndarray, thresh: float = 0.3) -> List[int]
         iou = inter / (areas[i] + areas[order[1:]] - inter + 1e-9)
         order = order[1:][iou <= thresh]
     return keep
-
-
-def bounding_box_iou(a, b) -> float:
-    xx1, yy1 = max(a[0], b[0]), max(a[1], b[1])
-    xx2, yy2 = min(a[2], b[2]), min(a[3], b[3])
-    inter = max(0, xx2 - xx1) * max(0, yy2 - yy1)
-    union = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
-    return inter / (union + 1e-9)
-
-
-def iou_tracking(detections: List[np.ndarray], min_track: int = 11, iou_thresh: float = 0.5,
-                 num_failed_det: int = 25, min_face_size: float = 0.0) -> List[dict]:
-    """Greedy IoU face tracking: repeated passes each take one track; a
-    track bridges up to `num_failed_det` frames without a match, its gaps
-    are filled by per-coordinate linear interpolation, and tracks whose
-    mean box is no larger than `min_face_size` px are dropped.
-
-    detections: per-frame arrays of (x1, y1, x2, y2[, conf]) rows.
-    Returns [{"frames": [int], "boxes": [np.ndarray(4)]}]."""
-    remaining = [[np.asarray(d, np.float64) for d in dets] for dets in detections]
-    tracks: List[dict] = []
-    while True:
-        track = []  # (frame, box)
-        for f, faces in enumerate(remaining):
-            for face in list(faces):
-                if not track:
-                    track.append((f, face[:4]))
-                    faces.remove(face)
-                elif f - track[-1][0] <= num_failed_det:
-                    if bounding_box_iou(face[:4], track[-1][1]) > iou_thresh:
-                        track.append((f, face[:4]))
-                        faces.remove(face)
-                        continue
-                else:
-                    break
-        if not track:
-            break
-        if len(track) > min_track:
-            framenum = np.array([f for f, _ in track])
-            bboxes = np.array([b for _, b in track])
-            frame_i = np.arange(framenum[0], framenum[-1] + 1)
-            bboxes_i = np.stack([np.interp(frame_i, framenum, bboxes[:, c]) for c in range(4)],
-                                axis=1)
-            mean_w = np.mean(bboxes_i[:, 2] - bboxes_i[:, 0])
-            mean_h = np.mean(bboxes_i[:, 3] - bboxes_i[:, 1])
-            if max(mean_w, mean_h) > min_face_size:
-                tracks.append({"frames": [int(f) for f in frame_i],
-                               "boxes": [b.astype(np.float32) for b in bboxes_i]})
-    return tracks
 
 
 # ---------------------------------------------------------------------------
@@ -358,25 +310,6 @@ def decode_heatmaps_device(heat: torch.Tensor, scale: float = 4.0) -> torch.Tens
     return (coords + 0.5) * scale
 
 
-def heatmaps_to_landmarks(heatmaps: np.ndarray, scale: float = 4.0) -> np.ndarray:
-    """The host decode, in the reference's layout: (B, H, W, 68) → (B, 68,
-    2) sub-pixel argmax coordinates in input pixels (first maximum; the
-    ±0.25 refinement at interior points)."""
-    b, h, w, n = heatmaps.shape
-    idx = heatmaps.reshape(b, h * w, n).argmax(axis=1)
-    ys, xs = np.divmod(idx, w)
-    coords = np.stack([xs, ys], axis=-1).astype(np.float64)
-    for bi in range(b):
-        for li in range(n):
-            x, y = int(xs[bi, li]), int(ys[bi, li])
-            if 0 < x < w - 1 and 0 < y < h - 1:
-                hm = heatmaps[bi, :, :, li]
-                dx = np.sign(hm[y, x + 1] - hm[y, x - 1]) * 0.25
-                dy = np.sign(hm[y + 1, x] - hm[y - 1, x]) * 0.25
-                coords[bi, li] += (dx, dy)
-    return (coords + 0.5) * scale
-
-
 class HaarBoxDetector:
     """The face-box stage without checkpoints: the Haar anchor detector's
     box (cascade or static), widened to the full-head framing with margin
@@ -408,27 +341,24 @@ class FANLandmarkDetector:
     The architecture comes from the state dict, so one class serves 2DFAN4
     weights and the packaged one-module fallback. Crops go to the device
     as uint8 in chunks of at most 128, and only the decoded coordinates
-    come back. `allow_tf32` lets cuDNN use TF32 in the FAN's convolutions
-    (off: ``chip_smoke.py`` measures both against the CPU)."""
+    come back."""
 
     CHUNK = 128
 
-    def __init__(self, fan_state: Dict[str, torch.Tensor], face_detector=None, device=None,
-                 allow_tf32: bool = False):
+    def __init__(self, fan_state: Dict[str, torch.Tensor], face_detector=None, device=None):
         self.device = _module_device(device)
         self.model = FAN2D(*fan_shape(fan_state))
         _load(self.model, fan_state)
         self.model.to(self.device).eval()
         self.face_detector = face_detector
-        self.allow_tf32 = allow_tf32
 
-    def _tf32(self):
-        """cuDNN's TF32 as `allow_tf32` says, for the FAN's convolutions only."""
+    def _no_tf32(self):
+        """cuDNN without TF32, for the FAN's convolutions only."""
         if self.device.type != "cuda":
             return contextlib.nullcontext()
         b = torch.backends.cudnn
         return b.flags(enabled=b.enabled, benchmark=b.benchmark, deterministic=b.deterministic,
-                       allow_tf32=self.allow_tf32)
+                       allow_tf32=False)
 
     @torch.inference_mode()
     def landmarks(self, crops_u8: np.ndarray) -> np.ndarray:
@@ -437,7 +367,7 @@ class FANLandmarkDetector:
         for i in range(0, len(crops_u8), self.CHUNK):
             x = torch.from_numpy(np.ascontiguousarray(crops_u8[i:i + self.CHUNK]))
             x = x.to(self.device).permute(0, 3, 1, 2).float() / 255.0
-            with self._tf32():
+            with self._no_tf32():
                 heat = self.model(x)[-1]
             out[i:i + len(x)] = decode_heatmaps_device(heat).cpu().numpy()
         return out

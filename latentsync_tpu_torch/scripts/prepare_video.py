@@ -10,10 +10,12 @@ detector: ``$LATENTSYNC_FAN_CKPT``, else the packaged fallback FAN). With
 ``--vae-ckpt`` (a state dict of the port's VAE: ``.pth`` / ``.pt``, or an
 ``.npz`` of its names or of the JAX package's tree) it also writes
 ``<avatar-id>_latents.npz`` (``LipsyncPipeline.precompute_avatar_latents``),
-so that requests for the avatar skip the VAE encode; ``--dtype`` must be
-the serving pipeline's (bfloat16 by default), or the artifact reads as
-stale. Runs on the card unless ``--device cpu``. Prints one JSON line of
-the paths written and the seconds each stage took.
+so that requests for the avatar skip the VAE encode. The VAE runs in
+bfloat16, the serving pipeline's dtype: a pipeline whose VAE weights are in
+another dtype reads the artifact as stale and encodes anew. The video is
+read at 25 fps, as requests read it. Runs on the card unless ``--device
+cpu``. Prints one JSON line of the paths written and the seconds each stage
+took.
 """
 
 from __future__ import annotations
@@ -35,10 +37,8 @@ def main(argv=None) -> int:
     p.add_argument("--avatar-id", required=True)
     p.add_argument("--store", default=os.path.join(tempfile.gettempdir(), "avatars"))
     p.add_argument("--resolution", type=int, default=256)
-    p.add_argument("--fps", type=int, default=25)
     p.add_argument("--vae-ckpt", default=None,
                    help="also precompute the avatar's VAE latents (masked and reference)")
-    p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
@@ -59,7 +59,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     processor = ImageProcessor(args.resolution, device=device)
     record["bundle"] = generate_affine_bundle(
-        processor, video_dst, os.path.join(args.store, args.avatar_id + ".npz"), fps=args.fps)
+        processor, video_dst, os.path.join(args.store, args.avatar_id + ".npz"))
     record["faces_s"] = time.time() - t0
 
     if args.vae_ckpt:
@@ -72,8 +72,8 @@ def main(argv=None) -> int:
         cfg = LatentSyncConfig()
         vae = AutoencoderKL(cfg.vae)
         vae.load_state_dict(load_state_dict_file(args.vae_ckpt, vae_state_dict_from_flax))
-        pipe = LipsyncPipeline(None, vae, None, cfg, dtype=getattr(torch, args.dtype),
-                               device=device, landmark_detector=processor.landmark_detector)
+        pipe = LipsyncPipeline(None, vae, None, cfg, device=device,
+                               landmark_detector=processor.landmark_detector)
         record["latents"] = pipe.precompute_avatar_latents(record["bundle"],
                                                            height=args.resolution)
         record["latents_s"] = time.time() - t0

@@ -4,7 +4,7 @@ The FAN (two modules of width 32 on 64² inputs, and the packaged one-module
 fallback), S3FD (128² input) and their decoders, with random non-zero
 weights and batch-norm statistics made from a numpy seed in the JAX
 package's layout and carried into the port by ``utils/convert.py``'s
-inverses; the two-pass ``detect_batch``; box utilities and tracking; the
+inverses; the two-pass ``detect_batch``; box decoding and NMS; the
 host geometry of ``utils/face.py``; every mask mode; and the resizes, which
 must equal OpenCV's as the JAX package calls it. Inputs are transposed at
 the boundary: the JAX package is channels-last, the port NCHW.
@@ -143,14 +143,14 @@ def _heatmaps(seed: int):
 
 
 def test_heatmap_decoders_match_jax_with_ties_and_edges():
+    """The port's one decoder (on the device) against both of the JAX
+    package's, the device one and the numpy one, exactly."""
     heat = _heatmaps(1)
     j_dev = np.asarray(jfd.decode_heatmaps_device(jnp.asarray(heat)))
     j_host = jfd.heatmaps_to_landmarks(heat)
     p_dev = pfd.decode_heatmaps_device(_nchw(heat)).numpy()
-    p_host = pfd.heatmaps_to_landmarks(heat)
     np.testing.assert_array_equal(p_dev, j_dev)
-    np.testing.assert_array_equal(p_host, j_host)
-    np.testing.assert_allclose(p_dev, p_host, atol=1e-5)
+    np.testing.assert_array_equal(p_dev, j_host)
     assert tuple(p_dev[0, 0]) == ((20 + 0.5) * 4, (10 + 0.5) * 4)
     assert tuple(p_dev[0, 1]) == ((40 + 0.5) * 4, (40 + 0.25 * np.sign(
         heat[0, 41, 40, 1] - heat[0, 39, 40, 1]) + 0.5) * 4)
@@ -229,7 +229,7 @@ def test_s3fd_matches_jax():
         np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-3)
 
 
-def test_box_utilities_and_tracking_match_jax():
+def test_box_utilities_match_jax():
     rng = np.random.default_rng(0)
     loc = rng.standard_normal((50, 4)).astype(np.float32)
     priors = np.abs(rng.standard_normal((50, 4))).astype(np.float32) * 50
@@ -239,22 +239,6 @@ def test_box_utilities_and_tracking_match_jax():
     scores = rng.random(60)
     for thresh in (0.1, 0.3, 0.7):
         assert pfd.nms(boxes, scores, thresh) == jfd.nms(boxes, scores, thresh)
-    assert pfd.bounding_box_iou(boxes[0], boxes[1]) == jfd.bounding_box_iou(boxes[0], boxes[1])
-    # two faces over 60 frames, one lost for 8 frames, plus stray boxes
-    dets = []
-    for f in range(60):
-        rows = [[10 + f, 20, 90 + f, 110, 0.9]]
-        if not 20 <= f < 28:
-            rows.append([200, 40 + f / 2, 280, 130 + f / 2, 0.8])
-        if f % 13 == 0:
-            rows.append([400, 300, 410, 305, 0.5])
-        dets.append(np.array(rows))
-    for kw in ({}, {"min_track": 5, "num_failed_det": 5}, {"min_face_size": 50.0}):
-        got = pfd.iou_tracking(dets, **kw)
-        ref = jfd.iou_tracking(dets, **kw)
-        assert [t["frames"] for t in got] == [t["frames"] for t in ref]
-        for g, r in zip(got, ref):
-            np.testing.assert_array_equal(np.stack(g["boxes"]), np.stack(r["boxes"]))
 
 
 def test_similarity_smoother_and_anchors_match_jax():

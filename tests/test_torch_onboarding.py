@@ -15,6 +15,7 @@ faces equal in uint8 but for a rounding step on a few values where a
 LANCZOS4 tap sits on a rounding boundary, latents within 1e-4.
 """
 
+import copy
 import os
 import warnings
 
@@ -267,8 +268,9 @@ def test_prepare_video_entry_point(setup, tmp_path, monkeypatch, capsys):
     """The onboarding entry point on the CPU: the video copied into the
     store, the bundle from the default landmark detector (here the small
     FAN as a ``.pth`` at ``$LATENTSYNC_FAN_CKPT``), and with a VAE file the
-    latent artifact, which a serving pipeline of the same weights and dtype
-    reads as valid."""
+    latent artifact, which a serving pipeline of the same weights in
+    bfloat16 (the serving dtype, in which the entry point encodes) reads as
+    valid."""
     root, _, pdet, pipes, vae = setup
     fan_path = str(tmp_path / "fan.pth")
     torch.save(pdet.model.state_dict(), fan_path)
@@ -281,14 +283,17 @@ def test_prepare_video_entry_point(setup, tmp_path, monkeypatch, capsys):
     store = str(tmp_path / "store")
     rc = prepare_video.main(["--video", str(root / "avatar.mp4"), "--avatar-id", "carol",
                              "--store", store, "--resolution", str(RES), "--device", "cpu",
-                             "--dtype", "float32", "--vae-ckpt", vae_path])
+                             "--vae-ckpt", vae_path])
     assert rc == 0
     record = __import__("json").loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert record["bundle"] == os.path.join(store, "carol.npz")
     assert record["latents"] == os.path.join(store, "carol_latents.npz")
     faces, boxes, mats = part.load_affine_bundle(record["bundle"])
     assert faces.shape == (N_FRAMES, RES, RES, 3) and len(boxes) == len(mats) == N_FRAMES
-    port, _ = pipes["fix_mask"]
+    f32, _ = pipes["fix_mask"]
+    port = LipsyncPipeline(copy.deepcopy(f32.unet), copy.deepcopy(f32.vae), f32.audio_encoder,
+                           f32.config, device="cpu", landmark_detector=pdet)
+    assert port.dtype == torch.bfloat16
     calls = _spy_encodes(port, monkeypatch)
     state = port.prepare(record["video"], str(root / "speech.wav"),
                          data_path=record["bundle"])

@@ -194,8 +194,8 @@ def movmatrix_trans(pairs):
 
 
 def kv_row_bytes(d: int) -> int:
-    """A row of the MT = 2 k / v tile: D bf16 padded to an odd number of
-    16-byte chunks."""
+    """A row of the MT = 2 k / v tile, odd_row_bytes (csrc/mma_sync.cuh): D
+    bf16 padded to an odd number of 16-byte chunks."""
     return ((d // 8) | 1) * 16
 
 

@@ -50,7 +50,8 @@ SMEM_MAX = 232448   # dynamic shared memory a block may have
 
 
 def row_bytes(d: int) -> int:
-    """t_row_bytes: D bf16 padded to an odd number of 16-byte chunks."""
+    """odd_row_bytes (csrc/mma_sync.cuh): D bf16 padded to an odd number of
+    16-byte chunks."""
     return ((d // 8) | 1) * 16
 
 
