@@ -14,7 +14,9 @@ and without CUDA it exits nonzero before doing anything):
    the kernels only the kernel probe runs (K9 fused q/k/v projection, K10
    int8-in/int8-out GEGLU, K11 one-shot attention, K12 streaming attention,
    and the flash route at head dims 40 and 80), at every shape the probe
-   gives them at its default 4 windows (K10 up to C = 1280); K2's temporal
+   gives them at its default 4 windows (K10 up to C = 1280); K1, K2 (both
+   modes), K3 and K4 also at the half-batch shapes of a step outside the
+   CFG interval (window batch 2, no CFG batch); K2's temporal
    mode and K3 also at F = 8 and 24 frames; K1, K2 and K9 also at one shape
    whose K is no multiple of the GEMM template's 64-deep k-tile and whose M
    and N are ragged; time both with CUDA events, and beside them the one
@@ -76,6 +78,23 @@ and without CUDA it exits nonzero before doing anything):
    one from the new bundle, which must record no ``device_vae_encode``;
    frame counts, and the default configuration's kernels (and no other)
    launched in this phase.
+9. the reference's production serving point (``LATENTSYNC_INT8=1
+   LATENTSYNC_DEEPCACHE=4:1:enc LATENTSYNC_CFG_INTERVAL=0:0.5``): at batch 4
+   a depth-1 write step (plain, ``enc``, ``enc:1``) equals the exact
+   forward bit for bit, a read fed its true cache agrees with it within
+   UNET_TOL, a stale cache moves it, and one ``enc`` read launches K1, K2
+   and K4 and no K3; the kernel probe's ``dcread`` mode at batch 4 and 2
+   with each variant's device kernels and device ms; one window batch
+   denoised at the exact trajectory and at the FLOP cuts in the default and
+   int8 configurations (wall, events, device ms, launches; the distance
+   from the exact trajectory printed, not gated); three concurrent requests
+   served with continuous batching at the production point, one device
+   batch holding windows of two requests (1.8 s, 2.6 s and 1.8 s of
+   audio: 3, 5 and 3 windows) and the int8 configuration's
+   kernels (and no other) launched; three clips through ``run_pipelined``
+   in job order beside the same clips one after another; and
+   ``python -m latentsync_tpu_torch.scripts.inference --fast --device cuda``
+   in a subprocess.
 
 The line before the last is a JSON object with each kernel's launches on
 its path (``"path"``: the served configuration, ``probe`` or, for K12,
@@ -88,6 +107,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
 import math
 import os
@@ -119,7 +139,13 @@ CONFIGS = {
     "int8": {"LATENTSYNC_INT8": "1"},
     "int8-dense": {"LATENTSYNC_INT8": "1", "LATENTSYNC_INT8_DENSE": "pallas"},
 }
-SWITCHES = sorted({k for env in CONFIGS.values() for k in env})
+# the reference's production serving point and --fast mode (bench.py:32-53,
+# scripts/inference.py:139-150): int8 with DeepCache 4:1:enc and CFG on the
+# first half of the trajectory
+FLOP_CUTS = {"LATENTSYNC_DEEPCACHE": "4:1:enc", "LATENTSYNC_CFG_INTERVAL": "0:0.5"}
+SWITCHES = sorted({k for env in CONFIGS.values() for k in env} | set(FLOP_CUTS))
+CACHE_MODES = {"plain": {}, "enc": {"cache_encoder": True},
+               "enc:1": {"cache_encoder": True, "cache_sub": 1}}
 # (M, K, N) of every K8 launch of one int8-dense forward at batch 4, 16
 # frames, 32² latents: the q/k/v/out, GEGLU up and down projections of the
 # spatial and temporal blocks at each level, and the audio context's k/v
@@ -185,11 +211,14 @@ def exp_rate() -> float:
 
 
 @contextlib.contextmanager
-def configured(conf: str):
-    """The switches of configuration `conf`, and no other, for the duration
-    (the port reads them at each call)."""
+def configured(conf: str, cuts: bool = False):
+    """The switches of configuration `conf` (with `cuts`, and the FLOP cuts
+    of the production point), and no other, for the duration (the port
+    reads them at each call)."""
     old = {k: os.environ.pop(k, None) for k in SWITCHES}
     os.environ.update(CONFIGS[conf])
+    if cuts:
+        os.environ.update(FLOP_CUTS)
     try:
         yield
     finally:
@@ -388,6 +417,9 @@ def kernel_cases():
              "latentsync_tpu_torch/csrc/geglu.cu", "latentsync_tpu/ops/ffn.py:82",
              [ffn_args(65536, 320), ffn_args(16384, 640), ffn_args(4096, 1280),
               ffn_args(1024, 1280),
+              # a step outside the CFG interval (window batch 2, no CFG batch)
+              ffn_args(32768, 320), ffn_args(8192, 640), ffn_args(2048, 1280),
+              ffn_args(512, 1280),
               # K no multiple of the 64-deep k-tile, ragged M and N: the
               # zero-filled last tile and the masks
               ffn_args(200, 72)], library_ffn),
@@ -400,7 +432,10 @@ def kernel_cases():
               block_args(13, 16, 120, True, heads=3),
               # F != 16: sequences padded to 16 tile rows (F = 8) and to 32 (F = 24)
               block_args(4096, 8, 320, True), block_args(4096, 24, 320, True),
-              block_args(1024, 8, 640, True), block_args(1024, 24, 640, True)],
+              block_args(1024, 8, 640, True), block_args(1024, 24, 640, True),
+              # half batch
+              block_args(2048, 16, 320, True), block_args(512, 16, 640, True),
+              block_args(32, 256, 640, False)],
              library_block),
         case("temporal_attention", ta.temporal_attention, ta.temporal_attention_reference,
              "latentsync_tpu_torch/csrc/temporal_attention.cu",
@@ -411,7 +446,9 @@ def kernel_cases():
               # q/k/v pitched inside one fused projection (head dim 40)
               attn_args(64, 16, 320, sliced=True),
               # F != 16: one row tile, keys past F masked (8); two row tiles (24)
-              attn_args(256, 8, 1280), attn_args(256, 24, 1280)], sdpa_rows),
+              attn_args(256, 8, 1280), attn_args(256, 24, 1280),
+              # half batch
+              attn_args(128, 16, 1280), attn_args(32, 16, 1280)], sdpa_rows),
         case("spatial_attention", ta.spatial_attention, ta.spatial_attention_reference,
              "latentsync_tpu_torch/csrc/spatial_attention.cu",
              "latentsync_tpu/ops/temporal_attention.py:173",
@@ -419,7 +456,10 @@ def kernel_cases():
               attn_args(64, 256, 640),  # int8-dense's block at C = 640
               # a length that is no multiple of the key tile, and K2's spatial
               # mode: q/k/v pitched inside one fused projection
-              attn_args(2, 100, 320), attn_args(64, 256, 640, sliced=True)], sdpa_rows),
+              attn_args(2, 100, 320), attn_args(64, 256, 640, sliced=True),
+              # half batch
+              attn_args(32, 1024, 320), attn_args(32, 64, 1280), attn_args(32, 16, 1280)],
+             sdpa_rows),
         case("dot_product_attention", attention.dot_product_attention,
              attention.dot_product_attention_reference,
              "latentsync_tpu_torch/csrc/flash_attention.cu", "latentsync_tpu/ops/attention.py:85",
@@ -528,18 +568,17 @@ KERNELS_A_CALL = {
 }
 
 
-def kernels_a_call(fn, attempts: int = 8):
-    """(the port's device kernels, torch's device kernels) that one call of
-    `fn` launches, from ``torch.profiler``: torch's are named ``at::...``
-    (the wrapper's casts of parameters), the port's are not. A call launches
-    at least one kernel, so a trace with none lost its events (it happens
-    on the card now and then, sometimes for several traces in a row): it is
-    taken again, up to `attempts` times, each after a longer pause."""
+def device_kernels(fn, attempts: int = 8):
+    """[(name, device µs)] of the device kernels one call of `fn` launches,
+    from ``torch.profiler``. A call launches at least one kernel, so a
+    trace with none lost its events (it happens on the card now and then,
+    sometimes for several traces in a row): it is taken again, up to
+    `attempts` times, each after a longer pause."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    names = []
+    kernels = []
     for attempt in range(attempts):
         if attempt:
             time.sleep(0.25 * attempt)
@@ -547,11 +586,26 @@ def kernels_a_call(fn, attempts: int = 8):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if names:
+        kernels = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels:
             break
+    return kernels
+
+
+def kernels_a_call(fn, attempts: int = 8):
+    """(the port's device kernels, torch's device kernels) that one call of
+    `fn` launches: torch's are named ``at::...`` (the wrapper's casts of
+    parameters), the port's are not."""
+    names = [n for n, _ in device_kernels(fn, attempts)]
     port = [n for n in names if "at::" not in n]
     return len(port), len(names) - len(port)
+
+
+def device_busy(fn):
+    """(device kernels, their summed device ms) of one call of `fn`."""
+    kernels = device_kernels(fn)
+    return len(kernels), sum(us for _, us in kernels) / 1e3
 
 
 def check_kernels(device):
@@ -888,7 +942,8 @@ def make_avatar(root: str, n_frames: int = 40, size: int = 576, crop_at: int = 3
     np.savez(os.path.join(root, "avatar.npz"), faces=faces,
              boxes=np.tile([0, 0, 512, 512], (n_frames, 1)),
              affine_matrices=np.repeat(mat[None], n_frames, 0))
-    return {sec: write_speech(os.path.join(root, f"speech_{sec}.wav"), sec) for sec in (1.2, 2.4)}
+    return {f"{sec}s": write_speech(os.path.join(root, f"speech_{sec}.wav"), sec)
+            for sec in (1.2, 2.4)}
 
 
 def check_finish_fetch(pipeline, device) -> bool:
@@ -959,10 +1014,13 @@ def check_finish_fetch(pipeline, device) -> bool:
     return good
 
 
-def serve_requests(pipeline, root: str, audios, plan, counters, conf: str):
-    """Serve `plan` [(seconds of audio, frames wanted)] in configuration
-    `conf` with every count at 0 first; the kernels of that configuration
-    (``ON_PATH``) must launch, and every other counted one must not."""
+def serve_requests(pipeline, root: str, audios, plan, counters, conf: str, cuts: bool = False,
+                   on_state=None, **state_kw):
+    """Serve `plan` [(audio, frames wanted)] in configuration `conf` (with
+    `cuts`, at the production point's FLOP cuts) with every count at 0
+    first; the kernels of that configuration (``ON_PATH``) must launch, and
+    every other counted one must not. `state_kw` go to ``ServingState``,
+    which `on_state` sees before the first request."""
     import torch
 
     from latentsync_tpu_torch.serving.api import ServingState, make_handler
@@ -970,16 +1028,21 @@ def serve_requests(pipeline, root: str, audios, plan, counters, conf: str):
     from latentsync_tpu_torch.utils.media import read_video
     from http.server import ThreadingHTTPServer
 
-    state = ServingState(pipeline, AvatarStore(root), os.path.join(root, "out"))
+    state = ServingState(pipeline, AvatarStore(root), os.path.join(root, "out"), **state_kw)
+    if on_state is not None:
+        on_state(state)
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
     ok, jobs, launches = True, [], {}
+    label = conf + (" + FLOP cuts" if cuts else "")
+    # requests that overlap share the stream: their device_* stages are inclusive
+    stages_note = " (device_* inclusive)" if state_kw.get("continuous_batching") else ""
     try:
         for fn in counters:
             fn.launches = 0
-        with configured(conf):
+        with configured(conf, cuts):
             jobs = submit_all(base, audios, plan)
             done = wait_all(base, jobs)
         torch.cuda.synchronize()
@@ -994,10 +1057,10 @@ def serve_requests(pipeline, root: str, audios, plan, counters, conf: str):
             tm = job.get("timings", {})
             overlap = tm.get("vae_decode", float("nan")) + tm.get("restore", float("nan")) \
                 - tm.get("decode_restore_total", float("nan"))
-            log(f"request ({conf}) audio={sec}s status={job['status']} frames={frames} "
+            log(f"request ({label}) audio={sec} status={job['status']} frames={frames} "
                 f"(want {want}) latency_s={job.get('latency_s', float('nan')):.3f} "
                 f"worker_s={job.get('elapsed', float('nan')):.3f} overlap_s={overlap:.3f} "
-                f"stages={json.dumps(job.get('timings', {}), sort_keys=True)} "
+                f"stages{stages_note}={json.dumps(job.get('timings', {}), sort_keys=True)} "
                 f"{'ok' if good else 'FAIL ' + str(job.get('error', ''))}")
     finally:
         server.shutdown()
@@ -1008,7 +1071,7 @@ def serve_requests(pipeline, root: str, audios, plan, counters, conf: str):
         want_some = name in ON_PATH[conf]
         good = n > 0 if want_some else n == 0
         ok &= good
-        log(f"launches on the served path ({conf}): {name}={n} "
+        log(f"launches on the served path ({label}): {name}={n} "
             f"{'ok' if good else 'FAIL'}{'' if want_some else ' (must be 0)'}")
     return launches, ok
 
@@ -1081,16 +1144,17 @@ def make_face_video(path: str, n_frames: int = 48, size: int = 320):
     return frames
 
 
-def write_speech(path: str, sec: float) -> str:
-    """`sec` seconds of a 220 Hz tone, amplitude-modulated at 3 Hz, with
-    seeded noise: a 16 kHz WAV."""
+def write_speech(path: str, sec: float, seed: int = SEED) -> str:
+    """`sec` seconds of a tone (220 Hz, another pitch for another seed),
+    amplitude-modulated at 3 Hz, with seeded noise: a 16 kHz WAV."""
     import numpy as np
 
     from latentsync_tpu_torch.utils.media import write_audio
 
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     tt = np.arange(int(16000 * sec)) / 16000.0
-    wave = 0.3 * np.sin(2 * np.pi * 220 * tt) * (1 + np.sin(2 * np.pi * 3 * tt)) \
+    hz = 220 + 20 * (seed - SEED)
+    wave = 0.3 * np.sin(2 * np.pi * hz * tt) * (1 + np.sin(2 * np.pi * 3 * tt)) \
         + 0.05 * rng.standard_normal(tt.shape)
     write_audio(path, wave.astype(np.float32))
     return path
@@ -1267,6 +1331,283 @@ def run_probe(device, counters):
     return launches, ok
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the production serving point
+# ---------------------------------------------------------------------------
+
+
+def _rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _tree(fn, tree):
+    return tuple(_tree(fn, t) for t in tree) if isinstance(tree, tuple) else fn(tree)
+
+
+def check_deepcache(unet, device, counters) -> bool:
+    """Phase 9.1, at batch 4 in the default configuration: a depth-1 write
+    step (plain, ``enc``, ``enc:1``) is the exact forward bit for bit, a
+    read fed its true cache agrees with it within UNET_TOL and a stale
+    cache (x 1.5) moves it; one ``enc`` read launches K1, K2 and K4 and no
+    K3 (the wrappers' counts, set to 0 just before it), and its device
+    kernels are counted by ``torch.profiler``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    cfg = unet.config
+    x = torch.randn((4, cfg.in_channels, 16, 32, 32), generator=gen).to(device, torch.bfloat16)
+    audio = torch.randn((4, 16, 50, cfg.cross_attention_dim), generator=gen).to(
+        device, torch.bfloat16)
+    t = torch.full((4,), 501, device=device)
+    ok = True
+    with torch.inference_mode(), configured("default"):
+        base = unet(x, t, audio)
+        for mode, kw in CACHE_MODES.items():
+            eps, cache = unet(x, t, audio, cache_depth=1, **kw)
+            bitwise = torch.equal(eps, base)
+            read, _ = unet(x, t, audio, deep_cache=cache, cache_depth=1, cache_read=True, **kw)
+            stale, _ = unet(x, t, audio, deep_cache=_tree(lambda c: c * 1.5, cache),
+                            cache_depth=1, cache_read=True, **kw)
+            rel, rel_stale = _rel_l2(read, base), _rel_l2(stale, base)
+            good = bitwise and bool(torch.isfinite(read).all()) and rel <= UNET_TOL \
+                and rel_stale > max(rel, 1e-3)
+            ok &= good
+            log(f"deepcache depth 1 {mode:5s} batch 4: write == exact forward bitwise={bitwise}; "
+                f"read (true cache) rel_l2={rel:.6g} tol={UNET_TOL}; stale cache (x1.5) "
+                f"rel_l2={rel_stale:.6g} {'ok' if good else 'FAIL'}")
+            del eps, cache, read, stale
+        kw = CACHE_MODES["enc"]
+        _, cache = unet(x, t, audio, cache_depth=1, **kw)
+
+        def enc_read():
+            unet(x, t, audio, deep_cache=cache, cache_depth=1, cache_read=True, **kw)
+
+        for fn in counters:
+            fn.launches = 0
+        enc_read()
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in counters}
+        n_dev, dev_ms = device_busy(enc_read)
+    ran = {k: counts[k] for k in ("geglu_ffn", "self_attention_block", "spatial_attention")}
+    good = counts["temporal_attention"] == 0 and all(ran.values()) and n_dev > 0
+    ok &= good
+    log(f"one enc read at batch 4: temporal_attention={counts['temporal_attention']} "
+        f"(must be 0) {' '.join(f'{k}={v}' for k, v in ran.items())} (must be > 0); "
+        f"{n_dev} device kernels, {dev_ms:.3f} device ms {'ok' if good else 'FAIL'}")
+    return ok
+
+
+def run_dcread(unet, device) -> bool:
+    """Phase 9.2: the probe's ``dcread`` mode in process at batch 4 and 2
+    (``--w`` 2 and 1) on the served model, and beside each of its three
+    variants the device kernels and device ms of one call
+    (``torch.profiler``)."""
+    import torch
+
+    from latentsync_tpu_torch.scripts import micro_probe
+
+    ok = True
+    cfg = unet.config
+    for w in (2, 1):
+        b = 2 * w
+        probe = micro_probe.Probe(device, w=w, iters=10,
+                                  emit=lambda rec: log("probe " + json.dumps(rec)))
+        with configured("default"):
+            micro_probe.run(probe, "dcread", unet=unet)
+            gen = torch.Generator().manual_seed(SEED + 8)
+            x = torch.randn((b, cfg.in_channels, 16, 32, 32), generator=gen).to(
+                device, torch.bfloat16)
+            audio = torch.randn((b, 16, 50, cfg.cross_attention_dim), generator=gen).to(
+                device, torch.bfloat16)
+            t = torch.full((b,), 500, device=device)
+            with torch.inference_mode():
+                caches = {name: unet(x, t, audio, cache_depth=1, **CACHE_MODES[name])[1]
+                          for name in ("plain", "enc")}
+                calls = {"full": lambda: unet(x, t, audio)}
+                for name in ("plain", "enc"):
+                    calls[f"read_{name}"] = functools.partial(
+                        unet, x, t, audio, deep_cache=caches[name], cache_depth=1,
+                        cache_read=True, **CACHE_MODES[name])
+                busy = {name: device_busy(fn) for name, fn in calls.items()}
+            del caches
+        ms = {rec["name"]: rec["ms"] for rec in probe.results}
+        for name, (n_dev, dev_ms) in busy.items():
+            probe_ms = ms.get(f"unet_{name}_b{b}", float("nan"))
+            good = math.isfinite(probe_ms) and probe_ms > 0 and n_dev > 0
+            ok &= good
+            log(f"dcread batch {b} {name:10s}: ms={probe_ms:.3f} (probe, CUDA events over "
+                f"chained calls) device_kernels={n_dev} device_ms={dev_ms:.3f} "
+                f"{'ok' if good else 'FAIL'}")
+    torch.cuda.empty_cache()
+    return ok
+
+
+def time_denoise(pipeline, device, counters) -> bool:
+    """Phase 9.3: one window batch (W = 2, 20 DDIM steps, CFG 1.5) at the
+    exact trajectory and at the production point's FLOP cuts, in the
+    default and the int8 configuration, warm: wall time, the CUDA events'
+    span on the stream, the device kernels' sum (``torch.profiler``, one
+    more call) and the wrappers' launches. Latents finite; the relative L2
+    from the exact trajectory is printed, not gated (random weights)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 9)
+    w, f, lat = 2, 16, 32
+    lat0 = (torch.randn((1, 1, lat, lat, 4), generator=gen)
+            .expand(w, f, lat, lat, 4).to(device))
+    mask = torch.ones((w, f, lat, lat, 1), device=device)
+    masked, ref = (torch.randn((w, f, lat, lat, 4), generator=gen).to(device) for _ in range(2))
+    audio = torch.randn((w, f, 50, 384), generator=gen).to(device)
+
+    def denoise():
+        return pipeline._denoise(lat0, mask, masked, ref, audio, 20, 1.5)
+
+    ok = True
+    for conf in ("default", "int8"):
+        exact = None
+        for cuts in (False, True):
+            with configured(conf, cuts):
+                denoise()
+                for fn in counters:
+                    fn.launches = 0
+                torch.cuda.synchronize()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                t0 = time.perf_counter()
+                start.record()
+                out = denoise()
+                end.record()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                launches = {fn.__name__: fn.launches for fn in counters if fn.launches}
+                n_dev, dev_ms = device_busy(denoise)
+            finite = bool(torch.isfinite(out).all())
+            good = finite and tuple(out.shape) == (w, f, lat, lat, 4)
+            ok &= good
+            rel = "" if exact is None else f" rel_l2_vs_exact={_rel_l2(out, exact):.6g}"
+            label = "4:1:enc + 0:0.5" if cuts else "exact"
+            log(f"denoise W=2 20 steps ({conf}, {label}): wall_ms={wall_ms:.3f} "
+                f"events_ms={start.elapsed_time(end):.3f} device_kernels={n_dev} "
+                f"device_ms={dev_ms:.3f} launches={json.dumps(launches, sort_keys=True)} "
+                f"finite={finite}{rel} {'ok' if good else 'FAIL'}")
+            if exact is None:
+                exact = out
+    return ok
+
+
+def serve_production(pipeline, root: str, counters):
+    """Phase 9.4: three concurrent requests (1.8 s, 2.6 s and 1.8 s of three
+    different speech tracks: 3, 5 and 3 windows) over HTTP, continuous
+    batching (two workers, batches of two windows), at the production point.
+    A request submits its windows together, so at batches of two an even
+    count pairs up within the request; an odd one leaves a window to share
+    a batch with the next request's. The batch function is wrapped here to
+    name the request of each window of a batch (each window's audio against
+    the windows ``prepare`` gave each request): at least one batch must
+    hold windows of two requests."""
+    import torch
+
+    audios = {f"{sec}s #{i}": write_speech(os.path.join(root, f"prod_{i}.wav"), sec,
+                                           seed=SEED + 1 + i)
+              for i, sec in enumerate((1.8, 2.6, 1.8))}
+    plan = [(label, 80 if label.startswith("2.6") else 48) for label in audios]
+    lock = threading.Lock()
+    prepared, requests_a_batch = [], []
+    prepare = pipeline.prepare
+
+    def prepare_spy(*a, **k):
+        state = prepare(*a, **k)
+        with lock:
+            prepared.append(state.audio_w)
+        return state
+
+    def wrap(state):
+        batcher = state._batchers[(20, 1.5)]
+        batch_fn = batcher.batch_fn
+
+        def batch_spy(stacked):
+            with lock:
+                known = list(enumerate(prepared))
+            owners = {j for row in stacked["audio"] for j, windows in known
+                      if any(torch.equal(row, win) for win in windows)}
+            requests_a_batch.append(len(owners))
+            return batch_fn(stacked)
+
+        batcher.batch_fn = batch_spy
+
+    pipeline.prepare = prepare_spy
+    try:
+        launches, ok = serve_requests(pipeline, root, audios, plan, counters, "int8", cuts=True,
+                                      on_state=wrap, continuous_batching=True, batch_windows=2,
+                                      num_workers=2)
+    finally:
+        del pipeline.prepare
+    good = len(prepared) == 3 and max(requests_a_batch, default=0) >= 2
+    ok &= good
+    log(f"continuous batching: {len(requests_a_batch)} device batches of 2 windows, requests "
+        f"a batch {requests_a_batch} (one must hold two) {'ok' if good else 'FAIL'}")
+    return launches, ok
+
+
+def check_pipelined(pipeline, root: str, audios) -> bool:
+    """Phase 9.5: three clips (1.2 s, 2.4 s, 1.2 s) through ``run_pipelined``
+    in the default configuration: outputs in job order with the right frame
+    counts; its wall time beside the sum of the three clips served one after
+    another in the same call. Overlapped clips share the stream, so their
+    ``device_*`` stages are inclusive."""
+    from latentsync_tpu_torch.utils.media import read_video
+
+    video, bundle = os.path.join(root, "avatar.mp4"), os.path.join(root, "avatar.npz")
+    plan = [("1.2s", 32), ("2.4s", 64), ("1.2s", 32)]
+    ok = True
+    with configured("default"):
+        serial_s = 0.0
+        for i, (key, _) in enumerate(plan):
+            t0 = time.time()
+            pipeline(video, audios[key], os.path.join(root, f"serial_{i}.mp4"), data_path=bundle)
+            serial_s += time.time() - t0
+        jobs = [(video, audios[key], os.path.join(root, f"pipelined_{i}.mp4"))
+                for i, (key, _) in enumerate(plan)]
+        t0 = time.time()
+        outs = pipeline.run_pipelined(jobs, data_path=bundle)
+        wall_s = time.time() - t0
+    for (_, _, path), out, (key, want) in zip(jobs, outs, plan):
+        frames = read_video(out.video_path, change_fps=False).shape[0]
+        good = out.video_path == path and out.num_frames == want == frames
+        ok &= good
+        log(f"run_pipelined clip audio={key}: frames={frames} (want {want}) total_s="
+            f"{out.elapsed['total']:.3f} device_denoise_s (inclusive)="
+            f"{out.elapsed.get('device_denoise', float('nan')):.3f} {'ok' if good else 'FAIL'}")
+    log(f"run_pipelined: 3 clips in {wall_s:.3f} s wall, the same clips one after another "
+        f"{serial_s:.3f} s (ratio {wall_s / serial_s:.3f})")
+    return ok
+
+
+def run_cli(root: str, audios) -> bool:
+    """Phase 9.6: ``python -m latentsync_tpu_torch.scripts.inference --fast
+    --device cuda`` in a subprocess on the synthetic avatar and its bundle
+    (random seeded weights: no checkpoint files): it exits 0 and its JSON
+    line has the frame count."""
+    out = os.path.join(root, "cli.mp4")
+    cmd = [sys.executable, "-m", "latentsync_tpu_torch.scripts.inference", "--video",
+           os.path.join(root, "avatar.mp4"), "--audio", audios["1.2s"], "--out", out,
+           "--data-path", os.path.join(root, "avatar.npz"), "--fast", "--device", "cuda"]
+    env = {k: v for k, v in os.environ.items() if k not in SWITCHES}
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = proc.stdout.strip().splitlines()
+    record = {}
+    if proc.returncode == 0 and lines:
+        record = json.loads(lines[-1])
+    good = proc.returncode == 0 and record.get("frames") == 32
+    log(f"inference CLI --fast --device cuda: rc={proc.returncode} frames={record.get('frames')} "
+        f"(want 32) wall_s={time.time() - t0:.1f} stages="
+        f"{json.dumps(record.get('timings', {}), sort_keys=True)} {'ok' if good else 'FAIL'}")
+    if not good:
+        log(proc.stderr[-3000:])
+    return good
+
+
 def main() -> int:
     try:
         import torch
@@ -1351,10 +1692,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as root:
             audios = make_avatar(root)
             # 1.2 s of audio → 31 frames → 2 windows of 16; 2.4 s → 4 windows
-            for number, conf, plan in ((4, "default", [(1.2, 32), (2.4, 64), (1.2, 32)]),
-                                       (5, "fused", [(1.2, 32), (2.4, 64)]),
-                                       (6, "int8", [(1.2, 32), (2.4, 64)]),
-                                       (6, "int8-dense", [(1.2, 32), (2.4, 64)])):
+            short, long_ = ("1.2s", 32), ("2.4s", 64)
+            for number, conf, plan in ((4, "default", [short, long_, short]),
+                                       (5, "fused", [short, long_]),
+                                       (6, "int8", [short, long_]),
+                                       (6, "int8-dense", [short, long_])):
                 phase = f"serving ({conf})"
                 torch.cuda.reset_peak_memory_stats()
                 launches[conf], good = serve_requests(pipeline, root, audios, plan, counters,
@@ -1373,6 +1715,20 @@ def main() -> int:
         ok &= good
         log(f"phase 8 (onboarding with the FAN face path on the card; a request without a "
             f"bundle and one from the new bundle): {'ok' if good else 'FAIL'}")
+        phase = "production point"
+        good = check_deepcache(unet, device, counters)
+        good &= run_dcread(unet, device)
+        good &= time_denoise(pipeline, device, counters)
+        with tempfile.TemporaryDirectory() as root:
+            audios = make_avatar(root)
+            _, served = serve_production(pipeline, root, counters)
+            good &= served
+            good &= check_pipelined(pipeline, root, audios)
+            good &= run_cli(root, audios)
+        ok &= good
+        log(f"phase 9 (the production serving point: DeepCache paths, dcread, a window batch's "
+            f"denoise, three requests continuous-batched at int8 + 4:1:enc + 0:0.5, "
+            f"run_pipelined, the inference CLI): {'ok' if good else 'FAIL'}")
         for k in kernels:
             if k["name"] in PROBE_PATH:
                 k["path"], k["launches"] = PROBE_PATH[k["name"]], probe_launches[k["name"]]

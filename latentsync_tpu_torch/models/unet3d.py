@@ -1,9 +1,10 @@
 """Audio-conditioned 3D UNet (LatentSync stage 2) in torch.
 
-Counterpart of ``latentsync_tpu/models/unet3d.py`` ``UNet3DConditionModel``
-(no DeepCache). Layout is torch's (B, C, F, H, W); parameter
-names follow the upstream checkpoint, so ``state_dict()`` is the upstream
-key layout that ``latentsync_tpu.utils.convert.convert_unet`` reads.
+Counterpart of ``latentsync_tpu/models/unet3d.py`` ``UNet3DConditionModel``,
+its DeepCache paths included (``forward``'s ``cache_*`` arguments). Layout
+is torch's (B, C, F, H, W); parameter names follow the upstream checkpoint,
+so ``state_dict()`` is the upstream key layout that
+``latentsync_tpu.utils.convert.convert_unet`` reads.
 
 The self-attention blocks, the audio cross-attention blocks and the GEGLU
 feed-forwards call the fused ops of ``..ops`` with the LayerNorm and the
@@ -406,7 +407,22 @@ class UNet3DConditionModel(nn.Module):
         self.conv_norm_out = nn.GroupNorm(cfg.norm_num_groups, chs[0], eps=cfg.norm_eps)
         self.conv_out = InflatedConv2d(chs[0], cfg.out_channels, 3, padding=1)
 
-    def forward(self, sample, timesteps, encoder_hidden_states=None):
+    def forward(self, sample, timesteps, encoder_hidden_states=None, deep_cache=None,
+                cache_depth: int = 0, cache_read: bool = False, cache_encoder: bool = False,
+                cache_sub: int = 0):
+        """The reference's DeepCache paths (``cache_depth`` d > 0): the call
+        returns ``(eps, cache)``. A write step (``cache_read=False``) is the
+        exact forward and caches the feature entering up block nb - d; a
+        read step fed that feature runs conv_in and down blocks 0..d-1 only
+        (not the last one's downsampler, which fed the skipped deep trunk)
+        and splices it in. With ``cache_encoder`` the cache is (deep
+        feature, the shallow skips still unconsumed there) and a read runs
+        up blocks nb - d.. and conv_out alone; ``cache_sub`` k (encoder mode
+        only, at most layers_per_block) moves the cut to the feature
+        entering layer k of that first cached up block, before its skip
+        concat, and keeps the skips of layers k.. only. A read returns the
+        cache it was given. Cached tensors are in this layout, (B, C, F, H,
+        W)."""
         cfg = self.config
         dt = self.conv_in.weight.dtype
         timesteps = torch.as_tensor(timesteps, device=sample.device)
@@ -418,25 +434,49 @@ class UNet3DConditionModel(nn.Module):
         if cfg.center_input_sample:
             sample = 2 * sample - 1.0
         audio = encoder_hidden_states
-        x = self.conv_in(sample.to(dt))
-        skips = [x]
-        for blk in self.down_blocks:
-            for i in range(len(blk.resnets)):
-                x = blk.layer(i, x, emb, audio)
+        nb = len(self.down_blocks)
+        read = bool(cache_depth) and cache_read
+        enc = bool(cache_depth) and cache_encoder
+        sub = min(cache_sub, cfg.layers_per_block) if enc else 0
+        n_down = (0 if enc else cache_depth) if read else nb
+        skips = []
+        if n_down:
+            x = self.conv_in(sample.to(dt))
+            skips.append(x)
+        for i, blk in enumerate(self.down_blocks[:n_down]):
+            for j in range(len(blk.resnets)):
+                x = blk.layer(j, x, emb, audio)
                 skips.append(x)
-            if hasattr(blk, "downsamplers"):
+            # a read's last shallow downsampler would feed only the deep trunk
+            if hasattr(blk, "downsamplers") and not (read and i == n_down - 1):
                 x = blk.downsamplers[0](x)
                 skips.append(x)
-        mid = self.mid_block
-        x = mid.resnets[0](x, emb)
-        x = mid.attentions[0](x, audio)
-        if len(mid.motion_modules):
-            x = mid.motion_modules[0](x)
-        x = mid.resnets[1](x, emb)
-        for blk in self.up_blocks:
-            for i in range(len(blk.resnets)):
-                x = blk.layer(i, torch.cat([x, skips.pop()], dim=1), emb, audio)
+        if read and enc:
+            deep, cached_skips = deep_cache
+            x, skips = deep.to(dt), [s.to(dt) for s in cached_skips]
+        elif read:
+            x = deep_cache.to(dt)
+        else:
+            mid = self.mid_block
+            x = mid.resnets[0](x, emb)
+            x = mid.attentions[0](x, audio)
+            if len(mid.motion_modules):
+                x = mid.motion_modules[0](x)
+            x = mid.resnets[1](x, emb)
+        cache_out = deep_cache
+        for i, blk in enumerate(self.up_blocks):
+            if read and i < nb - cache_depth:
+                continue
+            first_cached = bool(cache_depth) and i == nb - cache_depth
+            start = sub if first_cached and read else 0
+            if first_cached and not read and not sub:
+                cache_out = (x, tuple(skips)) if enc else x
+            for j in range(start, len(blk.resnets)):
+                if first_cached and not read and sub and j == sub:
+                    cache_out = (x, tuple(skips))
+                x = blk.layer(j, torch.cat([x, skips.pop()], dim=1), emb, audio)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
         x = gn_silu(x, self.conv_norm_out, silu=True)
-        return self.conv_out(x)
+        eps = self.conv_out(x)
+        return (eps, cache_out) if cache_depth else eps

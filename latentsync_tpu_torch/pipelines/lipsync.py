@@ -30,8 +30,18 @@ current stream and read once, after the request's last fetch: no
 synchronisation is added inside the request. The reference's int8 switches (``LATENTSYNC_INT8``,
 ``LATENTSYNC_INT8_DENSE``) are read by the models at each call, so one
 pipeline serves whichever configuration the environment names at that
-call. Not ported yet: DeepCache and the CFG interval (their switches raise
-rather than serve another operating point) and ``run_pipelined``.
+call, and so are the two FLOP cuts of the reference's serving point,
+``LATENTSYNC_DEEPCACHE`` and ``LATENTSYNC_CFG_INTERVAL`` (``_flop_cut_knobs``,
+``_denoise``).
+
+Threads. ``prepare`` reads the bundle and the video, or runs the face path,
+on a thread under the whisper encode; ``run_pipelined`` prepares and
+enqueues clip i+1 on a producer thread while the caller's thread finishes
+clip i; the continuous-batching server runs several requests at once. All
+of them launch on the device's current stream, so their work is ordered
+there; the ``device_*`` keys of a request that overlapped another one are
+the device time between its events on that shared stream, the other
+request's work included (inclusive, not the request's own).
 """
 
 from __future__ import annotations
@@ -69,16 +79,12 @@ def _bucket(n: int, buckets=(1, 2, 4, 8, 16, 32, 64, 128)) -> int:
     return n
 
 
-def _refuse_unported_switches() -> None:
-    """DeepCache and the CFG interval are not ported: a request under their
-    switches must fail, not run at the reference semantics silently."""
-    dc = os.environ.get("LATENTSYNC_DEEPCACHE", "")
-    if dc not in ("", "0"):
-        raise NotImplementedError(f"LATENTSYNC_DEEPCACHE={dc!r}: DeepCache is not ported yet")
-    ci = os.environ.get("LATENTSYNC_CFG_INTERVAL", "")
-    if ci:
-        raise NotImplementedError(
-            f"LATENTSYNC_CFG_INTERVAL={ci!r}: the CFG interval is not ported yet")
+def _tree_map(fn, *trees):
+    """`fn` over the tensors of DeepCache caches of one structure: a tensor,
+    or nested tuples of them (the encoder mode's (deep feature, skips))."""
+    if isinstance(trees[0], tuple):
+        return tuple(_tree_map(fn, *parts) for parts in zip(*trees))
+    return fn(*trees)
 
 
 def _nearest_indices(n_in: int, n_out: int) -> torch.Tensor:
@@ -225,31 +231,118 @@ class LipsyncPipeline:
         img = self.vae.decode(z).float()
         return ((img + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1)
 
+    def _flop_cut_knobs(self, num_steps: int):
+        """The reference's two FLOP-cut switches, read at each call.
+
+        ``LATENTSYNC_DEEPCACHE`` = "I" / "I:d" / "I:d:enc" / "I:d:enc:k": the
+        UNet runs whole every I-th DDIM step and replays the cached deep
+        feature (depth d shallow blocks run) on the others; "enc" also
+        caches the shallow encoder skips, so a read runs the up blocks and
+        conv_out alone, and k moves the cut k layers into the first of
+        them. Off when unset, "" or "0", or when I <= 1.
+        ``LATENTSYNC_CFG_INTERVAL`` = "lo:hi" (fractions of the trajectory):
+        the unconditional branch runs only for steps round(lo·N) <= j <
+        round(hi·N); outside it the UNet runs the conditional half alone.
+        Returns (dc_interval, dc_depth, dc_enc, dc_sub, cfg_lo, cfg_hi); a
+        malformed value raises ``ValueError``."""
+        dc = os.environ.get("LATENTSYNC_DEEPCACHE", "")
+        dc_interval, dc_depth, dc_enc, dc_sub = 0, 0, False, 0
+        if dc and dc != "0":
+            parts = dc.split(":")
+            dc_interval = int(parts[0])
+            dc_depth = int(parts[1]) if len(parts) > 1 else 1
+            if len(parts) > 2:
+                if parts[2] not in ("enc", "1"):
+                    raise ValueError(
+                        f"LATENTSYNC_DEEPCACHE={dc!r}: third field must be "
+                        "'enc' (or '1'), got " + repr(parts[2]))
+                dc_enc = True
+            dc_sub = int(parts[3]) if (dc_enc and len(parts) > 3) else 0
+            n_blocks = len(self.config.unet.block_out_channels)
+            if not (0 <= dc_depth <= n_blocks):
+                raise ValueError(
+                    f"LATENTSYNC_DEEPCACHE={dc!r}: depth {dc_depth} outside "
+                    f"0..{n_blocks} (number of UNet block levels)")
+            if dc_interval <= 1:
+                dc_interval, dc_depth, dc_enc, dc_sub = 0, 0, False, 0
+        ci = os.environ.get("LATENTSYNC_CFG_INTERVAL", "")
+        cfg_lo, cfg_hi = 0, num_steps
+        if ci:
+            try:
+                lo_s, hi_s = ci.split(":")
+                lo_f, hi_f = float(lo_s), float(hi_s)
+            except ValueError:
+                raise ValueError(
+                    f"LATENTSYNC_CFG_INTERVAL={ci!r}: expected 'lo:hi' "
+                    "fractions of the trajectory, e.g. '0:0.5'") from None
+            if not (0.0 <= lo_f <= hi_f <= 1.0):
+                raise ValueError(
+                    f"LATENTSYNC_CFG_INTERVAL={ci!r}: need 0 <= lo <= hi <= 1")
+            cfg_lo = int(round(lo_f * num_steps))
+            cfg_hi = int(round(hi_f * num_steps))
+        return dc_interval, dc_depth, dc_enc, dc_sub, cfg_lo, cfg_hi
+
     @torch.inference_mode()
     def _denoise(self, latents0, mask_l, masked_l, ref_l, audio, num_steps: int,
                  guidance: float) -> torch.Tensor:
         """One window batch: latents0/mask/masked/ref (W, F, h, w, C), audio
-        (W, F, S, D) → denoised latents (W, F, h, w, 4) float32."""
-        _refuse_unported_switches()
+        (W, F, S, D) → denoised latents (W, F, h, w, 4) float32.
+
+        The reference's statically scheduled trajectory: step j runs the 2W
+        CFG batch (unconditional half first) where the CFG interval holds
+        it, else the conditional W alone; under DeepCache it reads the
+        cache where j % I != 0, except at the interval's entry j = cfg_lo >
+        0 (when the interval splits the trajectory), which writes, so that
+        no CFG read replays an unconditional half that the half-batch steps
+        before it never refreshed. A half-batch step with CFG elsewhere in
+        the trajectory reads and writes only the conditional half [W:] of
+        the 2W cache; the first such write allocates that cache with the
+        other half zero. Step 0 always writes. The cache is a local of this
+        call."""
+        dc_interval, dc_depth, dc_enc, dc_sub, cfg_lo, cfg_hi = \
+            self._flop_cut_knobs(num_steps)
         dt = self.dtype
         w = latents0.shape[0]
         do_cfg = guidance > 1.0
+        cfg_varies = do_cfg and (cfg_lo > 0 or cfg_hi < num_steps)
         steps, alpha_t, alpha_prev = self.scheduler.step_tables(num_steps)
         to_ncfhw = (0, 4, 1, 2, 3)
         cond = torch.cat([mask_l, masked_l, ref_l], dim=-1).permute(*to_ncfhw).to(dt)
         audio = audio.to(dt)
         if do_cfg:
-            cond = torch.cat([cond, cond])
-            audio = torch.cat([torch.zeros_like(audio), audio])  # uncond first
+            cond2 = torch.cat([cond, cond])
+            audio2 = torch.cat([torch.zeros_like(audio), audio])  # uncond first
+
+        def unet_call(lat_in, cond_c, audio_c, t, cache, read):
+            unet_in = torch.cat([lat_in.to(dt), cond_c], dim=1)
+            tvec = torch.full((unet_in.shape[0],), t, device=self.device)
+            if not dc_interval:
+                return self.unet(unet_in, tvec, audio_c).float(), cache
+            eps, cache = self.unet(unet_in, tvec, audio_c, deep_cache=cache,
+                                   cache_depth=dc_depth, cache_read=read,
+                                   cache_encoder=dc_enc, cache_sub=dc_sub)
+            return eps.float(), cache
+
         lat = latents0.permute(*to_ncfhw).float()
+        cache = None
         for j in range(num_steps):
-            lat_in = torch.cat([lat, lat]) if do_cfg else lat
-            unet_in = torch.cat([lat_in.to(dt), cond], dim=1)
-            t = torch.full((unet_in.shape[0],), int(steps[j]), device=self.device)
-            eps = self.unet(unet_in, t, audio).float()
-            if do_cfg:
+            use_cfg = do_cfg and cfg_lo <= j < cfg_hi
+            read = bool(dc_interval) and j % dc_interval != 0
+            if dc_interval and cfg_varies and cfg_lo > 0 and j == cfg_lo:
+                read = False
+            t = int(steps[j])
+            if use_cfg:
+                eps, cache = unet_call(torch.cat([lat, lat]), cond2, audio2, t, cache, read)
                 eps_u, eps_a = eps[:w], eps[w:]
                 eps = eps_u + guidance * (eps_a - eps_u)
+            elif dc_interval and do_cfg:
+                half = None if cache is None else _tree_map(lambda c: c[w:], cache)
+                eps, new = unet_call(lat, cond, audio, t, half, read)
+                if not read:
+                    old = cache if cache is not None else _tree_map(torch.zeros_like, new)
+                    cache = _tree_map(lambda full, n: torch.cat([full[:w], n]), old, new)
+            else:
+                eps, cache = unet_call(lat, cond, audio, t, cache, read)
             lat = DDIMScheduler.step(eps, lat, alpha_t[j], alpha_prev[j])
         return lat.permute(0, 2, 3, 4, 1)
 
@@ -272,24 +365,45 @@ class LipsyncPipeline:
         res = height or cfg.data.resolution
         timings, device_events = {}, {}
 
-        t0 = time.time()
         mask_image = load_fixed_mask(res, mask_image_path)
         processor = self._processor(res, mask_image)
-        stored_latents = None
-        if data_path:
-            faces, boxes, matrices = load_affine_bundle(data_path)
-            frames = read_video(video_path, change_fps=False)
-            stored_latents = self._stored_latents(data_path, len(faces), res, mask_image)
-        else:
-            frames = read_video(video_path, change_fps=True, fps=video_fps)
-            faces, boxes, matrices = processor.affine_transform_batch(frames)
-        timings["faces"] = time.time() - t0
+        face_result: dict = {}
 
-        t0 = time.time()
-        audio_samples = read_audio(audio_path, audio_sample_rate)
-        feats = self.audio_encoder.audio2feat(audio_samples)
-        chunks = self.audio_encoder.feature2chunks(feats, fps=video_fps)
-        timings["audio_device"] = time.time() - t0
+        def face_work():
+            """The bundle, the video and the latent artifact's check, or the
+            face path: on a thread, under the whisper encode below."""
+            t0 = time.time()
+            try:
+                with torch.inference_mode():  # thread-local: entered here
+                    if data_path:
+                        faces, boxes, matrices = load_affine_bundle(data_path)
+                        frames = read_video(video_path, change_fps=False)
+                        face_result["latents"] = self._stored_latents(
+                            data_path, len(faces), res, mask_image)
+                    else:
+                        frames = read_video(video_path, change_fps=True, fps=video_fps)
+                        faces, boxes, matrices = processor.affine_transform_batch(frames)
+                face_result.update(faces=faces, boxes=boxes, matrices=matrices, frames=frames)
+            except Exception as e:  # noqa: BLE001 — raised again by prepare
+                face_result["error"] = e
+            face_result["elapsed"] = time.time() - t0
+
+        face_thread = threading.Thread(target=face_work, name="prepare-faces", daemon=True)
+        face_thread.start()
+        try:
+            t0 = time.time()
+            audio_samples = read_audio(audio_path, audio_sample_rate)
+            feats = self.audio_encoder.audio2feat(audio_samples)
+            chunks = self.audio_encoder.feature2chunks(feats, fps=video_fps)
+            timings["audio_device"] = time.time() - t0
+        finally:
+            face_thread.join()
+        if "error" in face_result:
+            raise face_result["error"]
+        faces, boxes, matrices, frames = (face_result[k] for k in (
+            "faces", "boxes", "matrices", "frames"))
+        stored_latents = face_result.get("latents")
+        timings["faces"] = face_result["elapsed"]
 
         t0 = time.time()
         chunks, audio_samples, _ = lrepeat.pad_chunks_end(
@@ -598,6 +712,72 @@ class LipsyncPipeline:
         timings["write_wait"] = time.time() - t1
         timings["total"] = time.time() - state.start_time
         return PipelineOutput(video_path=video_out_path, num_frames=total, elapsed=timings)
+
+    def run_pipelined(self, jobs, num_frames: int = 16, num_inference_steps: int = 20,
+                      guidance_scale: float = 1.5, window_batch: int = 2, **prepare_kw):
+        """Several clips, overlapped: a producer thread runs ``prepare`` and
+        ``denoise_decode_chunks`` for clip i+1 (behind a queue of 2) while
+        this thread runs ``finish`` for clip i. The first failure on either
+        side cancels the rest; a producer error is raised here.
+
+        jobs: sequence of (video_path, audio_path, video_out_path). Returns
+        the PipelineOutput list in job order."""
+        jobs = list(jobs)
+        q: queue.Queue = queue.Queue(maxsize=2)
+        err: list = []
+        cancel = threading.Event()
+
+        def producer():
+            try:
+                for idx, (video_path, audio_path, _) in enumerate(jobs):
+                    if cancel.is_set():
+                        break
+                    state = self.prepare(video_path, audio_path, num_frames=num_frames,
+                                         **prepare_kw)
+                    pieces = self.denoise_decode_chunks(
+                        state, num_inference_steps=num_inference_steps,
+                        guidance_scale=guidance_scale, window_batch=window_batch)
+                    # a put that gives way to cancellation: with the consumer
+                    # gone nothing drains the queue
+                    while not cancel.is_set():
+                        try:
+                            q.put((idx, state, pieces), timeout=0.5)
+                            break
+                        except queue.Full:
+                            continue
+            except Exception as e:  # noqa: BLE001 — raised in the caller's thread
+                err.append(e)
+            finally:
+                while True:
+                    try:
+                        q.put(None, timeout=0.5)
+                        break
+                    except queue.Full:
+                        if cancel.is_set():
+                            break
+
+        thread = threading.Thread(target=producer, name="run-pipelined", daemon=True)
+        thread.start()
+        outputs = [None] * len(jobs)
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                idx, state, pieces = item
+                outputs[idx] = self.finish(state, None, jobs[idx][2], pieces=pieces)
+        finally:
+            # a failed finish must not leave the producer blocked on a put
+            cancel.set()
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            thread.join()
+        if err:
+            raise err[0]
+        return outputs
 
     def __call__(self, video_path: str, audio_path: str, video_out_path: str,
                  num_frames: int = 16, video_fps: int = 25, audio_sample_rate: int = 16000,

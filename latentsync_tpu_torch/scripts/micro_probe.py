@@ -22,11 +22,12 @@ versions on the CPU at whatever shapes it is given (the tests' use): its
 lines carry ``cpu_ms`` and no share, since a CPU time is no device metric.
 
 Modes: attn, spat, spatq, conv, gn, gn2, gn3, int8, ffn, ffn8, qmm, unet,
-ablate, tmod, denoise, vae, and all (every one of these). ``spatq`` sweeps
-the query-tile sizes the spatial kernel K4 is instantiated for, as the
-reference's sweeps its ``block_q``. Not ported yet, and raising
-``NotImplementedError``: dcread (needs DeepCache) and tempq (it sweeps a TPU
-block size the temporal kernel K3 does not take).
+ablate, tmod, dcread, denoise, vae, and all (every one of these). ``spatq``
+sweeps the query-tile sizes the spatial kernel K4 is instantiated for, as
+the reference's sweeps its ``block_q``; ``dcread`` times a DeepCache read
+step at depth 1 (plain and ``enc``) beside the full forward. ``tempq``
+raises ``NotImplementedError``: it sweeps a TPU block size that the
+temporal kernel K3 does not have.
 """
 
 from __future__ import annotations
@@ -52,8 +53,8 @@ from ..ops import temporal_attention as ta
 PEAKS = {"bf16": 989e12, "int8": 1979e12}
 SHARE_KEYS = {"bf16": "share_of_bf16_peak_989e12", "int8": "share_of_int8_peak_1979e12"}
 UNPORTED = {
-    "dcread": "ROADMAP §1.4 (DeepCache and the CFG interval)",
-    "tempq": "ROADMAP §1.12 (block-size sweeps return with the redesign of K3)",
+    "tempq": "ROADMAP §1.12 (it sweeps the TPU temporal kernel's batch block; K3 on the "
+             "card has no such parameter: its warps a block follow from shared memory)",
 }
 
 
@@ -494,6 +495,46 @@ def probe_tmod(p: Probe, cfg: Optional[LatentSyncConfig] = None, levels=None, it
         del mod
 
 
+def probe_dcread(p: Probe, cfg: Optional[LatentSyncConfig] = None, iters: int = 5, unet=None):
+    """A DeepCache read step at depth 1 on the 2·w batch, beside the full
+    forward: ``read_plain`` runs conv_in, down block 0 and the last up
+    block on the cached deep feature, ``read_enc`` the last up block and
+    conv_out alone on the cached feature and skips. Each is fed the cache of
+    one write step. Eager torch hoists nothing out of the chained loop, so
+    every call recomputes the read, though the ``enc`` read depends on the
+    cache and t alone (the reference's probe mixed a zero into the cache to
+    stop XLA hoisting it; nothing here needs that). `unet`: a model of
+    `cfg` already on the probe's device, else one is built (random seeded
+    weights)."""
+    from ..models.unet3d import UNet3DConditionModel
+    from ..utils.convert import init_random_
+
+    cfg = cfg or LatentSyncConfig()
+    ucfg = cfg.unet
+    if unet is None:
+        unet = init_random_(UNet3DConditionModel(ucfg), seed=0).to(p.device, p.dtype).eval()
+    b, f, lat = 2 * p.w, cfg.data.num_frames, _latent_hw(cfg)
+    audio = p.randn(b, f, 50, ucfg.cross_attention_dim)
+    tvec = torch.full((b,), 500, device=p.device)
+    sample = p.randn(b, ucfg.in_channels, f, lat, lat)
+    nc = ucfg.out_channels
+    for name, kw in (("full", {}), ("read_plain", {"cache_depth": 1}),
+                     ("read_enc", {"cache_depth": 1, "cache_encoder": True})):
+        cache = None
+        if kw:
+            with torch.inference_mode():
+                _, cache = unet(sample, tvec, audio, **kw)
+
+        def call(y, kw=kw, cache=cache):
+            if not kw:
+                return unet(y, tvec, audio)
+            return unet(y, tvec, audio, deep_cache=cache, cache_read=True, **kw)[0]
+
+        ops = count_ops(lambda: call(sample))
+        p.bench(f"unet_{name}_b{b}", lambda y: torch.cat([call(y), y[:, nc:]], dim=1), sample,
+                ops, iters=iters)
+
+
 def _models(p: Probe, cfg: LatentSyncConfig):
     from ..audio.features import Audio2Feature
     from ..models.unet3d import UNet3DConditionModel
@@ -550,7 +591,7 @@ MODES = {
     "gn": probe_gn, "gn2": probe_gn2, "gn3": probe_gn3, "int8": probe_int8,
     "ffn": probe_ffn, "ffn8": probe_ffn8, "qmm": probe_qmm, "unet": probe_unet,
     "ablate": lambda p, *a, **kw: probe_unet(p, *a, ablate=True, **kw), "tmod": probe_tmod,
-    "denoise": probe_denoise, "vae": probe_vae,
+    "dcread": probe_dcread, "denoise": probe_denoise, "vae": probe_vae,
 }
 
 

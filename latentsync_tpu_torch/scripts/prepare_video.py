@@ -44,12 +44,11 @@ def main(argv=None) -> int:
 
     from ..serving.artifacts import generate_affine_bundle
     from ..utils.image_processor import ImageProcessor
+    from .inference import no_card
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print("prepare_video: no CUDA device (torch.cuda.is_available() is false); pass "
-              "--device cpu to run on the CPU", file=sys.stderr)
+    if no_card("prepare_video", args.device):
         return 2
+    device = torch.device(args.device)
     os.makedirs(args.store, exist_ok=True)
     video_dst = os.path.join(args.store, args.avatar_id + ".mp4")
     if os.path.abspath(args.video) != os.path.abspath(video_dst):

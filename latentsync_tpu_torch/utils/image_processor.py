@@ -15,6 +15,7 @@ with an S3FD box stage when ``$LATENTSYNC_S3FD_CKPT`` names a file.
 from __future__ import annotations
 
 import os
+import threading
 import warnings
 from typing import Optional
 
@@ -104,20 +105,23 @@ def _generated_mouth_mask(resolution: int) -> np.ndarray:
 
 _warned_fallback = False
 _detector_cache: dict = {}
+_detector_lock = threading.Lock()
 
 
 def default_landmark_detector(device=None):
     """The default landmark source, memoized per environment (the three
-    variables below) and device: one detector serves every clip."""
+    variables below) and device: one detector serves every clip, built
+    once even when concurrent requests ask for it first together."""
     import torch
 
     dev = torch.device("cuda" if device is None else device)
     key = tuple(os.environ.get(k, "") for k in (
         "LATENTSYNC_FAN_CKPT", "LATENTSYNC_S3FD_CKPT", "LATENTSYNC_NO_FALLBACK_FAN"))
     key += (str(dev),)
-    if key not in _detector_cache:
-        _detector_cache[key] = _build_default_landmark_detector(dev)
-    return _detector_cache[key]
+    with _detector_lock:
+        if key not in _detector_cache:
+            _detector_cache[key] = _build_default_landmark_detector(dev)
+        return _detector_cache[key]
 
 
 def _build_default_landmark_detector(device):

@@ -12,6 +12,8 @@ this module, so callers write ``restore_lib().resize_frames_native(...)``.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import os
 import subprocess
@@ -97,25 +99,45 @@ def restore_frames_native(frames: np.ndarray, faces: np.ndarray, matrices: np.nd
 class _PlanCache:
     """Small keyed cache of native restore plans. A served clip shares one
     align matrix, so the inverse-warp coordinates and the eroded, blurred
-    masks are computed once and every decode chunk's restore reuses them."""
+    masks are computed once and every decode chunk's restore reuses them.
+    Several requests restore at once under continuous batching: a plan
+    evicted while another thread applies it is freed when that thread is
+    done with it."""
 
     def __init__(self, cap: int = 8):
         self.cap = cap
         self.entries = {}  # key -> plan pointer
         self.order = []
+        self.users = collections.Counter()  # plan -> threads applying it
+        self.retired = set()  # evicted plans still in use
         self.lock = threading.Lock()
 
-    def get(self, lib, mat: np.ndarray, h: int, w: int, fh: int, fw: int):
+    @contextlib.contextmanager
+    def use(self, lib, mat: np.ndarray, h: int, w: int, fh: int, fw: int):
         key = (mat.tobytes(), h, w, fh, fw)
         with self.lock:
-            if key in self.entries:
-                return self.entries[key]
-            plan = lib.restore_plan_build(mat.ctypes.data_as(_F64P), h, w, fh, fw)
-            self.entries[key] = plan
-            self.order.append(key)
-            if len(self.order) > self.cap:
-                lib.restore_plan_free(self.entries.pop(self.order.pop(0)))
-            return plan
+            plan = self.entries.get(key)
+            if plan is None:
+                plan = lib.restore_plan_build(mat.ctypes.data_as(_F64P), h, w, fh, fw)
+                self.entries[key] = plan
+                self.order.append(key)
+                if len(self.order) > self.cap:
+                    old = self.entries.pop(self.order.pop(0))
+                    if self.users[old]:
+                        self.retired.add(old)
+                    else:
+                        lib.restore_plan_free(old)
+            self.users[plan] += 1
+        try:
+            yield plan
+        finally:
+            with self.lock:
+                self.users[plan] -= 1
+                if not self.users[plan]:
+                    del self.users[plan]
+                    if plan in self.retired:
+                        self.retired.discard(plan)
+                        lib.restore_plan_free(plan)
 
 
 _plan_cache = _PlanCache()
@@ -134,8 +156,8 @@ def restore_frames_const_native(frames: np.ndarray, faces: np.ndarray, matrix: n
     mat = np.ascontiguousarray(matrix, np.float64)
     n, h, w, _ = frames.shape
     fh, fw = faces.shape[1:3]
-    plan = _plan_cache.get(lib, mat, h, w, fh, fw)
-    lib.restore_plan_apply(plan, _u8(frames), _u8(faces), n, fh, fw, threads)
+    with _plan_cache.use(lib, mat, h, w, fh, fw) as plan:
+        lib.restore_plan_apply(plan, _u8(frames), _u8(faces), n, fh, fw, threads)
     return frames
 
 

@@ -391,19 +391,24 @@ def test_pipeline_reads_the_int8_switches_at_each_call(pipeline, monkeypatch):
     np.testing.assert_array_equal(outs["int8-dense"][0][0], outs["int8"][0][0])
 
 
-@pytest.mark.parametrize("name,value,refused", [
-    ("LATENTSYNC_DEEPCACHE", "4", True), ("LATENTSYNC_DEEPCACHE", "4:1:enc", True),
-    ("LATENTSYNC_DEEPCACHE", "1", True), ("LATENTSYNC_CFG_INTERVAL", "0:0.5", True),
-    ("LATENTSYNC_DEEPCACHE", "0", False), ("LATENTSYNC_DEEPCACHE", "", False),
-    ("LATENTSYNC_CFG_INTERVAL", "", False),
+@pytest.mark.parametrize("name,value,error", [
+    # the values that used to be refused now run (1: DeepCache off)
+    ("LATENTSYNC_DEEPCACHE", "4", None), ("LATENTSYNC_DEEPCACHE", "4:1:enc", None),
+    ("LATENTSYNC_DEEPCACHE", "1", None), ("LATENTSYNC_CFG_INTERVAL", "0:0.5", None),
+    ("LATENTSYNC_DEEPCACHE", "0", None), ("LATENTSYNC_DEEPCACHE", "", None),
+    ("LATENTSYNC_CFG_INTERVAL", "", None),
+    # malformed values raise the reference's ValueErrors
+    ("LATENTSYNC_DEEPCACHE", "4:1:ecn", "third field"),
+    ("LATENTSYNC_DEEPCACHE", "4:9:enc", "depth"),
+    ("LATENTSYNC_CFG_INTERVAL", "0.5", "lo:hi"),
+    ("LATENTSYNC_CFG_INTERVAL", "0.7:0.2", "lo <= hi"),
 ])
-def test_pipeline_refuses_switches_it_does_not_implement(pipeline, monkeypatch, name, value,
-                                                         refused):
+def test_pipeline_switch_values(pipeline, monkeypatch, name, value, error):
     _configure(monkeypatch, "float")
     monkeypatch.setenv(name, value)
-    if refused:
-        with pytest.raises(NotImplementedError, match=name):
-            pipeline._denoise(*_denoise_args(), 1, 1.5)
+    if error:
+        with pytest.raises(ValueError, match=error):
+            pipeline._denoise(*_denoise_args(), 4, 1.5)
     else:
-        lat = pipeline._denoise(*_denoise_args(), 1, 1.5)
+        lat = pipeline._denoise(*_denoise_args(), 4, 1.5)
         assert lat.shape == (1, 2, 8, 8, 4) and math.isfinite(float(lat.abs().sum()))

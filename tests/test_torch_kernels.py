@@ -864,3 +864,66 @@ def test_geglu_ffn_int8io_allocates_only_its_outputs(rand):
     assert torch.cuda.max_memory_allocated() - base <= outputs + 2 * 512  # allocator rounding
     with pytest.raises(ValueError):
         ffn.geglu_ffn_int8io(*_i8_args(rand, 64, ffn.GEGLU_I8_MAX_C + 8))
+
+
+# a step outside the CFG interval: window batch 2 and no CFG batch, 16
+# frames, 32² latents (K1's rows, K2's sequences, K3's and K4's batches)
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape", [
+    ("K1", (32768, 320)), ("K1", (8192, 640)), ("K1", (2048, 1280)), ("K1", (512, 1280)),
+    ("K2 temporal", (2048, 16, 320)), ("K2 temporal", (512, 16, 640)),
+    ("K2 spatial", (32, 256, 640)),
+    ("K3", (128, 16, 1280)), ("K3", (32, 16, 1280)),
+    ("K4", (32, 1024, 320)), ("K4", (32, 64, 1280)), ("K4", (32, 16, 1280)),
+])
+def test_kernels_at_the_half_batch_shapes(rand, kind, shape):
+    if kind == "K1":
+        m, c = shape
+        args = (rand(m, c), rand(8 * c, c, s=c**-0.5), rand(8 * c, s=0.1),
+                rand(c, 4 * c, s=(4 * c) ** -0.5), rand(c, s=0.1), 1 + rand(c, s=0.1),
+                rand(c, s=0.1))
+        fn, ref, kw = ffn.geglu_ffn, ffn.geglu_ffn_reference, {"residual": True}
+    elif kind.startswith("K2"):
+        b, s, c = shape
+        temporal = kind == "K2 temporal"
+        assert attn_block.fused_route(s, c, c, temporal)
+        args = (rand(b, s, c), 1 + rand(c, s=0.1), rand(c, s=0.1),
+                *[rand(c, c, s=c**-0.5) for _ in range(4)], rand(c, s=0.1), 8)
+        fn, ref = attn_block.self_attention_block, attn_block.self_attention_block_reference
+        kw = {"temporal": temporal, "pe": rand(s, c) if temporal else None}
+    else:
+        b, s, hd = shape
+        args = (rand(b, s, hd), rand(b, s, hd), rand(b, s, hd), 8)
+        fn, ref = ((ta.temporal_attention, ta.temporal_attention_reference) if kind == "K3"
+                   else (ta.spatial_attention, ta.spatial_attention_reference))
+        kw = {}
+    before = fn.launches
+    _check(fn(*args, **kw), ref(*args, **kw))
+    assert fn.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [{}, {"cache_encoder": True},
+                                  {"cache_encoder": True, "cache_sub": 1}])
+def test_deepcache_write_is_the_exact_forward_on_the_card(rand, mode):
+    """A depth-1 write step of a narrow UNet (80/160/160/160 channels, two
+    heads: head dims 40 and 80, which K2's spatial mode takes at every
+    level) is the exact forward bit for bit on the card, and a read fed its
+    cache agrees with it."""
+    from latentsync_tpu_torch.config import MotionModuleConfig, UNet3DConfig
+    from latentsync_tpu_torch.models.unet3d import UNet3DConditionModel
+    from latentsync_tpu_torch.utils.convert import init_random_
+
+    cfg = UNet3DConfig(block_out_channels=(80, 160, 160, 160), layers_per_block=1,
+                       norm_num_groups=8, cross_attention_dim=384, attention_head_dim=2,
+                       motion_module=MotionModuleConfig(num_attention_heads=2))
+    unet = init_random_(UNet3DConditionModel(cfg), seed=0).to("cuda", torch.bfloat16).eval()
+    x, audio = rand(2, 13, 16, 32, 32), rand(2, 16, 50, 384)
+    t = torch.tensor([981, 451], device="cuda")
+    with torch.inference_mode():
+        base = unet(x, t, audio)
+        eps, cache = unet(x, t, audio, cache_depth=1, **mode)
+        read, _ = unet(x, t, audio, deep_cache=cache, cache_depth=1, cache_read=True, **mode)
+    assert torch.equal(eps, base)
+    err = float((read.float() - base.float()).norm() / base.float().norm())
+    assert bool(torch.isfinite(read).all()) and err <= 5e-2, err

@@ -240,6 +240,7 @@ _MODE_ARGS = {
     "unet": (lambda: ((_tiny_config(),), {"iters": 1}), 2),
     "ablate": (lambda: ((_tiny_config(),), {"iters": 1}), 5),
     "tmod": (lambda: ((_tiny_config(),), {"levels": ((8, 32, 2),), "iters": 1}), 2),
+    "dcread": (lambda: ((_tiny_config(),), {"iters": 1}), 3),
     "denoise": (lambda: ((_tiny_config(),), {"steps": 2, "rounds": 1}), 1),
     "vae": (lambda: ((_tiny_config(),), {"batches": (2,), "rounds": 1}), 2),
 }
