@@ -94,7 +94,23 @@ and without CUDA it exits nonzero before doing anything):
    kernels (and no other) launched; three clips through ``run_pipelined``
    in job order beside the same clips one after another; and
    ``python -m latentsync_tpu_torch.scripts.inference --fast --device cuda``
-   in a subprocess.
+   in a subprocess;
+10. the paste-back, transcription and the job-queue worker: the host-link
+   probe behind the default restore route (``LATENTSYNC_RESTORE`` unset:
+   ``device`` above 200 MB/s); ``restore_frames_device`` on the card against
+   its own CPU run on 64 synthetic 1920x1080 frames with 400² faces, for one
+   constant align matrix and for per-frame jittered ones (within 1 code on
+   at most 0.1 % of bytes), timed with its copies beside the native
+   library and beside the frames' copies alone; one request with the default route and one with
+   ``LATENTSYNC_RESTORE=native`` (both complete; the share of output bytes
+   that differ printed); whisper-tiny at full width (random seeded weights,
+   a stub tokenizer with Whisper's id layout) on one 30 s window of
+   synthetic speech: teacher-forced logits card vs CPU within LOGIT_TOL,
+   greedy tokens equal up to the CPU's first near tie, the encoder, the
+   greedy decode and a beam of 5 timed; and ``QueueWorker`` draining three
+   jobs against the server (plain, dependent and concatenated after it, with
+   subtitles from that transcriber). Every request line of phases 4-10
+   prints the restore route it took.
 
 The line before the last is a JSON object with each kernel's launches on
 its path (``"path"``: the served configuration, ``probe`` or, for K12,
@@ -1023,23 +1039,13 @@ def serve_requests(pipeline, root: str, audios, plan, counters, conf: str, cuts:
     which `on_state` sees before the first request."""
     import torch
 
-    from latentsync_tpu_torch.serving.api import ServingState, make_handler
-    from latentsync_tpu_torch.serving.artifacts import AvatarStore
     from latentsync_tpu_torch.utils.media import read_video
-    from http.server import ThreadingHTTPServer
 
-    state = ServingState(pipeline, AvatarStore(root), os.path.join(root, "out"), **state_kw)
-    if on_state is not None:
-        on_state(state)
-    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    base = f"http://127.0.0.1:{server.server_address[1]}"
     ok, jobs, launches = True, [], {}
     label = conf + (" + FLOP cuts" if cuts else "")
     # requests that overlap share the stream: their device_* stages are inclusive
     stages_note = " (device_* inclusive)" if state_kw.get("continuous_batching") else ""
-    try:
+    with http_server(pipeline, root, on_state, **state_kw) as base:
         for fn in counters:
             fn.launches = 0
         with configured(conf, cuts):
@@ -1058,15 +1064,11 @@ def serve_requests(pipeline, root: str, audios, plan, counters, conf: str, cuts:
             overlap = tm.get("vae_decode", float("nan")) + tm.get("restore", float("nan")) \
                 - tm.get("decode_restore_total", float("nan"))
             log(f"request ({label}) audio={sec} status={job['status']} frames={frames} "
-                f"(want {want}) latency_s={job.get('latency_s', float('nan')):.3f} "
+                f"(want {want}) restore_route={job.get('restore_route')} "
+                f"latency_s={job.get('latency_s', float('nan')):.3f} "
                 f"worker_s={job.get('elapsed', float('nan')):.3f} overlap_s={overlap:.3f} "
                 f"stages{stages_note}={json.dumps(job.get('timings', {}), sort_keys=True)} "
                 f"{'ok' if good else 'FAIL ' + str(job.get('error', ''))}")
-    finally:
-        server.shutdown()
-        server.server_close()
-        state.shutdown()
-        thread.join(timeout=30)
     for name, n in launches.items():
         want_some = name in ON_PATH[conf]
         good = n > 0 if want_some else n == 0
@@ -1074,6 +1076,31 @@ def serve_requests(pipeline, root: str, audios, plan, counters, conf: str, cuts:
         log(f"launches on the served path ({label}): {name}={n} "
             f"{'ok' if good else 'FAIL'}{'' if want_some else ' (must be 0)'}")
     return launches, ok
+
+
+@contextlib.contextmanager
+def http_server(pipeline, root: str, on_state=None, **state_kw):
+    """The port's HTTP server over `pipeline` and the avatars in `root`, on a
+    free local port, for the duration; yields its base URL. `state_kw` go to
+    ``ServingState``, which `on_state` sees before the first request."""
+    from http.server import ThreadingHTTPServer
+
+    from latentsync_tpu_torch.serving.api import ServingState, make_handler
+    from latentsync_tpu_torch.serving.artifacts import AvatarStore
+
+    state = ServingState(pipeline, AvatarStore(root), os.path.join(root, "out"), **state_kw)
+    if on_state is not None:
+        on_state(state)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        state.shutdown()
+        thread.join(timeout=30)
 
 
 def submit_all(base: str, audios, plan):
@@ -1258,7 +1285,8 @@ def check_onboarding(pipeline, vae, device, counters):
             tm = res.elapsed
             good = res.num_frames == frames == 32 and "device_vae_encode" in tm
             ok &= good
-            log(f"request without a bundle: frames={frames} (want 32) faces_s={tm['faces']:.3f} "
+            log(f"request without a bundle: frames={frames} (want 32) restore_route="
+                f"{res.restore_route} faces_s={tm['faces']:.3f} "
                 f"({tm['faces'] / (n_frames / 25):.3f} s per second of video) "
                 f"stages={json.dumps(tm, sort_keys=True)} {'ok' if good else 'FAIL'}")
 
@@ -1271,7 +1299,8 @@ def check_onboarding(pipeline, vae, device, counters):
                 and "device_denoise" in tm
             ok &= good
             log(f"request from the onboarded bundle and its _latents.npz: frames={frames} "
-                f"(want 32) device_vae_encode recorded={'device_vae_encode' in tm} "
+                f"(want 32) restore_route={res.restore_route} device_vae_encode recorded="
+                f"{'device_vae_encode' in tm} "
                 f"stages={json.dumps(tm, sort_keys=True)} {'ok' if good else 'FAIL'}")
             torch.cuda.synchronize()
             for fn in counters:
@@ -1574,7 +1603,8 @@ def check_pipelined(pipeline, root: str, audios) -> bool:
         frames = read_video(out.video_path, change_fps=False).shape[0]
         good = out.video_path == path and out.num_frames == want == frames
         ok &= good
-        log(f"run_pipelined clip audio={key}: frames={frames} (want {want}) total_s="
+        log(f"run_pipelined clip audio={key}: frames={frames} (want {want}) restore_route="
+            f"{out.restore_route} total_s="
             f"{out.elapsed['total']:.3f} device_denoise_s (inclusive)="
             f"{out.elapsed.get('device_denoise', float('nan')):.3f} {'ok' if good else 'FAIL'}")
     log(f"run_pipelined: 3 clips in {wall_s:.3f} s wall, the same clips one after another "
@@ -1606,6 +1636,324 @@ def run_cli(root: str, audios) -> bool:
     if not good:
         log(proc.stderr[-3000:])
     return good
+
+
+# ---------------------------------------------------------------------------
+# phase 10: device restore, transcription, the job-queue worker
+# ---------------------------------------------------------------------------
+
+# device restore on the card against its own CPU run: every byte within 1
+# code, at most 0.1 % of bytes off (a value within a rounding of an integer
+# may truncate either way)
+RESTORE_MAX_CODE, RESTORE_MAX_SHARE = 1, 1e-3
+# whisper-tiny's teacher-forced logits, card against CPU, both f32 (TF32 off
+# in the encoder's convolutions; products without TF32): within 1e-3 of the
+# largest |logit|
+LOGIT_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def restore_switch(value):
+    """``LATENTSYNC_RESTORE`` set to `value` (None: unset) for the duration."""
+    old = os.environ.pop("LATENTSYNC_RESTORE", None)
+    if value is not None:
+        os.environ["LATENTSYNC_RESTORE"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("LATENTSYNC_RESTORE", None)
+        if old is not None:
+            os.environ["LATENTSYNC_RESTORE"] = old
+
+
+def check_transport(device) -> bool:
+    """Phase 10.1: the host link probe behind the default restore route."""
+    from latentsync_tpu_torch.pipelines import lipsync
+
+    rate = lipsync._transport_rate(device)
+    fast = lipsync._transport_is_fast(device)
+    with restore_switch(None):
+        route = lipsync.restore_route(device)
+    good = fast == (rate > 200.0) and route == ("device" if fast else "native")
+    log(f"[{gpu_line()}] transport probe: 4 MB host->device {rate:.1f} MB/s, fast={fast} "
+        f"(threshold 200 MB/s), default restore route={route} {'ok' if good else 'FAIL'}")
+    return good
+
+
+def check_device_restore(device) -> bool:
+    """Phase 10.2: ``restore_frames_device`` on the card against the same
+    function on the CPU, on 64 synthetic 1920x1080 frames with 400² faces,
+    for one constant align matrix (the served case: the face lands on whole
+    pixels) and for per-frame jittered ones; the device route (copies to the
+    card and back included) timed beside the native library on the same
+    frames, and the frames' copies up and back timed alone."""
+    import numpy as np
+    import torch
+
+    from latentsync_tpu_torch.ops.restore import edge_radius, restore_frames_device
+    from latentsync_tpu_torch.utils import native
+
+    rng = np.random.default_rng(SEED)
+    n, h, w, fs = 64, 1080, 1920, 400
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = np.stack([128 + 80 * np.sin(xx / 71 + c) * np.cos(yy / 53 - c) for c in range(3)], -1)
+    frames = np.empty((n, h, w, 3), np.uint8)
+    for i, shift in enumerate(rng.normal(0, 6, (n, 3)).astype(np.float32)):
+        frames[i] = np.clip(base + shift, 0, 255)
+    faces = rng.integers(0, 256, (n, fs, fs, 3), dtype=np.uint8)
+    const = np.repeat(np.array([[1.0, 0.0, -760.0], [0.0, 1.0, -300.0]])[None], n, 0)
+    theta = rng.normal(0, 0.02, n)
+    scale = 1.0 + rng.normal(0, 0.02, n)
+    jitter = np.stack([np.array([[s * np.cos(t), -s * np.sin(t), -760.0 + dx],
+                                 [s * np.sin(t), s * np.cos(t), -300.0 + dy]])
+                       for t, s, dx, dy in zip(theta, scale, rng.normal(0, 4, n),
+                                               rng.normal(0, 4, n))])
+    # the copies the device route makes, alone: the frames up and back (pageable)
+    torch.from_numpy(frames[:8]).to(device).cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = torch.from_numpy(frames).to(device)
+    torch.cuda.synchronize()
+    up_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    on_card.cpu()
+    back_ms = (time.perf_counter() - t0) * 1e3
+    del on_card
+    log(f"[{gpu_line()}] the frames' copies alone ({frames.nbytes / 2**20:.0f} MiB, pageable): "
+        f"up {up_ms:.1f} ms ({frames.nbytes / up_ms / 1e6:.2f} GB/s), back {back_ms:.1f} ms "
+        f"({frames.nbytes / back_ms / 1e6:.2f} GB/s)")
+    ok = True
+    for label, mats in (("constant matrix", const), ("per-frame matrices", jitter)):
+        restore_frames_device(frames[:8], faces[:8], mats[:8], device=device)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = restore_frames_device(frames, faces, mats, device=device)
+        dev_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = restore_frames_device(frames, faces, mats, device="cpu")
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        scratch = frames.copy()
+        t0 = time.perf_counter()
+        if label.startswith("constant"):
+            native.restore_frames_const_native(scratch, faces, mats[0], copy=False)
+        else:
+            native.restore_frames_native(scratch, faces, mats, copy=False)
+        native_ms = (time.perf_counter() - t0) * 1e3
+        d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        share = float((d > 0).mean())
+        good = got.shape == frames.shape and int(d.max()) <= RESTORE_MAX_CODE \
+            and share <= RESTORE_MAX_SHARE and float((got != frames).mean()) > 0.01
+        ok &= good
+        log(f"[{gpu_line()}] device restore ({label}, {n} x {w}x{h}, faces {fs}², edge "
+            f"{edge_radius(mats, (fs, fs))}): card vs CPU max {int(d.max())} code(s), "
+            f"{100 * share:.4f}% of bytes differ (limits {RESTORE_MAX_CODE}, "
+            f"{100 * RESTORE_MAX_SHARE:.1f}%); device_ms={dev_ms:.1f} (with the copies) "
+            f"native_ms={native_ms:.1f} cpu_device_route_ms={cpu_ms:.1f} "
+            f"{'ok' if good else 'FAIL'}")
+    return ok
+
+
+def serve_both_routes(pipeline, root: str, audios) -> bool:
+    """Phase 10.3: one request through the HTTP server with the default
+    restore route and one with ``LATENTSYNC_RESTORE=native``: both complete
+    with the right frame count; the share of output bytes that differ is
+    printed (the two composites are different functions)."""
+    import numpy as np
+
+    from latentsync_tpu_torch.pipelines.lipsync import restore_route
+    from latentsync_tpu_torch.utils.media import read_video
+
+    ok, outputs = True, {}
+    for value in (None, "native"):
+        with restore_switch(value):
+            route = restore_route(pipeline.device)
+            with http_server(pipeline, root) as base:
+                with configured("default"):
+                    (job_id, t_sub), = submit_all(base, audios, [("1.2s", 32)])
+                    job = wait_all(base, [(job_id, t_sub)])[job_id]
+        frames = read_video(job["output"], change_fps=False) if job["status"] == "completed" \
+            else None
+        n = -1 if frames is None else len(frames)
+        tm = job.get("timings", {})
+        good = job["status"] == "completed" and n == 32 == job.get("num_frames") \
+            and job.get("restore_route") == route
+        ok &= good
+        outputs[value] = frames
+        nan = float("nan")
+        overlap = tm.get("vae_decode", nan) + tm.get("restore", nan) \
+            - tm.get("decode_restore_total", nan)
+        log(f"[{gpu_line()}] request (default configuration, LATENTSYNC_RESTORE="
+            f"{value or 'unset'}) restore_route={job.get('restore_route')} frames={n} (want 32) "
+            f"restore_s={tm.get('restore', nan):.4f} decode_restore_total_s="
+            f"{tm.get('decode_restore_total', nan):.4f} overlap_s={overlap:.4f} "
+            f"{'ok' if good else 'FAIL ' + str(job.get('error', ''))}")
+    if ok:
+        a, b = outputs[None], outputs["native"]
+        log(f"device vs native route, the same request: {100 * float((a != b).mean()):.3f}% of "
+            f"output bytes differ (the two composites differ; not gated)")
+    return ok
+
+
+class StubTokenizer:
+    """Whisper's multilingual id layout (end of text 50257, start of
+    transcript 50258, 99 languages, timestamps from 50364) without a
+    vocabulary: text ids decode to ``w<id>``."""
+
+    eot, sot, no_timestamps, sot_prev, timestamp_begin = 50257, 50258, 50363, 50361, 50364
+    sot_sequence = (50258, 50259, 50359)  # <|startoftranscript|><|en|><|transcribe|>
+
+    def encode(self, text):
+        return [220] if text == " " else [(ord(c) % 200) + 30 for c in text]
+
+    def decode(self, toks):
+        return " " + " ".join(f"w{int(t)}" for t in toks)
+
+    def suppress_set(self):
+        return tuple(range(50258, 50363))  # start of transcript ... no speech
+
+
+def check_transcription(device, root: str):
+    """Phase 10.4: whisper-tiny at full width (4 + 4 layers, width 384, vocab
+    51865, text context 448, random seeded weights, the stub tokenizer) on
+    one 30 s window of synthetic speech: teacher-forced logits on the card
+    against the CPU in f32; greedy tokens equal to the CPU's up to the first
+    position where the CPU's top-two gap (after the logit filters) is below
+    LOGIT_TOL of the largest |logit|; the encoder, the greedy decode and a
+    beam of 5 timed. Returns (ok, the card's transcriber)."""
+    import numpy as np
+    import torch
+
+    from latentsync_tpu_torch.audio.transcribe import WhisperTranscriber
+    from latentsync_tpu_torch.config import WhisperConfig
+    from latentsync_tpu_torch.models import whisper_decoder as wd
+    from latentsync_tpu_torch.models.whisper import WhisperEncoder
+    from latentsync_tpu_torch.ops.mel import WHISPER_N_FRAMES, pad_or_trim, whisper_log_mel
+    from latentsync_tpu_torch.utils.convert import init_random_
+    from latentsync_tpu_torch.utils.media import read_audio
+
+    cfg = WhisperConfig.tiny()
+    enc = init_random_(WhisperEncoder(cfg), seed=SEED + 7)
+    dec = init_random_(wd.WhisperTextDecoder(cfg), seed=SEED + 8)
+    tok = StubTokenizer()
+    cpu = WhisperTranscriber(enc, dec, tok)
+    card = WhisperTranscriber(WhisperEncoder(cfg).to(device), wd.WhisperTextDecoder(cfg).to(device),
+                              tok)
+    card.encoder.load_state_dict(enc.state_dict())
+    card.decoder.load_state_dict(dec.state_dict())
+    wav = write_speech(os.path.join(root, "speech_30.wav"), 30.0, seed=SEED + 9)
+    audio = read_audio(wav)
+    sot = tok.sot_sequence
+    feats, tokens = {}, {}
+    for name, tr in (("cpu", cpu), ("card", card)):
+        mel = whisper_log_mel(torch.as_tensor(audio, device=tr.device))
+        feats[name] = tr.encode(pad_or_trim(mel, WHISPER_N_FRAMES))
+        tokens[name], _ = wd.greedy_decode(tr.decoder, feats[name], sot, tr.rules)
+    # teacher-forced logits over the CPU's decoded sequence
+    seq = torch.from_numpy(tokens["cpu"].astype(np.int64))
+    with torch.inference_mode():
+        want = cpu.decoder(seq, feats["cpu"])
+        got = card.decoder(seq.to(device), feats["card"]).cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    ok = bool(torch.isfinite(got).all()) and err <= LOGIT_TOL * scale
+    log(f"[{gpu_line()}] whisper-tiny teacher-forced logits ({seq.shape[1]} tokens x 51865) card "
+        f"vs CPU: max err {err:.3e} (limit {LOGIT_TOL:g} x max|logit| {scale:.3f}) "
+        f"{'ok' if ok else 'FAIL'}")
+    # the CPU's decisions and their margins, after the logit filters
+    sb = len(sot)
+    suppress = wd._suppress_mask(card.rules, cfg.n_vocab, "cpu")
+    needed = 0
+    for pos in range(sb - 1, seq.shape[1] - 1):
+        row = wd._apply_logit_filters(want[:, pos].clone(), seq, pos, cpu.rules, sb, suppress)
+        top2 = row[0].topk(2).values
+        if float(top2[0] - top2[1]) < LOGIT_TOL * scale or int(seq[0, pos + 1]) == tok.eot:
+            needed += int(float(top2[0] - top2[1]) >= LOGIT_TOL * scale)
+            break
+        needed += 1
+    a, b = tokens["cpu"][0, sb:], tokens["card"][0, sb:]
+    agree = int(np.argmin(a == b)) if (a != b).any() else len(a)
+    good = agree >= needed
+    ok &= good
+    log(f"[{gpu_line()}] greedy t=0, card vs CPU: {agree} leading sampled tokens agree "
+        f"(required: {needed}, up to the first CPU top-two gap below the limit or the end "
+        f"of text) {'ok' if good else 'FAIL'}")
+
+    def timed(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[len(times) // 2], out
+
+    steps = collections.Counter()
+    step = card.decoder.step
+
+    def counted(*a, **k):
+        steps["n"] += 1
+        return step(*a, **k)
+
+    card.decoder.step = counted
+    try:
+        enc_ms, _ = timed(lambda: card.encode(pad_or_trim(whisper_log_mel(
+            torch.as_tensor(audio, device=device)), WHISPER_N_FRAMES)))
+        for label, fn in (("greedy", lambda: wd.greedy_decode(card.decoder, feats["card"], sot,
+                                                               card.rules)),
+                          ("beam 5", lambda: wd.beam_decode(card.decoder, feats["card"], sot,
+                                                             card.rules, beam_size=5))):
+            steps.clear()
+            fn()
+            n_steps = steps["n"]
+            ms, (toks, lp) = timed(fn)
+            n_sampled = int((toks[0, sb:] != tok.eot).sum())
+            good = np.isfinite(lp).all() and n_steps >= sb
+            ok &= good
+            log(f"[{gpu_line()}] whisper-tiny {label} decode on the card: {ms:.1f} ms, "
+                f"{n_steps} steps ({n_steps / ms * 1e3:.1f} steps/s), {n_sampled} tokens kept "
+                f"({n_sampled / ms * 1e3:.1f} tokens/s), encoder {enc_ms:.1f} ms for the 30 s "
+                f"window {'ok' if good else 'FAIL'}")
+    finally:
+        del card.decoder.step
+    return ok, card
+
+
+def run_worker(pipeline, root: str, audios, transcriber) -> bool:
+    """Phase 10.5: ``LocalDirQueue`` with three jobs drained by ``QueueWorker``
+    against the running server: a plain one, one ``waiting-dependency`` on it
+    that is concatenated after its output (``concat_with``), and one with
+    subtitles from the card's transcriber. All complete; the concatenation
+    has the frames of both parts; the subtitles come back as a VTT data URI."""
+    from latentsync_tpu_torch.serving.worker import LocalDirQueue, QueueWorker
+    from latentsync_tpu_torch.utils.media import read_video
+
+    q = LocalDirQueue(os.path.join(root, "queue"))
+    q.submit({"id": "job-a", "avatar_id": "avatar", "audio_path": audios["1.2s"]})
+    q.submit({"id": "job-b", "avatar_id": "avatar", "audio_path": audios["2.4s"],
+              "status": "waiting-dependency", "dependencies": ["job-a"],
+              "concat_with": ["job-a"]})
+    q.submit({"id": "job-c", "avatar_id": "avatar", "audio_path": audios["1.2s"],
+              "subtitles": True})
+    t0 = time.time()
+    with http_server(pipeline, root) as base, configured("default"):
+        handled = QueueWorker(q, api_url=base, transcriber=transcriber).run_once()
+    wall = time.time() - t0
+    jobs = {j: q.get(j) for j in ("job-a", "job-b", "job-c")}
+    status = {j: job["status"] for j, job in jobs.items()}
+    ok = handled == 3 and set(status.values()) == {"completed"}
+    n = {}
+    if ok:
+        n = {j: read_video(job["output"], change_fps=False).shape[0] for j, job in jobs.items()}
+        ok = n == {"job-a": 32, "job-b": 32 + 64, "job-c": 32} \
+            and jobs["job-b"].get("concatenated") is True \
+            and str(jobs["job-c"].get("subtitles_uri", "")).startswith("data:text/vtt;base64,")
+    log(f"[{gpu_line()}] job-queue worker: {handled} jobs in {wall:.1f} s, status {status}, "
+        f"frames {n} (want job-b = 32 + 64), subtitles_uri "
+        f"{str(jobs['job-c'].get('subtitles_uri', ''))[:40]}... "
+        f"{'ok' if ok else 'FAIL ' + str({j: job.get('error') for j, job in jobs.items()})}")
+    return ok
 
 
 def main() -> int:
@@ -1729,6 +2077,20 @@ def main() -> int:
         log(f"phase 9 (the production serving point: DeepCache paths, dcread, a window batch's "
             f"denoise, three requests continuous-batched at int8 + 4:1:enc + 0:0.5, "
             f"run_pipelined, the inference CLI): {'ok' if good else 'FAIL'}")
+        phase = "restore, transcription and the worker"
+        t0 = time.time()
+        good = check_transport(device)
+        good &= check_device_restore(device)
+        with tempfile.TemporaryDirectory() as root:
+            audios = make_avatar(root)
+            good &= serve_both_routes(pipeline, root, audios)
+            transcribed, transcriber = check_transcription(device, root)
+            good &= transcribed
+            good &= run_worker(pipeline, root, audios, transcriber)
+        ok &= good
+        log(f"phase 10 (device restore against its CPU run, one request on both restore routes, "
+            f"whisper-tiny transcription on the card, the job-queue worker; {time.time() - t0:.0f}"
+            f" s): {'ok' if good else 'FAIL'}")
         for k in kernels:
             if k["name"] in PROBE_PATH:
                 k["path"], k["launches"] = PROBE_PATH[k["name"]], probe_launches[k["name"]]

@@ -69,7 +69,8 @@ class ResidualAttentionBlock(nn.Module):
 
 
 class WhisperEncoder(nn.Module):
-    """mel (B, n_mels, T) → (ln_post(x), embeddings (B, L+1, T/2, D))."""
+    """mel (B, n_mels, T) → (ln_post(x), embeddings (B, L+1, T/2, D)), or
+    ln_post(x) alone with ``include_embeddings=False`` (transcription)."""
 
     def __init__(self, config: WhisperConfig = WhisperConfig()):
         super().__init__()
@@ -84,7 +85,7 @@ class WhisperEncoder(nn.Module):
                                      for _ in range(cfg.n_audio_layer)])
         self.ln_post = nn.LayerNorm(cfg.n_audio_state, eps=1e-6)
 
-    def forward(self, mel: torch.Tensor):
+    def forward(self, mel: torch.Tensor, include_embeddings: bool = True):
         dt = self.conv1.weight.dtype
         x = F.gelu(self.conv1(mel.to(dt)))
         x = F.gelu(self.conv2(x)).transpose(1, 2)
@@ -96,4 +97,6 @@ class WhisperEncoder(nn.Module):
         for blk in self.blocks:
             x = blk(x)
             embeddings.append(x)
+        if not include_embeddings:
+            return _layer_norm(x, self.ln_post)
         return _layer_norm(x, self.ln_post), torch.stack(embeddings, dim=1)

@@ -13,8 +13,9 @@ from the kernel probe the UNet's spatial shapes (8 heads of D = 40 and
 80) — launches the hand-written flash kernel of
 ``csrc/flash_attention.cu`` (the tensor-core attention core of
 ``csrc/attn_core.cuh``) on a CUDA tensor. Everything else (whisper's
-S = 1500, the audio cross-attention with Sk = 50) and every CPU tensor
-runs the plain ``dot_product_attention_reference``, which is also what
+S = 1500, the audio cross-attention with Sk = 50), every masked call (the
+whisper decoder's causal and cache masks) and every CPU tensor run the
+plain ``dot_product_attention_reference``, which is also what
 the plain versions of the other attention ops call.
 
 Two more kernels of the reference live here, in its (B, S, D) layout with
@@ -51,13 +52,17 @@ FLASH_KERNEL_HEAD_DIMS = (128, 512)
 
 
 def dot_product_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                    scale: Optional[float] = None) -> torch.Tensor:
-    """Plain version. q: (..., Sq, H, D); k, v: (..., Sk, H, D) → (..., Sq, H, D)."""
+                                    scale: Optional[float] = None,
+                                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version. q: (..., Sq, H, D); k, v: (..., Sk, H, D) → (..., Sq, H, D).
+    `mask` is added to the f32 logits (..., H, Sq, Sk) before the softmax."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     qh = q.transpose(-3, -2).float()                   # (..., H, Sq, D)
     kh = k.transpose(-3, -2).float()
     logits = (qh @ kh.transpose(-1, -2)) * scale       # (..., H, Sq, Sk)
+    if mask is not None:
+        logits = logits + mask
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     o = w @ v.transpose(-3, -2)                        # (..., H, Sq, D)
     return o.transpose(-3, -2)
@@ -84,10 +89,13 @@ def _row_pitch(t: torch.Tensor, name: str) -> int:
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          scale: Optional[float] = None) -> torch.Tensor:
-    """q: (..., Sq, H, D); k, v: (..., Sk, H, D) → (..., Sq, H, D)."""
-    if q.device.type == "cpu" or not flash_route(q, k):
-        return dot_product_attention_reference(q, k, v, scale)
+                          scale: Optional[float] = None,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (..., Sq, H, D); k, v: (..., Sk, H, D) → (..., Sq, H, D); an additive
+    `mask` on the f32 logits (the whisper decoder's) never takes the flash
+    route, as in the reference."""
+    if mask is not None or q.device.type == "cpu" or not flash_route(q, k):
+        return dot_product_attention_reference(q, k, v, scale, mask)
     b, s, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape or d not in FLASH_HEAD_DIMS:
         raise ValueError(f"dot_product_attention: no flash kernel for q {tuple(q.shape)}, "

@@ -9,9 +9,20 @@ frame (``ImageProcessor.affine_transform_batch``, the landmark model on the
 pipeline's device). Then: 16-frame windows denoised in batches
 with classifier-free guidance folded into the batch (unconditional =
 zero audio first, conditional second), DDIM, one noise frame shared by
-every frame, VAE decode, mouth composite and the host inverse-warp
-paste-back of ``native/restore.cpp``. The public API, the ``JobState``
-fields and the keys of ``JobState.timings`` are the JAX package's; its
+every frame, VAE decode, mouth composite and the inverse-warp paste-back.
+
+The paste-back takes the reference's route (``LATENTSYNC_RESTORE``, read
+at each chunk of ``finish``): ``device`` composites on the pipeline's
+device (``ops/restore.py``), ``native`` on the host through
+``native/restore.cpp``, and ``cv2`` is ``native`` (the reference reaches
+OpenCV only when its native library is missing; the port's always builds).
+Unset, it is ``device`` when one 4 MB host→device copy measures more than
+200 MB/s (``_transport_is_fast``: a card on PCIe does; a CPU pipeline
+never), else ``native``. Any other value raises, and a failure on the
+device route raises too: nothing falls back to the host.
+
+The public API, the ``JobState`` fields and the keys of
+``JobState.timings`` are the JAX package's; its
 tensors keep the JAX layouts ((W, F, h, w, C) latents, (W, F, S, D)
 audio) and live on the pipeline's device.
 
@@ -47,6 +58,7 @@ request's work included (inclusive, not the request's own).
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import os
 import queue
@@ -65,6 +77,7 @@ from ..config import LatentSyncConfig
 from ..models.unet3d import UNet3DConditionModel
 from ..models.vae import AutoencoderKL, scale_latents, unscale_latents
 from ..ops.ddim import DDIMScheduler
+from ..ops.restore import restore_frames_device
 from ..serving.artifacts import load_affine_bundle
 from ..utils import repeat as lrepeat
 from ..utils.image_processor import ImageProcessor, load_fixed_mask
@@ -77,6 +90,42 @@ def _bucket(n: int, buckets=(1, 2, 4, 8, 16, 32, 64, 128)) -> int:
         if n <= b:
             return b
     return n
+
+
+RESTORE_ROUTES = ("device", "native", "cv2")
+
+
+@functools.lru_cache(maxsize=None)
+def _transport_rate(device: torch.device) -> float:
+    """MB/s of one 4 MB pageable host→device copy to `device`, completed by
+    fetching one byte back; the path warmed by one copy first. Measured
+    once a process and device; 0 for the CPU."""
+    if device.type == "cpu":
+        return 0.0
+    probe = torch.zeros(4 * 1024 * 1024, dtype=torch.uint8)
+    probe.to(device)[:1].cpu()
+    t0 = time.perf_counter()
+    probe.to(device)[:1].cpu()
+    return 4.0 / max(time.perf_counter() - t0, 1e-9)
+
+
+def _transport_is_fast(device: torch.device, threshold_mb_s: float = 200.0) -> bool:
+    """Whether frames should ride the device for the paste-back: the
+    reference's test of the host link (a card on PCIe measures GB/s, a
+    remote tunnel tens of MB/s)."""
+    return _transport_rate(torch.device(device)) > threshold_mb_s
+
+
+def restore_route(device: torch.device) -> str:
+    """The paste-back route for a pipeline on `device`: ``device`` or
+    ``native``, from ``LATENTSYNC_RESTORE`` (read at each call) or the
+    measured link. An unknown value raises."""
+    prefer = os.environ.get("LATENTSYNC_RESTORE")
+    if prefer is None:
+        return "device" if _transport_is_fast(device) else "native"
+    if prefer not in RESTORE_ROUTES:
+        raise ValueError(f"LATENTSYNC_RESTORE={prefer!r}: expected one of {RESTORE_ROUTES}")
+    return "device" if prefer == "device" else "native"
 
 
 def _tree_map(fn, *trees):
@@ -97,6 +146,7 @@ class PipelineOutput:
     video_path: str
     num_frames: int
     elapsed: dict
+    restore_route: str = ""  # the paste-back routes taken, "+"-joined
 
 
 @dataclass
@@ -554,11 +604,14 @@ class LipsyncPipeline:
         return pieces
 
     @staticmethod
-    def _restore_group(frames, combined, mats, crop_hw):
-        """Resize faces to their box and inverse-warp them into the frames
-        (in place) with the native restore library."""
+    def _restore_group(frames, combined, mats, crop_hw, route: str = "native", device=None):
+        """Resize faces to their box (LANCZOS4 on the host) and inverse-warp
+        them into the frames, in place: on `device` (route ``device``, one
+        edge radius for the group) or with the native restore library."""
         native = restore_lib()
         resized = native.resize_frames_native(combined, crop_hw)
+        if route == "device":
+            return restore_frames_device(frames, resized, mats, device=device, out=frames)
         if all(np.array_equal(m, mats[0]) for m in mats[1:]):
             return native.restore_frames_const_native(frames, resized, mats[0], copy=False)
         return native.restore_frames_native(frames, resized, mats, copy=False)
@@ -613,6 +666,7 @@ class LipsyncPipeline:
 
         audio_keep = int(total / state.video_fps * state.audio_sample_rate)
         restore_s = 0.0
+        routes = []
         # The fetch thread waits for each chunk in turn and hands it over
         # through a short queue while this thread restores the one before.
         # A failure there travels through the queue too; `stop` releases
@@ -662,6 +716,9 @@ class LipsyncPipeline:
                             f"finish: fetching a decoded chunk failed: {item!r}") from item
                     sl, dec_u8 = item
                     tc = time.time()
+                    route = restore_route(self.device)
+                    if route not in routes:
+                        routes.append(route)
                     m = m_all[sl]
                     combined = (dec_u8 * (1.0 - m) + pix_u8[sl] * m).astype(np.uint8)
                     # each face is resized to ITS OWN box: group by crop size
@@ -677,7 +734,8 @@ class LipsyncPipeline:
                                 view = buf[bsl]
                                 restored = self._restore_group(
                                     view, combined[off:off + n],
-                                    mats[sl.start + off:sl.start + off + n], crop_hw)
+                                    mats[sl.start + off:sl.start + off + n], crop_hw,
+                                    route, self.device)
                                 if restored is not view:
                                     buf[bsl] = restored
                             continue
@@ -688,7 +746,7 @@ class LipsyncPipeline:
                             if len(gidx):
                                 buf[gidx - base] = self._restore_group(
                                     buf[gidx - base], combined[gidx - sl.start], mats[gidx],
-                                    crop_hw)
+                                    crop_hw, route, self.device)
                     restore_s += time.time() - tc
                     # the chunk's frames are final: main segment, then wrapped tail
                     for buf, bsl, _ in seg_views(sl):
@@ -711,7 +769,8 @@ class LipsyncPipeline:
         timings["write"] = writer.busy_s + audio_write_s
         timings["write_wait"] = time.time() - t1
         timings["total"] = time.time() - state.start_time
-        return PipelineOutput(video_path=video_out_path, num_frames=total, elapsed=timings)
+        return PipelineOutput(video_path=video_out_path, num_frames=total, elapsed=timings,
+                              restore_route="+".join(routes))
 
     def run_pipelined(self, jobs, num_frames: int = 16, num_inference_steps: int = 20,
                       guidance_scale: float = 1.5, window_batch: int = 2, **prepare_kw):

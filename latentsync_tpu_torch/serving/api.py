@@ -103,7 +103,8 @@ class ServingState:
                         num_inference_steps=steps, guidance_scale=guidance)
                 job.update(status="completed", output=result.video_path,
                            num_frames=result.num_frames, elapsed=time.time() - t0,
-                           timings=result.elapsed)
+                           timings=result.elapsed,
+                           restore_route=getattr(result, "restore_route", None))
             except Exception as e:  # noqa: BLE001 — one failed job must not stop the worker
                 traceback.print_exc()
                 job.update(status="failed", error=f"{type(e).__name__}: {e}",

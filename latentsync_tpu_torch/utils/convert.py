@@ -1,12 +1,13 @@
 """Weights for the port: JAX parameter trees → torch state dicts, and a
 seeded non-zero random initialisation.
 
-``{unet,vae,whisper,fan,s3fd}_state_dict_from_flax`` take the JAX package's
+``{unet,vae,whisper,whisper_decoder,fan,s3fd}_state_dict_from_flax`` take the JAX package's
 parameter trees (nested dicts of numpy arrays, with or without the
 top-level ``"params"``) and return state dicts in the upstream PyTorch
 key layout the port's modules use. They invert
 ``latentsync_tpu/utils/convert.py`` ``convert_unet``, ``convert_vae`` and
-``convert_whisper_encoder``, and ``latentsync_tpu/utils/convert_eval.py``
+``convert_whisper_encoder``, ``models/whisper_decoder.py``
+``convert_whisper_decoder``, and ``latentsync_tpu/utils/convert_eval.py``
 ``convert_fan`` and ``convert_s3fd``: flax (kh, kw, I, O) conv kernels become
 (O, I, kh, kw), (k, I, O) become (O, I, k), (I, O) dense kernels become
 (O, I), and norm ``scale`` becomes ``weight``.
@@ -113,6 +114,19 @@ def whisper_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
     """JAX WhisperEncoder params → the port's (openai AudioEncoder) state
     dict, without the ``encoder.`` prefix of a full whisper checkpoint."""
     return _convert(params, lambda p: _apply(_WHISPER_RULES, p))
+
+
+def whisper_decoder_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    """JAX WhisperTextDecoder params → the port's decoder state dict in
+    upstream whisper's ``TextDecoder`` layout, without the ``decoder.``
+    prefix of a full checkpoint: the inverse of
+    ``latentsync_tpu/models/whisper_decoder.py`` ``convert_whisper_decoder``."""
+    tree = dict(params.get("params", params))
+    sd = {"token_embedding.weight": tree.pop("token_embedding"),
+          "positional_embedding": tree.pop("positional_embedding")}
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
+    sd.update(_convert(tree, lambda p: _apply(_WHISPER_RULES, p)))
+    return sd
 
 
 _FAN_BLOCK = {"b1_bn": "bn1", "b1_conv": "conv1", "b2_bn": "bn2", "b2_conv": "conv2",

@@ -3,9 +3,9 @@ the align warp and its restore, and the Haar fallback landmark source.
 
 Counterpart of ``latentsync_tpu/utils/face.py`` (numpy and OpenCV, the
 same semantics): ``similarity_from_points``, ``LandmarkSmoother``,
-``landmarks68_to_anchor3``, ``AlignRestore`` and ``HaarAnchorDetector``.
-The reference's ``warp_affine_batch`` (the device warp of its restore
-path) comes with the port's device restore.
+``landmarks68_to_anchor3``, ``AlignRestore`` and ``HaarAnchorDetector``;
+and ``warp_affine_batch``, the batched bilinear warp of the device restore
+(``ops/restore.py``), in torch on the images' device.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 
 import cv2
 import numpy as np
+import torch
 
 
 def similarity_from_points(src: np.ndarray, dst: np.ndarray, smooth: bool = True,
@@ -130,6 +131,47 @@ class AlignRestore:
         soft = soft[:, :, None]
         out = soft * (inv_mask[:, :, None] * restored) + (1 - soft) * frame
         return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def warp_affine_batch(images: torch.Tensor, matrices, out_hw: Tuple[int, int],
+                      fill: float = 127.0) -> torch.Tensor:
+    """Batched inverse-mapped bilinear affine warp on the images' device.
+
+    images: (B, H, W, C) float, channels last; matrices: (B, 2, 3) mapping
+    input to output coordinates (OpenCV's convention). Each matrix is
+    inverted in f32 on the device, output pixel (x, y) samples the input
+    at the inverted map's point, and a tap outside the image reads `fill`.
+    Returns (B, out_h, out_w, C)."""
+    b, h, w, c = images.shape
+    out_h, out_w = out_hw
+    dev = images.device
+    m = torch.as_tensor(matrices, dtype=torch.float32, device=dev)
+    a, t = m[:, :, :2], m[:, :, 2]
+    det = a[:, 0, 0] * a[:, 1, 1] - a[:, 0, 1] * a[:, 1, 0]
+    inv_a = torch.stack([a[:, 1, 1], -a[:, 0, 1], -a[:, 1, 0], a[:, 0, 0]],
+                        dim=-1).reshape(b, 2, 2) / det[:, None, None]
+    # -inv_a @ t rounded as the reference's batched product rounds it: the
+    # second term fused onto the first (an FMA, exact through f64). Sample
+    # points that land on whole pixels (a scale of 4/5, say) stay on them.
+    inv_t = -(inv_a[:, :, 1].double() * t[:, None, 1].double()
+              + (inv_a[:, :, 0] * t[:, None, 0]).double()).float()  # (B, 2)
+    ys, xs = torch.meshgrid(torch.arange(out_h, dtype=torch.float32, device=dev),
+                            torch.arange(out_w, dtype=torch.float32, device=dev), indexing="ij")
+    xs, ys = xs.reshape(1, -1), ys.reshape(1, -1)
+    sx = inv_a[:, 0, 0, None] * xs + inv_a[:, 0, 1, None] * ys + inv_t[:, 0, None]  # (B, P)
+    sy = inv_a[:, 1, 0, None] * xs + inv_a[:, 1, 1, None] * ys + inv_t[:, 1, None]
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    fx, fy = (sx - x0)[..., None], (sy - y0)[..., None]
+    flat = images.reshape(b, h * w, c)
+
+    def gather(yi, xi):
+        valid = ((xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1))[..., None]
+        idx = (yi.clamp(0, h - 1).long() * w + xi.clamp(0, w - 1).long())
+        return torch.gather(flat, 1, idx[..., None].expand(-1, -1, c)).masked_fill(~valid, fill)
+
+    top = gather(y0, x0) * (1 - fx) + gather(y0, x0 + 1) * fx
+    bot = gather(y0 + 1, x0) * (1 - fx) + gather(y0 + 1, x0 + 1) * fx
+    return (top * (1 - fy) + bot * fy).reshape(b, out_h, out_w, c)
 
 
 class HaarAnchorDetector:

@@ -927,3 +927,56 @@ def test_deepcache_write_is_the_exact_forward_on_the_card(rand, mode):
     assert torch.equal(eps, base)
     err = float((read.float() - base.float()).norm() / base.float().norm())
     assert bool(torch.isfinite(read).all()) and err <= 5e-2, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_frame", [False, True], ids=["constant", "per_frame"])
+def test_device_restore_on_the_card_matches_the_cpu(rand, per_frame):
+    """``restore_frames_device`` (no kernel of this repository: library ops)
+    on the card against the same function on the CPU: within 1 code on at
+    most 0.1 % of bytes, and the same bytes for any chunk size."""
+    import numpy as np
+
+    from latentsync_tpu_torch.ops.restore import restore_frames_device
+
+    rng = np.random.default_rng(1)
+    frames = rng.integers(0, 256, (6, 270, 300, 3), dtype=np.uint8)
+    faces = rng.integers(0, 256, (6, 200, 200, 3), dtype=np.uint8)
+    mats = np.repeat(np.array([[0.8, 0.0, -20.0], [0.0, 0.8, -15.0]])[None], 6, 0)
+    if per_frame:
+        mats = mats + rng.normal(0, 0.02, mats.shape) * np.array([1, 1, 40.0])
+    got = restore_frames_device(frames, faces, mats, device="cuda")
+    want = restore_frames_device(frames, faces, mats, device="cpu")
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-3
+    assert np.array_equal(restore_frames_device(frames, faces, mats, chunk=5, device="cuda"), got)
+
+
+@pytest.mark.cuda
+def test_whisper_decoder_step_on_the_card_matches_the_cpu(rand):
+    """One KV-cached decoder step and the teacher-forced logits of a narrow
+    whisper decoder in f32, card against CPU, within 1e-4 of the largest
+    |logit|."""
+    from latentsync_tpu_torch.config import WhisperConfig
+    from latentsync_tpu_torch.models.whisper_decoder import WhisperTextDecoder
+    from latentsync_tpu_torch.utils.convert import init_random_
+
+    cfg = WhisperConfig(n_vocab=600, n_text_ctx=32, n_text_state=128, n_text_head=4,
+                        n_text_layer=2)
+    cpu = init_random_(WhisperTextDecoder(cfg), seed=3).eval()
+    card = WhisperTextDecoder(cfg).cuda().eval()
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(4)
+    tokens = torch.randint(0, cfg.n_vocab, (2, 5), generator=gen)
+    xa = torch.randn(2, 50, cfg.n_text_state, generator=gen) * 0.3
+    with torch.inference_mode():
+        outs = []
+        for dec, dev in ((cpu, "cpu"), (card, "cuda")):
+            k, v = dec.audio_kv(xa.to(dev))
+            kc, vc = dec.new_cache(2)
+            steps = [dec.step(tokens[:, p].to(dev), p, kc, vc, k, v).cpu() for p in range(5)]
+            outs.append((torch.stack(steps, 1), dec(tokens.to(dev), xa.to(dev)).cpu()))
+    (cpu_steps, cpu_full), (card_steps, card_full) = outs
+    scale = float(cpu_full.abs().max())
+    for got, want in ((card_steps, cpu_steps), (card_full, cpu_full), (card_steps, card_full)):
+        assert float((got - want).abs().max()) <= 1e-4 * scale
