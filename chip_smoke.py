@@ -36,6 +36,10 @@ and without CUDA it exits nonzero before doing anything):
    (``exp_bound_ms``); the int8 convolution route (im2col +
    ``torch._int_mm``) against its float64 plain version at one UNet shape
    per width and the VAE's largest ones, with equal int32 accumulators;
+   the flash route's backward kernels (``csrc/flash_attention_bwd.cu``)
+   against their plain version at the decode's (16, 1024, 1, 512), each of
+   dq, dk, dv within TOL_REL of its own, three device kernels a call,
+   timed beside SDPA's backward and their bound;
 3. the full-width UNet (LatentSync 1.5 stage 2, random seeded non-zero
    weights) in four configurations of the reference's switches: default,
    fused (``LATENTSYNC_PALLAS_GN=1 LATENTSYNC_FUSED_XATTN=1``), int8
@@ -110,13 +114,26 @@ and without CUDA it exits nonzero before doing anything):
    greedy decode and a beam of 5 timed; and ``QueueWorker`` draining three
    jobs against the server (plain, dependent and concatenated after it, with
    subtitles from that transcriber). Every request line of phases 4-10
-   prints the restore route it took.
+   prints the restore route it took;
+11. stage-2 training (LatentSync 1.5, ``configs/unet_stage2.yaml``): (a) the gradients of K1-K4 and the flash route through their
+   ``autograd.Function``s against the plain versions' at the trainer's
+   shapes (batch 1, 16 frames); (b) one full-width loss and backward (phase
+   3's weights, seeded SyncNet, LPIPS and TREPA nets) with the kernels
+   against the same step with every wrapper forced to its plain version on
+   the card: loss and per-group gradient distances, every trainable tensor
+   with a finite non-zero gradient, each kernel of the path launched (counts
+   set to 0 just before), peak memory, the step's time and its split, one
+   step under ``torch.profiler``; (c)
+   ``python -m latentsync_tpu_torch.scripts.train_unet`` on the stage-2
+   config for 4 steps in its own process on clips written here (60 frames,
+   ``.wav`` sidecars), then one ``--resume`` step.
 
 The line before the last is a JSON object with each kernel's launches on
-its path (``"path"``: the served configuration, ``probe`` or, for K12,
-``kernels``), its largest error against the plain version, its time, the
-plain version's, the library call's (or null) and its bound with the
-resource that sets it; the last line is the device record.
+its path (``"path"``: the served configuration, ``probe``, ``train`` for
+the flash route's backward (phase 11 (b)) or, for K12, ``kernels``), its
+largest error against the plain version, its time, the plain version's,
+the library call's (or null) and its bound with the resource that sets
+it; the last line is the device record.
 """
 
 from __future__ import annotations
@@ -204,7 +221,11 @@ GN_STREAMING = [((4, c, 16, 32, 32), 1e-5, True) for c in (960, 640, 320)] \
 
 
 def log(msg: str) -> None:
+    """A line of the report; a failed check's line also goes to standard
+    error, so that the reason stands beside the exit code."""
     print(msg, flush=True)
+    if "FAIL" in msg:
+        print(msg, file=sys.stderr, flush=True)
 
 
 def gpu_query(fields: str) -> str:
@@ -1956,6 +1977,432 @@ def run_worker(pipeline, root: str, audios, transcriber) -> bool:
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 11: stage-2 training on the card
+# ---------------------------------------------------------------------------
+
+# the VAE mid-block's attention in the decode of x̂₀: 16 frames of 32² latents
+FLASH_BWD_SHAPE = (16, 1024, 1, 512)
+# the share of the two runs' gradients (kernels vs every wrapper's plain
+# version, both bf16) above which a group's gradient is a fault, not rounding
+GRAD_TOL = 0.25
+# the trainer's shapes at batch 1, 16 frames, 32² latents: (label, wrapper,
+# plain version, tensors (shape, scale, shift), keyword arguments)
+TRAIN_FN_CASES = [
+    ("geglu_ffn", "M=16384 C=320", 16384, 320), ("geglu_ffn", "M=4096 C=640", 4096, 640),
+    ("geglu_ffn", "M=1024 C=1280", 1024, 1280),
+    # SyncNet's feed-forward widths and rows: the reference's routing (and
+    # so the port's, geglu_route) gives them the composed form, never K1;
+    # the kernel is held at them all the same
+    ("geglu_ffn", "M=130 C=256 (SyncNet)", 130, 256),
+    ("geglu_ffn", "M=16 C=1024 (SyncNet)", 16, 1024),
+    ("self_attention_block", "temporal B=1024 S=16 C=320", 1024, 16, 320, True),
+    ("self_attention_block", "temporal B=256 S=16 C=640", 256, 16, 640, True),
+    ("self_attention_block", "spatial B=16 S=256 C=640", 16, 256, 640, False),
+    ("temporal_attention", "B=64 F=16 heads*D=1280", 64, 16, 1280),
+    ("spatial_attention", "B=16 S=1024 heads*D=320", 16, 1024, 320),
+    ("spatial_attention", "B=16 S=64 heads*D=1280", 16, 64, 1280),
+    ("spatial_attention", "B=16 S=16 heads*D=1280", 16, 16, 1280),
+    ("dot_product_attention", "B=16 S=1024 H=1 D=512", 16, 1024, 1, 512),
+]
+
+
+def _per_output(got, ref):
+    """(largest error, its tolerance, all within): each output against
+    TOL_REL · max(1, max|plain|) of its own."""
+    import torch
+
+    errs, ok = [], True
+    for g, r in zip(got, ref):
+        err = float((g.float() - r.float()).abs().max())
+        tol = TOL_REL * max(1.0, float(r.float().abs().max()))
+        ok &= err <= tol and bool(torch.isfinite(g).all())
+        errs.append((err / tol, err, tol))
+    worst = max(errs)
+    return worst[1], worst[2], ok
+
+
+def check_flash_backward(device):
+    """Phase 2, last: the flash route's backward kernels against their plain
+    version at the decode's shape, three device kernels a call, timed beside
+    SDPA's backward (from one forward graph kept for repeated backwards) and
+    the bound of the five products the function needs. It runs among the
+    kernels of phase 2 because there ``torch.profiler`` keeps the events of
+    a call this short; in phase 11 the trace came back empty in every try."""
+    import torch
+    import torch.nn.functional as F
+
+    from latentsync_tpu_torch.ops import attention
+
+    b, s, h, d = FLASH_BWD_SHAPE
+    gen = torch.Generator().manual_seed(SEED + 11)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen).to(device, torch.bfloat16)
+                   for _ in range(4))
+    scale = d**-0.5
+    before = attention.flash_attention_bwd.launches
+    got = attention.flash_attention_bwd(q, k, v, do, scale)
+    ref = attention.flash_attention_bwd_reference(q, k, v, do, scale)
+    torch.cuda.synchronize()
+    launched = attention.flash_attention_bwd.launches == before + 1
+    err, tol, close = _per_output(got, ref)
+    # three launches of the port's kernels and none of torch's
+    port_k, torch_k = kernels_a_call(lambda: attention.flash_attention_bwd(q, k, v, do, scale))
+    ms = cuda_ms(lambda: attention.flash_attention_bwd(q, k, v, do, scale))
+    plain_ms = cuda_ms(lambda: attention.flash_attention_bwd_reference(q, k, v, do, scale))
+    qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs)
+    dot = do.transpose(1, 2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dot, retain_graph=True))
+    bound_ms, bound_by = bound((q, k, v, do), {}, got, 10 * b * h * s * s * d, "bf16")
+    good = launched and close and port_k == 3 and torch_k == 0
+    label = f"B={b} S={s} H={h} D={d}"
+    log(f"kernel flash_attention_bwd    {label:28s} max_abs_err={err:.6g} tol={tol:.6g} (each "
+        f"of dq, dk, dv against its own) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} (SDPA backward) bound_ms={bound_ms:.4f} ({bound_by}) "
+        f"kernels_a_call={port_k} (+{torch_k} torch) {'ok' if good else 'FAIL'}")
+    entry = {"name": "flash_attention_bwd", "route": "cuda",
+             "source": "latentsync_tpu_torch/csrc/flash_attention_bwd.cu",
+             "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+             "shape": label, "kernels_a_call": port_k, "torch_kernels_a_call": torch_k}
+    del q, k, v, do, got, ref, out, qs, ks, vs
+    torch.cuda.empty_cache()
+    return entry, good
+
+
+def check_function_grads(device) -> bool:
+    """Phase 11 (a): the gradients of K1-K4 and the flash route through their
+    ``autograd.Function``s (the kernel forward, the composed backward on the
+    card's kernels) against the autograd of the same call's plain version,
+    at the trainer's shapes, each input and weight within TOL_REL."""
+    import torch
+
+    from latentsync_tpu_torch.ops import attention, attn_block, ffn
+    from latentsync_tpu_torch.ops import temporal_attention as ta
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+
+    def r(*shape, s=1.0, add=0.0):
+        return (torch.randn(shape, generator=gen) * s + add).to(device, torch.bfloat16) \
+            .requires_grad_(True)
+
+    def case(name, *dims):
+        if name == "geglu_ffn":
+            m, c = dims
+            args = [r(m, c), r(8 * c, c, s=c**-0.5), r(8 * c, s=0.1),
+                    r(c, 4 * c, s=(4 * c) ** -0.5), r(c, s=0.1), r(c, s=0.1, add=1.0),
+                    r(c, s=0.1)]
+            return (args, lambda *a: ffn.geglu_ffn(*a, residual=True),
+                    lambda *a: ffn.geglu_ffn_reference(*a, residual=True))
+        if name == "self_attention_block":
+            b, s, c, temporal = dims
+            args = [r(b, s, c), r(c, s=0.1, add=1.0), r(c, s=0.1),
+                    *[r(c, c, s=c**-0.5) for _ in range(4)], r(c, s=0.1)]
+            pe = [r(s, c)] if temporal else []
+
+            def call(fn):
+                return lambda *a: fn(*a[:8], 8, temporal=temporal,
+                                     pe=a[8] if temporal else None)
+            return (args + pe, call(attn_block.self_attention_block),
+                    call(attn_block.self_attention_block_reference))
+        if name == "dot_product_attention":
+            return ([r(*dims) for _ in range(3)], attention.dot_product_attention,
+                    attention.dot_product_attention_reference)
+        fn, plain = {"temporal_attention": (ta.temporal_attention,
+                                            ta.temporal_attention_reference),
+                     "spatial_attention": (ta.spatial_attention,
+                                           ta.spatial_attention_reference)}[name]
+        return ([r(*dims) for _ in range(3)], lambda q, k, v: fn(q, k, v, 8),
+                lambda q, k, v: plain(q, k, v, 8))
+
+    ok = True
+    for name, label, *dims in TRAIN_FN_CASES:
+        args, fn, plain = case(name, *dims)
+        out = fn(*args)
+        has_fn = out.grad_fn is not None
+        cot = torch.randn(out.shape, generator=gen).to(out)
+        got = torch.autograd.grad(out, args, cot)
+        ref = torch.autograd.grad(plain(*args), args, cot)
+        torch.cuda.synchronize()
+        err, tol, close = _per_output(got, ref)
+        good = has_fn and close
+        ok &= good
+        log(f"grad {name:22s} {label:28s} grad_fn={has_fn} {len(args)} gradients, worst "
+            f"max_abs_err={err:.6g} tol={tol:.6g} {'ok' if good else 'FAIL'}")
+        del args, out, got, ref
+    torch.cuda.empty_cache()
+    return ok
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper with a gradient runs its plain version on the card
+    for the duration (the forwards of K1-K4 and the flash route, the flash
+    route's backward); the Functions and their composed backwards stay."""
+    from latentsync_tpu_torch.ops import attention, attn_block, ffn
+    from latentsync_tpu_torch.ops import temporal_attention as ta
+
+    def k1(x, w_up, b_up, w_down, b_down, ln_scale, ln_bias, residual, eps):
+        return ffn.geglu_ffn_reference(x, w_up, b_up, w_down, b_down, ln_scale, ln_bias,
+                                       residual, eps)
+
+    patches = [(ffn, "_geglu_ffn_kernel", k1),
+               (attn_block, "self_attention_block_fused",
+                attn_block.self_attention_block_reference),
+               (ta, "_temporal_kernel", ta.temporal_attention_reference),
+               (ta, "_spatial_kernel", lambda q, k, v, heads, scale, block_q:
+                ta.spatial_attention_reference(q, k, v, heads, scale)),
+               (attention, "_flash_forward", attention.dot_product_attention_reference),
+               (attention, "flash_attention_bwd", attention.flash_attention_bwd_reference)]
+    old = [(m, n, getattr(m, n)) for m, n, _ in patches]
+    for m, n, fn in patches:
+        setattr(m, n, fn)
+    try:
+        yield
+    finally:
+        for m, n, fn in old:
+            setattr(m, n, fn)
+
+
+def _train_batch(cfg):
+    """One synthetic stage-2 batch in the data source's layout (batch 1)."""
+    import numpy as np
+
+    from latentsync_tpu_torch.utils.image_processor import load_fixed_mask
+
+    rng = np.random.default_rng(SEED + 13)
+    f, res = cfg.data.num_frames, cfg.data.resolution
+    gt = rng.uniform(-1, 1, (1, f, res, res, 3)).astype(np.float32)
+    keep = load_fixed_mask(res)[None, None, ..., :1].astype(np.float32)
+    return {"gt_pixels": gt, "masked_pixels": gt * keep,
+            "ref_pixels": rng.uniform(-1, 1, (1, f, res, res, 3)).astype(np.float32),
+            "masks": np.broadcast_to(keep, (1, f, res, res, 1)).copy(),
+            "audio_embeds": rng.standard_normal((1, f, 50, cfg.unet.cross_attention_dim))
+            .astype(np.float32),
+            "mel": rng.uniform(-4, 4, (1, 80, math.ceil(f / 5 * 16), 1)).astype(np.float32)}
+
+
+def _group(name: str) -> str:
+    if "motion_modules." in name:
+        return "motion modules"
+    return "cross attentions (attn2)" if ".attn2." in name else "spatial attentions"
+
+
+def check_train_step(unet, vae, device, counters):
+    """Phase 11 (b): one full-width stage-2 loss and backward (weights of
+    phase 3, nothing zeroed; the loss nets seeded; one batch, t and noise)
+    with the kernels, against the same step with every wrapper forced to
+    its plain version on the card: loss, per-group gradient rel L2, the
+    share of trainable tensors with a finite non-zero gradient (must be
+    100 %), the kernels' launches in the kernel run (counts set to 0 just
+    before it), peak memory, the step's time and its split, and one step
+    under ``torch.profiler``. Returns (launches, ok)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from latentsync_tpu_torch.config import LatentSyncConfig
+    from latentsync_tpu_torch.models.perceptual import LPIPS
+    from latentsync_tpu_torch.models.syncnet import StableSyncNet
+    from latentsync_tpu_torch.models.videomae import TREPALoss, VideoViT, VideoViTConfig
+    from latentsync_tpu_torch.ops import _build
+    from latentsync_tpu_torch.training.unet_trainer import UNetTrainer
+    from latentsync_tpu_torch.utils.convert import init_random_
+
+    bf = torch.bfloat16
+    cfg = LatentSyncConfig()
+    master = copy.deepcopy(unet).float().train()
+    syncnet = init_random_(StableSyncNet(cfg.syncnet), seed=SEED + 4).to(device, bf)
+    lpips = init_random_(LPIPS(), seed=SEED + 5).to(device, bf)
+    vit = init_random_(VideoViT(VideoViTConfig(img_size=64, patch_size=16, embed_dim=64,
+                                               depth=2, num_heads=4, mlp_ratio=4.0)),
+                       seed=SEED + 6).to(device, bf)
+    trainer = UNetTrainer(cfg, master, vae, syncnet, lpips, TREPALoss(vit), dtype=bf)
+    batch = _train_batch(cfg)
+    t, noise = trainer.draw(batch, 0)
+    trainable = [n for n, m in trainer.mask.items() if m]
+
+    def step():
+        losses, grads = trainer.gradients(batch, t, noise)
+        torch.cuda.synchronize()
+        return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+    shapes = collections.Counter()
+
+    def observe(entry, args):
+        """The shape each launch of the step is given, from its arguments."""
+        dims = {"ls_geglu_ffn": args[1:3], "ls_temporal_block": args[1:4],
+                "ls_attn_block": args[1:4], "ls_temporal_attention": args[8:12],
+                "ls_spatial_attention": args[8:12], "ls_flash_attention": args[7:11],
+                "ls_flash_attention_bwd": args[13:17]}.get(entry)
+        shapes[f"{entry}{tuple(dims)}"] += 1
+
+    with configured("default"):
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.observer = observe
+        t0 = time.time()
+        try:
+            losses_k, grads = step()
+        finally:
+            _build.observer = None
+        first_s = time.time() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        good_grads = [bool(torch.isfinite(grads[n]).all()) and bool(grads[n].abs().max() > 0)
+                      for n in trainable]
+        kept = {n: grads[n].clone() for n in trainable}
+        del grads
+        t0 = time.time()
+        step()
+        step_s = time.time() - t0
+        with plain_kernels():
+            losses_p, grads_p = step()
+    share = sum(good_grads) / len(good_grads)
+    on_path = ("geglu_ffn", "self_attention_block", "temporal_attention", "spatial_attention",
+               "dot_product_attention", "flash_attention_bwd")
+    ran = all(launches[n] > 0 for n in on_path)
+    others = {n: v for n, v in launches.items() if n not in on_path and v}
+    loss_rel = abs(losses_k["total"] - losses_p["total"]) / abs(losses_p["total"])
+    groups = collections.defaultdict(lambda: [0.0, 0.0])
+    for n in trainable:
+        g = groups[_group(n)]
+        g[0] += float((kept[n].float() - grads_p[n].float()).pow(2).sum())
+        g[1] += float(grads_p[n].float().pow(2).sum())
+    rels = {k: math.sqrt(d / max(r, 1e-30)) for k, (d, r) in groups.items()}
+    del kept, grads_p
+    ok = share == 1.0 and ran and not others and loss_rel <= UNET_TOL \
+        and all(v <= GRAD_TOL for v in rels.values())
+    log(f"[{gpu_line()}] train step (full width, batch 1, 16 frames, 256²): losses (kernels) "
+        + ", ".join(f"{k}={v:.6g}" for k, v in losses_k.items())
+        + f"; plain total={losses_p['total']:.6g}, loss rel. error {loss_rel:.3g} "
+        f"(tol {UNET_TOL}); gradient rel L2 vs plain "
+        + ", ".join(f"{k} {v:.4g}" for k, v in sorted(rels.items()))
+        + f" (tol {GRAD_TOL}); trainable tensors with a finite non-zero gradient "
+        f"{sum(good_grads)}/{len(good_grads)} = {100 * share:.1f} %; launches in the kernel "
+        f"run {json.dumps({n: launches[n] for n in on_path})}, other kernels {others}; peak "
+        f"device memory {peak:.2f} GiB; step {step_s:.3f} s (first {first_s:.3f} s) "
+        f"{'ok' if ok else 'FAIL'}")
+
+    log("launch shapes of the step (entry point (dims) x launches): "
+        + ", ".join(f"{k} x{v}" for k, v in sorted(shapes.items())))
+
+    # where the step's time goes: each part alone, host clock around synchronised work
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    recon_only = UNetTrainer(dataclasses.replace(cfg, run=dataclasses.replace(
+        cfg.run, pixel_space_supervise=False)), master, vae, dtype=bf)
+    f = cfg.data.num_frames
+    encode_s = timed(lambda: [trainer._encode(batch[k], 1, f)
+                              for k in ("gt_pixels", "masked_pixels", "ref_pixels")])
+    unet_s = timed(lambda: recon_only.gradients(batch, t, noise)) - encode_s
+    z = torch.randn((f, 4, 32, 32), device=device, dtype=bf, requires_grad=True)
+    decode_s = timed(lambda: torch.autograd.grad(vae.decode(z).float().mean(), z))
+    pix = torch.rand((1, f, 3, 256, 256), device=device, requires_grad=True)
+    mel = torch.as_tensor(batch["mel"], device=device).permute(0, 3, 1, 2).to(bf)
+
+    def loss_nets():
+        lower = pix[:, :, :, 128:]
+        loss = lpips(lower.flatten(0, 1).to(bf), lower.flatten(0, 1).detach().to(bf)).mean() \
+            + trainer.trepa(pix, pix.detach())
+        v, a = syncnet(lower.flatten(1, 2).to(bf), mel)
+        return torch.autograd.grad(loss + (v * a).sum(), pix)
+
+    nets_s = timed(loss_nets)
+    for p in master.parameters():
+        p.grad = None
+    log(f"[{gpu_line()}] train step split (s): VAE encode x3 (no grad) {encode_s:.4f}, UNet "
+        f"forward+backward {unet_s:.4f}, VAE decode forward+backward {decode_s:.4f}, loss nets "
+        f"(LPIPS, TREPA, SyncNet) forward+backward {nets_s:.4f}; parts "
+        f"{encode_s + unet_s + decode_s + nets_s:.4f} of the step's {step_s:.4f}")
+    n_k, dev_ms = device_busy(lambda: trainer.gradients(batch, t, noise))
+    fams = collections.Counter()
+    for name, us in device_kernels(lambda: trainer.gradients(batch, t, noise)):
+        fams[name[:70]] += us / 1e3
+    log(f"train step under torch.profiler: {n_k} device kernels, {dev_ms:.3f} device ms; "
+        "largest families (ms): " + "; ".join(f"{n} {ms:.3f}" for n, ms in fams.most_common(8)))
+    for p in master.parameters():
+        p.grad = None
+    del trainer, recon_only, master, syncnet, lpips, vit, z, pix
+    torch.cuda.empty_cache()
+    return launches, ok
+
+
+def _write_training_clips(root: str, n: int = 2, frames: int = 60, size: int = 256):
+    """Clips the data source can draw 16-frame windows from (≥ 48 frames),
+    each with its .wav sidecar, and a fileslist naming them."""
+    import cv2
+    import numpy as np
+
+    from latentsync_tpu_torch.utils.media import write_audio
+
+    rng = np.random.default_rng(SEED + 14)
+    paths = []
+    for i in range(n):
+        path = os.path.join(root, f"train{i}.mp4")
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 25, (size, size))
+        base = rng.integers(0, 255, (size, size, 3), dtype=np.uint8)
+        for j in range(frames):
+            writer.write(np.roll(base, 3 * j, axis=1))
+        writer.release()
+        write_audio(path[:-4] + ".wav",
+                    0.3 * rng.standard_normal(16000 * frames // 25 + 1600).astype(np.float32))
+        paths.append(path)
+    fileslist = os.path.join(root, "files.txt")
+    with open(fileslist, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    return fileslist
+
+
+def run_train_cli(root: str) -> bool:
+    """Phase 11 (c): ``python -m latentsync_tpu_torch.scripts.train_unet`` on
+    ``configs/unet_stage2.yaml`` (its ``data.train_fileslist`` pointed at the
+    clips written here) for 4 steps in its own process, then one ``--resume``
+    step: every step's JSON line, steps/s, peak device memory."""
+    import yaml
+
+    with open("configs/unet_stage2.yaml") as f:
+        stage2 = yaml.safe_load(f)
+    stage2["data"]["train_fileslist"] = _write_training_clips(root)
+    config = os.path.join(root, "unet_stage2.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(stage2, f)
+    out = os.path.join(root, "train_out")
+    cmd = [sys.executable, "-m", "latentsync_tpu_torch.scripts.train_unet", "--config", config,
+           "--output-dir", out, "--log-every", "1"]
+    ok = True
+    for extra, want in ((["--max-steps", "4"], [1, 2, 3, 4]),
+                        (["--max-steps", "5", "--resume"], [5])):
+        t0 = time.time()
+        proc = subprocess.run(cmd + extra, capture_output=True, text=True, timeout=900)
+        wall = time.time() - t0
+        lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+        steps = [x for x in lines if "loss" in x]
+        good = proc.returncode == 0 and [x["step"] for x in steps] == want \
+            and all(math.isfinite(x["loss"]) for x in steps)
+        if "--resume" in extra:
+            good &= bool(lines) and lines[0].get("step") == 4 and "resumed_from" in lines[0]
+        ok &= good
+        for x in lines:
+            log(f"  train_unet: {json.dumps(x)}")
+        log(f"[{gpu_line()}] train_unet {' '.join(extra)}: exit {proc.returncode}, {wall:.1f} s "
+            f"in its own process, steps/s "
+            f"{[round(x['steps_per_sec'], 4) for x in steps]}, peak device memory "
+            f"{max([x.get('peak_memory_gib', 0) for x in steps] or [0]):.2f} GiB "
+            f"{'ok' if good else 'FAIL: ' + proc.stderr[-3000:]}")
+    return ok
+
+
 def main() -> int:
     try:
         import torch
@@ -1997,7 +2444,7 @@ def main() -> int:
                 attn_block.cross_attention_block, gn.group_norm_silu,
                 gn.group_norm_silu_streaming, qmm.quantized_matmul, qconv.conv_acc,
                 ffn.qkv_proj, ffn.geglu_ffn_int8io, attention.oneshot_attention,
-                attention.flash_attention]
+                attention.flash_attention, attention.flash_attention_bwd]
     ok = True
     phase = "kernels"
     try:
@@ -2008,6 +2455,11 @@ def main() -> int:
         good = check_int8_conv(device)
         ok &= good
         log(f"phase 2 (int8 convolution route vs plain version): {'ok' if good else 'FAIL'}")
+        phase = "flash backward"
+        bwd_entry, good = check_flash_backward(device)
+        ok &= good
+        log(f"phase 2 (the flash route's backward kernels vs their plain version): "
+            f"{'ok' if good else 'FAIL'}")
 
         phase = "unet"
         from latentsync_tpu_torch.audio.features import Audio2Feature
@@ -2091,12 +2543,26 @@ def main() -> int:
         log(f"phase 10 (device restore against its CPU run, one request on both restore routes, "
             f"whisper-tiny transcription on the card, the job-queue worker; {time.time() - t0:.0f}"
             f" s): {'ok' if good else 'FAIL'}")
+        phase = "training"
+        t0 = time.time()
+        good = check_function_grads(device)
+        train_launches, trained = check_train_step(unet, vae, device, counters)
+        good &= trained
+        with tempfile.TemporaryDirectory() as root:
+            good &= run_train_cli(root)
+        ok &= good
+        log(f"phase 11 (stage-2 training on the card: the kernels' "
+            f"gradients, a full-width loss and backward against the plain versions, the "
+            f"training CLI for 4 steps and a resumed one; {time.time() - t0:.0f} s): "
+            f"{'ok' if good else 'FAIL'}")
         for k in kernels:
             if k["name"] in PROBE_PATH:
                 k["path"], k["launches"] = PROBE_PATH[k["name"]], probe_launches[k["name"]]
                 continue
             k["path"] = next(conf for conf in CONFIGS if k["name"] in ON_PATH[conf])
             k["launches"] = launches[k["path"]][k["name"]]
+        bwd_entry["path"], bwd_entry["launches"] = "train", train_launches["flash_attention_bwd"]
+        kernels.append(bwd_entry)
     except Exception:  # noqa: BLE001 — report the phase, then fail
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} raised", file=sys.stderr)

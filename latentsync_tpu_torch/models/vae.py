@@ -14,7 +14,8 @@ VAE never reads that switch. Under ``LATENTSYNC_INT8=1`` exactly the
 reference's ``QConv`` set runs as the int8 convolution (``QConv2d``): the
 resnets' conv1/conv2, the samplers, and the encoder's and decoder's
 conv_in/conv_out; the 1×1 shortcuts, quant_conv, post_quant_conv and the
-attention projections stay float, as there.
+attention projections stay float, as there. Decoding runs under autograd
+(the trainer's x̂₀): the mid-block's flash route has a backward kernel.
 """
 
 from __future__ import annotations

@@ -8,6 +8,12 @@ flags, at first use (never at import). The library is loaded with
 ``ctypes``: pointers and the stream travel as ``c_void_p``. Every entry
 point returns ``cudaGetLastError()`` and :func:`call` raises on any
 nonzero code, so a refused launch never passes silently.
+
+A launch writes into a ``torch.empty`` output that autograd cannot see,
+so :func:`check_cuda` refuses any call made under grad with an input that
+requires grad: the kernels with a gradient (K1-K4 and the flash route)
+launch inside a ``torch.autograd.Function`` (``ops/autograd.py``), whose
+forward runs with grad off; every other kernel raises there.
 """
 
 from __future__ import annotations
@@ -54,6 +60,8 @@ _SIGNATURES = {
     "ls_geglu_ffn_int8io": [_P, _P, _I, _I, *[_P] * 8],
     "ls_oneshot_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "ls_flash_kernel": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "ls_flash_attention_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -168,10 +176,22 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise where a kernel without a gradient is called under grad with an
+    input that requires grad: its output would carry no ``grad_fn``, and
+    training would run on without a word."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: this kernel has no gradient; call it under "
+                           "torch.no_grad() or on inputs that do not require grad (a CPU "
+                           "tensor takes the plain version, which autograd differentiates)")
+
+
 def check_cuda(name: str, *tensors: torch.Tensor,
                dtypes: Optional[Sequence[torch.dtype]] = None) -> None:
     """The kernels take CUDA tensors on one device, 16-byte aligned, of the
-    given per-tensor dtypes (bf16 for all when `dtypes` is None)."""
+    given per-tensor dtypes (bf16 for all when `dtypes` is None), and no
+    input that requires grad while grad is on (:func:`refuse_grad`)."""
+    refuse_grad(name, *tensors)
     dev = tensors[0].device
     if dtypes is None:
         dtypes = (torch.bfloat16,) * len(tensors)

@@ -18,6 +18,17 @@ whisper decoder's causal and cache masks) and every CPU tensor run the
 plain ``dot_product_attention_reference``, which is also what
 the plain versions of the other attention ops call.
 
+The flash route has a gradient of its own: a ``torch.autograd.Function``
+whose forward is that kernel (the plain version on a CPU tensor) and whose
+backward is ``flash_attention_bwd``, the hand-written kernels of
+``csrc/flash_attention_bwd.cu`` on a CUDA tensor (dQ, dK and dV of the
+route's forward, probabilities rounded as there) and the autograd of the
+plain version on a CPU tensor. It replaces the VJP of jax's library flash
+kernel (``_flash_attention_bwd_dkv`` and ``_flash_attention_bwd_dq``),
+which the reference's ``_flash_bshd`` never reaches: it gives jax only the
+forward's block sizes, and jax raises when the route is differentiated on
+a TPU. Every other call is plain torch, which autograd differentiates.
+
 Two more kernels of the reference live here, in its (B, S, D) layout with
 B folding batch and heads; only the kernel probe calls them:
 
@@ -30,6 +41,9 @@ B folding batch and heads; only the kernel probe calls them:
   rounded (the same core; each f32 probability reaches the tensor cores
   as three bf16 terms). Nothing in the reference calls it, so nothing
   here does.
+
+Neither has a gradient: a launch under grad with an input that requires
+grad raises.
 
 Each plain version rounds where its own kernel rounds.
 """
@@ -58,8 +72,9 @@ def dot_product_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.T
     `mask` is added to the f32 logits (..., H, Sq, Sk) before the softmax."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    qh = q.transpose(-3, -2).float()                   # (..., H, Sq, D)
-    kh = k.transpose(-3, -2).float()
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qh = q.transpose(-3, -2).to(acc)                   # (..., H, Sq, D)
+    kh = k.transpose(-3, -2).to(acc)
     logits = (qh @ kh.transpose(-1, -2)) * scale       # (..., H, Sq, Sk)
     if mask is not None:
         logits = logits + mask
@@ -94,14 +109,36 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (..., Sq, H, D); k, v: (..., Sk, H, D) → (..., Sq, H, D); an additive
     `mask` on the f32 logits (the whisper decoder's) never takes the flash
     route, as in the reference."""
-    if mask is not None or q.device.type == "cpu" or not flash_route(q, k):
+    if mask is not None or not flash_route(q, k):
         return dot_product_attention_reference(q, k, v, scale, mask)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    return _FlashRoute.apply(q, k, v, scale)
+
+
+class _FlashRoute(torch.autograd.Function):
+    """The flash route: its kernel forward (plain on a CPU tensor) and
+    ``flash_attention_bwd`` for the gradient, from the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cpu":
+            return dot_product_attention_reference(q, k, v, scale)
+        return _flash_forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, grad, ctx.scale), None)
+
+
+def _flash_forward(q, k, v, scale: float) -> torch.Tensor:
     b, s, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape or d not in FLASH_HEAD_DIMS:
         raise ValueError(f"dot_product_attention: no flash kernel for q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} (head dims "
                          f"{FLASH_HEAD_DIMS})")
-    scale = 1.0 / math.sqrt(d) if scale is None else scale
     if not scale > 0:
         raise ValueError(f"dot_product_attention: the kernel needs scale > 0, got {scale}")
     o = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
@@ -116,6 +153,51 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 dot_product_attention.launches = 0
+
+
+def flash_attention_bwd_reference(q, k, v, grad, scale: float):
+    """Plain version of the flash route's backward: autograd of
+    ``dot_product_attention_reference`` (f32 logits and softmax,
+    probabilities rounded to q.dtype before the value product), (dq, dk, dv)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = dot_product_attention_reference(*leaves, scale)
+        return torch.autograd.grad(out, leaves, grad)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        grad: torch.Tensor, scale: float):
+    """(dq, dk, dv) of the flash route's forward for the output gradient
+    `grad`, all (B, S, H, D). On a CUDA tensor the three launches of
+    ``csrc/flash_attention_bwd.cu`` (row statistics, then dK/dV and dQ,
+    each recomputing the probabilities), for S a multiple of 64 and head
+    dims ``FLASH_HEAD_DIMS``; on a CPU tensor the plain version."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, grad, scale)
+    b, s, h, d = q.shape
+    if k.shape != q.shape or v.shape != q.shape or grad.shape != q.shape \
+            or d not in FLASH_HEAD_DIMS or s % 64:
+        raise ValueError(f"flash_attention_bwd: no kernel for q {tuple(q.shape)}, grad "
+                         f"{tuple(grad.shape)} (head dims {FLASH_HEAD_DIMS}, S a multiple "
+                         "of 64)")
+    if not scale > 0:
+        raise ValueError(f"flash_attention_bwd: the kernel needs scale > 0, got {scale}")
+    grad = grad.to(q.dtype).contiguous()
+    dq, dk, dv = (torch.empty((b, s, h, d), device=q.device, dtype=q.dtype) for _ in range(3))
+    _build.check_cuda("flash_attention_bwd", q, k, v, grad, dq, dk, dv)
+    if b == 0:
+        return dq, dk, dv
+    # per-row log-sum-exp of the scaled logits and delta = rowsum(P * dP), f32
+    stats = torch.empty((2, b * h * s), device=q.device, dtype=torch.float32)
+    _build.call("ls_flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                grad.data_ptr(), _row_pitch(q, "q"), _row_pitch(k, "k"), _row_pitch(v, "v"),
+                h * d, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(),
+                stats[1].data_ptr(), b, s, h, d, scale, _build.stream(q))
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------

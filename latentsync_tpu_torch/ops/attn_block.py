@@ -11,7 +11,12 @@ chain of four in spatial mode; where the reference's weight or
 VMEM budget sent the block to its composed lowering (C = 1280, and
 spatial S = 1024 at C = 320), it runs that composition, whose attention
 core is the K3/K4 kernel (``temporal_attention``/``spatial_attention``).
-On a CPU tensor it runs the plain version.
+On a CPU tensor it runs the plain version. On the CPU and on the fused
+route it differentiates as the reference's ``custom_vjp`` does
+(``attn_block.py:258-274``): the backward recomputes the composed
+``self_attention_composed`` (``_xla_block``, whose cores are the K3/K4
+ops with gradients of their own) and takes its gradient
+(``ops/autograd.py``); the composed route is differentiated as it runs.
 
 ``cross_attention_block`` (K5), the audio cross-attention, follows the
 reference's opt-in switch: with ``LATENTSYNC_FUSED_XATTN=1`` (read at
@@ -20,7 +25,10 @@ it launches the kernel chain of ``csrc/cross_attn_block.cu`` wherever
 the reference ran ``_cross_fused`` (``cross_fused_route``: C = 320 and
 640 on the UNet; C = 1280 is over the 8 MiB weight budget). Everywhere
 else on the card it runs the composed torch of the reference's
-``_xla_cross_block``. On a CPU tensor it runs the plain version.
+``_xla_cross_block``. On a CPU tensor it runs the plain version. K5 has
+no gradient in this package yet (the reference's is straight-through,
+``attn_block.py:388-404``): under grad with an input that requires grad
+its launch raises.
 
 The two compositions, ``self_attention_composed`` and
 ``cross_attention_composed``, take the projection as an argument: the
@@ -42,7 +50,8 @@ import torch
 
 from . import _build
 from .attention import dot_product_attention, dot_product_attention_reference
-from .ffn import layer_norm_f32, linear
+from .autograd import with_composed_grad
+from .ffn import acc_dtype, layer_norm_f32, linear
 from .temporal_attention import (
     TEMPORAL_MAX_FRAMES,
     spatial_attention,
@@ -111,17 +120,17 @@ def self_attention_block_reference(x, ln_scale, ln_bias, wq, wk, wv, wo, bo,
     """Plain version: f32 LN and products, rounded to x.dtype where the
     kernels round (normalised input, q/k/v, attention output, block
     output)."""
-    dt = x.dtype
+    dt, acc = x.dtype, acc_dtype(x)
     d = wq.shape[0] // heads
     scale = 1.0 / math.sqrt(d)
     h = layer_norm_f32(x, ln_scale, ln_bias, eps).to(dt)
     if pe is not None:
         h = h + pe.to(dt)
-    hf = h.float()
-    q, k, v = ((hf @ w.float().t()).to(dt) for w in (wq, wk, wv))
+    hf = h.to(acc)
+    q, k, v = ((hf @ w.to(acc).t()).to(dt) for w in (wq, wk, wv))
     core = temporal_attention_reference if temporal else spatial_attention_reference
     o = core(q, k, v, heads, scale)
-    return (x.float() + o.float() @ wo.float().t() + bo.float()).to(dt)
+    return (x.to(acc) + o.to(acc) @ wo.to(acc).t() + bo.to(acc)).to(dt)
 
 
 def self_attention_composed(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads: int, *,
@@ -145,17 +154,21 @@ def self_attention_block(x: torch.Tensor, ln_scale, ln_bias, wq, wk, wv, wo, bo,
                          eps: float = 1e-6) -> torch.Tensor:
     """x: (B, S, C) → x + OutProj(SelfAttn(QKV(LN(x) [+ pe]))). `pe`: (S, C)
     positional encoding added after the LN (temporal mode)."""
-    if x.device.type == "cpu":
-        return self_attention_block_reference(
-            x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads, temporal=temporal,
-            pe=pe, eps=eps)
-    b, s, c = x.shape
-    inner = wq.shape[0]
-    if not fused_route(s, c, inner, temporal, heads):
+    cpu = x.device.type == "cpu"
+    if not cpu and not fused_route(x.shape[1], x.shape[2], wq.shape[0], temporal, heads):
         return self_attention_composed(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads,
                                        temporal=temporal, pe=pe, eps=eps)
-    return self_attention_block_fused(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads,
-                                      temporal=temporal, pe=pe, eps=eps)
+    kernel = self_attention_block_reference if cpu else self_attention_block_fused
+
+    def run(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, pe):
+        return kernel(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads, temporal=temporal,
+                      pe=pe, eps=eps)
+
+    def composed(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, pe):
+        return self_attention_composed(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads,
+                                       temporal=temporal, pe=pe, eps=eps)
+
+    return with_composed_grad(run, composed, x, ln_scale, ln_bias, wq, wk, wv, wo, bo, pe)
 
 
 def self_attention_block_fused(x: torch.Tensor, ln_scale, ln_bias, wq, wk, wv, wo, bo,
@@ -180,6 +193,7 @@ def self_attention_block_fused(x: torch.Tensor, ln_scale, ln_bias, wq, wk, wv, w
     b_o = bo.to(**f32).contiguous()
     ln_w = ln_scale.to(**f32).contiguous()
     ln_b = ln_bias.to(**f32).contiguous()
+    _build.refuse_grad("self_attention_block", x, ln_scale, ln_bias, wq, wk, wv, wo, bo, pe)
     _build.check_cuda("self_attention_block", x, w_q, w_k, w_v, w_o)
     out = torch.empty_like(x)
     scale = 1.0 / math.sqrt(d)
@@ -279,6 +293,7 @@ def cross_attention_block(x: torch.Tensor, ln_scale, ln_bias, ctx: torch.Tensor,
     b_o = bo.to(**f32).contiguous()
     ln_w = ln_scale.to(**f32).contiguous()
     ln_b = ln_bias.to(**f32).contiguous()
+    _build.refuse_grad("cross_attention_block", x, ctx, ln_scale, ln_bias, wq, wk, wv, wo, bo)
     _build.check_cuda("cross_attention_block", x, ctx, w_q, w_kv, w_o)
     m = b * s
     normed = torch.empty((m, c), device=dev, dtype=dt)  # scratch: bf16(LN(x))

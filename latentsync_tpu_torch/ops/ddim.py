@@ -2,7 +2,9 @@
 
 Counterpart of ``latentsync_tpu/ops/ddim.py`` (diffusers DDIMScheduler
 semantics: scaled_linear betas 0.00085→0.012, 1000 train steps,
-"leading" spacing with steps_offset 1, eta = 0, epsilon prediction).
+"leading" spacing with steps_offset 1, eta = 0, epsilon prediction), with
+the trainer's forward process (``add_noise``) and one-step x̂₀
+(``pred_x0``).
 """
 
 from __future__ import annotations
@@ -78,3 +80,26 @@ class DDIMScheduler:
         x0 = (x - torch.sqrt(1.0 - a_t) * e) / torch.sqrt(a_t)
         prev = torch.sqrt(a_p) * x0 + torch.sqrt(1.0 - a_p) * e
         return prev.to(sample.dtype)
+
+    def _acp(self, timesteps: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """alphas_cumprod[t] (f32), shaped to broadcast over `like`'s
+        non-batch axes."""
+        acp = torch.from_numpy(self.alphas_cumprod).to(like.device)[timesteps.long()]
+        return acp.reshape(acp.shape + (1,) * (like.dim() - acp.dim()))
+
+    def add_noise(self, sample: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+        """Forward process q(x_t | x_0) (training; ref:scripts/train_unet.py:337-342)."""
+        acp = self._acp(timesteps, sample)
+        return torch.sqrt(acp) * sample + torch.sqrt(1.0 - acp) * noise
+
+    def pred_x0(self, eps: torch.Tensor, sample: torch.Tensor,
+                timesteps: torch.Tensor) -> torch.Tensor:
+        """One-step x̂₀ from ε (training pixel supervision;
+        ref:latentsync/utils/util.py:243-260), clipped to [-1, 1] when the
+        config says ``clip_sample``."""
+        acp = self._acp(timesteps, sample)
+        x0 = (sample - torch.sqrt(1.0 - acp) * eps) / torch.sqrt(acp)
+        if self.config.clip_sample:
+            x0 = torch.clamp(x0, -1.0, 1.0)
+        return x0

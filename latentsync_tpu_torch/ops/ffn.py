@@ -5,7 +5,13 @@ Counterpart of ``latentsync_tpu/ops/ffn.py`` ``geglu_ffn``. On a CUDA
 tensor it launches the hand-written kernel chain of ``csrc/geglu.cu``
 (the LayerNorm row pass into a scratch buffer, up-projection + GEGLU
 epilogue, down-projection + bias + residual epilogue); on a CPU tensor it
-runs the plain version below.
+runs the plain version below. Either way it differentiates as the
+reference's ``custom_vjp`` does (``ffn.py:208-224``): the backward
+recomputes the composed ``geglu_ffn_xla_full`` (``_geglu_xla_full``) and
+takes its gradient (``ops/autograd.py``). ``geglu_route`` is the
+reference's own choice between its kernel and that composition
+(``_pick_geglu_blocks``), for callers that follow it at shapes the served
+UNet never gives (SyncNet's feed-forwards).
 
 Where the reference runs its composed FF instead (``LATENTSYNC_FUSED_FFN=0``
 or an int8 dense mode, ``unet3d.py:273``), the UNet calls
@@ -19,7 +25,8 @@ with the value half first and the gate half second (diffusers GEGLU),
 ``quantize_rowwise`` (K10, ``csrc/geglu_i8.cu``) are the reference's
 kernel-probe prototypes: no model calls them, ``scripts/micro_probe.py``
 does. Both launch their kernel on a CUDA tensor and run their plain
-version on a CPU tensor.
+version on a CPU tensor; neither has a gradient, so a launch under grad
+with an input that requires grad raises.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .autograd import with_composed_grad
 
 # the widest C of K10 (csrc/geglu_i8.cu): one launch up to
 # GEGLU_I8_GROUP_C, whose f32 result fits the registers of two warpgroups;
@@ -54,13 +62,20 @@ def linear(x: torch.Tensor, w, b, dtype: torch.dtype) -> torch.Tensor:
     return F.linear(x, w.to(dtype), None if b is None else b.to(dtype))
 
 
+def acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The type the plain versions compute in: f32, or f64 for f64 inputs
+    (``torch.autograd.gradcheck``)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def layer_norm_f32(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
     """f32 LayerNorm with the reference's two-pass statistics."""
-    xf = x.float()
+    acc = acc_dtype(x)
+    xf = x.to(acc)
     mu = xf.mean(-1, keepdim=True)
     xc = xf - mu
     var = (xc * xc).mean(-1, keepdim=True)
-    return xc * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    return xc * torch.rsqrt(var + eps) * scale.to(acc) + bias.to(acc)
 
 
 def gelu_erf(x: torch.Tensor) -> torch.Tensor:
@@ -72,15 +87,48 @@ def geglu_ffn_reference(x, w_up, b_up, w_down, b_down, ln_scale=None,
                         eps: float = 1e-6) -> torch.Tensor:
     """Plain version: f32 products and activations, rounded to x.dtype
     where the kernel rounds (normalised input, hidden, output)."""
-    dt = x.dtype
+    dt, acc = x.dtype, acc_dtype(x)
     inner = w_up.shape[0] // 2
     h = x if ln_scale is None else layer_norm_f32(x, ln_scale, ln_bias, eps).to(dt)
-    up = h.float() @ w_up.float().t() + b_up.float()
+    up = h.to(acc) @ w_up.to(acc).t() + b_up.to(acc)
     hidden = (up[..., :inner] * gelu_erf(up[..., inner:])).to(dt)
-    out = hidden.float() @ w_down.float().t() + b_down.float()
+    out = hidden.to(acc) @ w_down.to(acc).t() + b_down.to(acc)
     if residual:
-        out = out + x.float()
+        out = out + x.to(acc)
     return out.to(dt)
+
+
+def geglu_ffn_xla_full(x: torch.Tensor, w_up, b_up, w_down, b_down, ln_scale=None,
+                       ln_bias=None, residual: bool = False, eps: float = 1e-6) -> torch.Tensor:
+    """The reference's ``_geglu_xla_full``, the composition its kernel's
+    gradient differentiates (and what it runs where ``geglu_route`` says
+    no): f32 LN cast to x.dtype, the projections with the weights and
+    biases cast to x.dtype, the exact GELU written with erfc as jax's, and
+    the residual added in f32."""
+    dt = x.dtype
+    h = x if ln_scale is None else layer_norm_f32(x, ln_scale, ln_bias, eps).to(dt)
+    value, gate = linear(h, w_up, b_up, dt).chunk(2, dim=-1)
+    out = linear(value * (0.5 * gate * torch.erfc(-gate * math.sqrt(0.5))), w_down, b_down, dt)
+    if residual:
+        acc = acc_dtype(x)
+        out = (x.to(acc) + out.to(acc)).to(dt)
+    return out
+
+
+def geglu_route(m: int, c: int) -> bool:
+    """Whether the reference ran its GEGLU kernel for M rows of width C
+    (``_pick_geglu_blocks(m, c, 4c) != (0, 0)``: M a multiple of 128 and a
+    block pair under its 12 MB VMEM budget); where it did not, it ran
+    ``_geglu_xla_full``."""
+    inner = 4 * c
+    for bm in (512, 256, 128):
+        if m % bm:
+            continue
+        for bi in (2048, 1280, 1024, 640, 512, 256):
+            if inner % bi == 0 and (3 * c * bi * 4 + 3 * bm * bi * 4 + bm * c * 6
+                                    <= 12 * 2**20):
+                return True
+    return False
 
 
 def geglu_ffn(x: torch.Tensor, w_up, b_up, w_down, b_down,
@@ -88,9 +136,23 @@ def geglu_ffn(x: torch.Tensor, w_up, b_up, w_down, b_down,
               ln_bias: Optional[torch.Tensor] = None,
               residual: bool = False, eps: float = 1e-6) -> torch.Tensor:
     """x: (..., C) → (x +) FF(LN(x)). See the module docstring."""
-    if x.device.type == "cpu":
-        return geglu_ffn_reference(x, w_up, b_up, w_down, b_down, ln_scale,
-                                   ln_bias, residual, eps)
+    def run(x, w_up, b_up, w_down, b_down, ln_scale, ln_bias):
+        if x.device.type == "cpu":
+            return geglu_ffn_reference(x, w_up, b_up, w_down, b_down, ln_scale, ln_bias,
+                                       residual, eps)
+        return _geglu_ffn_kernel(x, w_up, b_up, w_down, b_down, ln_scale, ln_bias, residual,
+                                 eps)
+
+    def composed(x, w_up, b_up, w_down, b_down, ln_scale, ln_bias):
+        return geglu_ffn_xla_full(x, w_up, b_up, w_down, b_down, ln_scale, ln_bias, residual,
+                                  eps)
+
+    return with_composed_grad(run, composed, x, w_up, b_up, w_down, b_down, ln_scale, ln_bias)
+
+
+def _geglu_ffn_kernel(x: torch.Tensor, w_up, b_up, w_down, b_down, ln_scale, ln_bias,
+                      residual: bool, eps: float) -> torch.Tensor:
+    """K1's launch (``geglu_ffn`` on a CUDA tensor)."""
     c = x.shape[-1]
     inner = w_up.shape[0] // 2
     if w_up.shape != (2 * inner, c) or inner != 4 * c or w_down.shape != (c, inner):
@@ -101,6 +163,7 @@ def geglu_ffn(x: torch.Tensor, w_up, b_up, w_down, b_down,
     x2 = x.reshape(-1, c).contiguous()
     w_up = w_up.contiguous()
     w_down = w_down.contiguous()
+    _build.refuse_grad("geglu_ffn", x, w_up, b_up, w_down, b_down, ln_scale, ln_bias)
     _build.check_cuda("geglu_ffn", x2, w_up, w_down)
     m = x2.shape[0]
     has_ln = ln_scale is not None

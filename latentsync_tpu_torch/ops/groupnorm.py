@@ -19,7 +19,10 @@ the product of the spatial axes here.
   where the reference's streaming blocks would not tile the sample.
 
 Each kernel takes bf16 in and gives bf16 out, with f32 statistics,
-scale/bias and SiLU. On a CPU tensor each runs the plain version.
+scale/bias and SiLU. On a CPU tensor each runs the plain version. Neither
+kernel has a gradient, here or in the reference (``groupnorm.py:92``,
+``:185`` carry no ``custom_vjp``): a launch under grad with an input that
+requires grad raises (``_build.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -94,6 +97,7 @@ def _launch(name: str, entry: str, x, scale, bias, groups, eps, silu, *extra):
     n, c, spatial = _dims(x, groups, name)
     x = x.contiguous()
     y = torch.empty_like(x)
+    _build.refuse_grad(name, x, scale, bias)
     _build.check_cuda(name, x, y)
     f32 = dict(device=x.device, dtype=torch.float32)
     w = scale.to(**f32).contiguous()

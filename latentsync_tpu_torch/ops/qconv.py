@@ -13,6 +13,12 @@ reference's names and default (off) and are read at each call:
   ``"pallas"`` the K8 kernel (``ops/qmm.py``). Any other value raises; the
   reference would quietly run ``"xla"`` for it.
 
+Neither int8 route has a gradient in this package yet (the reference's
+``_qconv2d_ste`` and ``_qdense_ste`` are straight-through,
+``qconv.py:150-202``, ``:237-272``): on a CUDA tensor under grad, with an
+input that requires grad, both raise rather than return a tensor cut off
+from autograd.
+
 The int32 accumulation runs, on a CUDA tensor, as ``torch._int_mm`` (for
 the convolution after a frame-chunked im2col, so the int8 column buffer
 and its int32 product stay under ~1 GiB); K and N are zero-padded to
@@ -31,6 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from . import _build
 from .ffn import linear
 from .qmm import quantized_matmul
 
@@ -128,6 +135,8 @@ def quantized_conv2d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tens
     """x (N, Cin, H, W) float, w (Cout, Cin, kh, kw) float → the int8
     convolution in x.dtype (``_qconv2d_ste``'s forward). Zero padding
     applies to the int8 codes; it moves no scale."""
+    if x.device.type != "cpu":
+        _build.refuse_grad("quantized_conv2d", x, w, bias)
     wq, wscale = _quantize(w.float(), (1, 2, 3))
     wscale = wscale.reshape(1, -1, 1, 1)
     n, _, h, wd = x.shape
@@ -161,6 +170,8 @@ class QConv2d(nn.Conv2d):
 def _qdense_xla(x2d: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]):
     """The reference's ``_qdense_ste`` forward: per-row activation scales,
     per-out-channel weight scales (both divides), bias added in f32."""
+    if x2d.device.type != "cpu":
+        _build.refuse_grad("dense_with_params (int8)", x2d, w, bias)
     wq, wscale = _quantize(w.float(), 1)
     xq, ascale = _quantize(x2d.float(), 1)
     out = int_mm(xq, wq).float() * (wscale.t() * ascale)

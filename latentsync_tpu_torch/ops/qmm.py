@@ -15,7 +15,10 @@ version), then the int8 mode of the GEMM template. On a CPU tensor it runs
 the plain version, whose int32 accumulation is a float64 product (exact:
 |Σ| ≤ 127²·K < 2⁵³).
 
-The weight uses the torch ``nn.Linear`` layout, (N, K).
+The weight uses the torch ``nn.Linear`` layout, (N, K). K8 has no
+gradient in this package yet (the reference's ``QDense`` is
+straight-through, ``qconv.py:237-272``): its launch under grad with an
+input that requires grad raises.
 """
 
 from __future__ import annotations

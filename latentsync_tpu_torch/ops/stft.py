@@ -2,7 +2,8 @@
 
 Counterpart of ``latentsync_tpu/ops/stft.py``: the same framing (a strided
 gather over the reflect-padded signal) and an rfft per frame, so both
-packages produce the same spectra for the whisper front end.
+packages produce the same spectra for the whisper front end and the
+Wav2Lip mel, and the same preemphasis.
 """
 
 from __future__ import annotations
@@ -29,9 +30,19 @@ def frame_signal(audio: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tens
     return padded[idx]
 
 
-def stft_power(audio: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
-    """|STFT|² with an n_fft-long window, (n_fft // 2 + 1, num_frames)."""
+def stft_magnitude(audio: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
+    """|STFT| with an n_fft-long window, (n_fft // 2 + 1, num_frames)."""
     frames = frame_signal(audio, n_fft, hop_length)
     window = hann_window(n_fft, audio.device, audio.dtype)
-    mag = torch.fft.rfft(frames * window[None, :], dim=-1).abs().T
+    return torch.fft.rfft(frames * window[None, :], dim=-1).abs().T
+
+
+def stft_power(audio: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
+    """|STFT|² with an n_fft-long window, (n_fft // 2 + 1, num_frames)."""
+    mag = stft_magnitude(audio, n_fft, hop_length)
     return mag * mag
+
+
+def preemphasis(audio: torch.Tensor, coef: float) -> torch.Tensor:
+    """y[n] = x[n] - coef * x[n-1] (ref:latentsync/utils/audio.py:30-33)."""
+    return torch.cat([audio[:1], audio[1:] - coef * audio[:-1]])

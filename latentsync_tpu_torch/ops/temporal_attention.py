@@ -10,7 +10,13 @@ Counterparts of ``latentsync_tpu/ops/temporal_attention.py``:
   ``csrc/attn_core.cuh``).
 
 On a CUDA tensor each launches its hand-written kernel; on a CPU tensor
-it runs the plain version. q/k/v may be column slices of one fused
+it runs the plain version. Either way each differentiates as the
+reference's ``custom_vjp`` does (``temporal_attention.py:115-125``,
+``:225-235``): the backward recomputes the composed core and takes its
+gradient (``ops/autograd.py``) — ``_temporal_xla`` (the plain version)
+for K3, and for K4 ``_spatial_xla``, the routed
+``attention.dot_product_attention``, which at S ≥ 256 (S a multiple of
+128) is the flash route with its backward kernel. q/k/v may be column slices of one fused
 projection: the kernels read rows through a pitch. The fused block of
 ``attn_block`` runs the same kernels inside its own launch chain, so the
 counters here count only the routes on which the reference ran these two
@@ -25,7 +31,8 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import dot_product_attention_reference
+from .attention import dot_product_attention, dot_product_attention_reference
+from .autograd import with_composed_grad
 
 # frames of a sequence the temporal kernels take, at most (two m16 row tiles;
 # the motion modules' positional encoding has 24 rows)
@@ -71,11 +78,28 @@ def spatial_block_q(s: int) -> int:
     return 128 if s >= 256 else 64
 
 
+def spatial_attention_composed(q, k, v, heads: int, scale: Optional[float] = None):
+    """The reference's ``_spatial_xla``: the routed attention over (B, S,
+    heads, D), the composition K4's gradient differentiates."""
+    b, s, hd = q.shape
+    d = hd // heads
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    return dot_product_attention(
+        q.reshape(b, s, heads, d), k.reshape(b, s, heads, d),
+        v.reshape(b, s, heads, d), scale).reshape(b, s, hd)
+
+
 def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        heads: int, scale: Optional[float] = None) -> torch.Tensor:
     """q, k, v: (B, F, heads·D) → (B, F, heads·D), 1 ≤ F ≤ 24 on the card."""
-    if q.device.type == "cpu":
-        return temporal_attention_reference(q, k, v, heads, scale)
+    kernel = temporal_attention_reference if q.device.type == "cpu" else _temporal_kernel
+    return with_composed_grad(lambda q, k, v: kernel(q, k, v, heads, scale),
+                              lambda q, k, v: temporal_attention_reference(q, k, v, heads, scale),
+                              q, k, v)
+
+
+def _temporal_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                     scale: Optional[float]) -> torch.Tensor:
     b, f, hd = q.shape
     d = hd // heads
     if not 1 <= f <= TEMPORAL_MAX_FRAMES or d % 8 or hd != heads * d:
@@ -101,7 +125,18 @@ def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     its grid the same way); by default the kernel picks it from S
     (``spatial_block_q``). The plain version has no tiles and ignores it."""
     if q.device.type == "cpu":
-        return spatial_attention_reference(q, k, v, heads, scale)
+        def kernel(q, k, v):
+            return spatial_attention_reference(q, k, v, heads, scale)
+    else:
+        def kernel(q, k, v):
+            return _spatial_kernel(q, k, v, heads, scale, block_q)
+    return with_composed_grad(kernel,
+                              lambda q, k, v: spatial_attention_composed(q, k, v, heads, scale),
+                              q, k, v)
+
+
+def _spatial_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                    scale: Optional[float], block_q: Optional[int]) -> torch.Tensor:
     b, s, hd = q.shape
     d = hd // heads
     if d not in SPATIAL_HEAD_DIMS or hd != heads * d or s < 1:

@@ -7,8 +7,11 @@ top-level ``"params"``) and return state dicts in the upstream PyTorch
 key layout the port's modules use. They invert
 ``latentsync_tpu/utils/convert.py`` ``convert_unet``, ``convert_vae`` and
 ``convert_whisper_encoder``, ``models/whisper_decoder.py``
-``convert_whisper_decoder``, and ``latentsync_tpu/utils/convert_eval.py``
-``convert_fan`` and ``convert_s3fd``: flax (kh, kw, I, O) conv kernels become
+``convert_whisper_decoder``, ``latentsync_tpu/utils/convert_eval.py``
+``convert_fan`` and ``convert_s3fd``, and the stage-2 trainer's frozen
+nets: ``convert_stable_syncnet``, ``models/perceptual.py``
+``convert_vgg16_torchvision`` + ``convert_lpips`` and
+``models/videomae.py`` ``convert_videomae``: flax (kh, kw, I, O) conv kernels become
 (O, I, kh, kw), (k, I, O) become (O, I, k), (I, O) dense kernels become
 (O, I), and norm ``scale`` becomes ``weight``.
 """
@@ -196,6 +199,72 @@ def s3fd_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
     return _state_dict(variables, _s3fd_module)
 
 
+_SYNCNET_RULES = [
+    (r"down_blocks_(\d+)/", r"down_blocks.\1."),
+    (r"attn_to_out$", "attn.to_out.0"),
+    (r"attn_to_(q|k|v)$", r"attn.to_\1"),
+    (r"ff/net_0_proj$", "ff.net.0.proj"),
+    (r"ff/net_2$", "ff.net.2"),
+]
+
+
+def stable_syncnet_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    """JAX StableSyncNet params → the port's (upstream ``stable_syncnet.pt``
+    layout) state dict: the inverse of ``convert_stable_syncnet``."""
+    return _convert(params, lambda p: _apply(_SYNCNET_RULES, p))
+
+
+# torchvision vgg16().features index of each of the 13 convolutions
+_VGG16_CONV_LAYERS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def _lpips_module(path: str) -> str:
+    m = re.fullmatch(r"vgg/conv_(\d+)", path)
+    if m:
+        return f"vgg.features.{_VGG16_CONV_LAYERS[int(m.group(1))]}"
+    m = re.fullmatch(r"lin_(\d)", path)
+    if m:
+        return f"lins.{m.group(1)}.model.1"
+    raise ValueError(f"unexpected LPIPS parameter path {path!r}")
+
+
+def lpips_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    """JAX LPIPS params (``vgg/conv_i`` and ``lin_i``) → the port's LPIPS
+    state dict (torchvision ``vgg.features.N``, lpips ``lins.N.model.1``):
+    the inverse of ``convert_vgg16_torchvision`` and ``convert_lpips``."""
+    return _convert(params, _lpips_module)
+
+
+def videomae_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    """JAX VideoViT params → the port's (upstream VideoMAEv2 finetune layout)
+    state dict: the inverse of ``convert_videomae``. The JAX q/k/v bias is
+    [q_bias, 0, v_bias]; a nonzero k part has no upstream place and raises."""
+    sd = {}
+    for path, w in _flatten(params.get("params", params)):
+        head, leaf = path[0], path[-1]
+        if head == "patch_embed":
+            key = f"patch_embed.proj.{'bias' if leaf == 'bias' else 'weight'}"
+            w = w if leaf == "bias" else np.transpose(w, (4, 3, 0, 1, 2))
+        elif head == "fc_norm":
+            key, w = ("fc_norm." + _leaf(leaf, w)[0]), w
+        else:
+            blk = "blocks." + head.split("_")[1]
+            sub = path[1]
+            if sub == "qkv" and leaf == "bias":
+                e = w.shape[0] // 3
+                if np.any(w[e:2 * e]):
+                    raise ValueError(f"{head}/qkv/bias: a nonzero k bias has no upstream place")
+                sd[f"{blk}.attn.q_bias"] = torch.from_numpy(np.ascontiguousarray(w[:e], np.float32))
+                sd[f"{blk}.attn.v_bias"] = torch.from_numpy(np.ascontiguousarray(w[2 * e:],
+                                                                                 np.float32))
+                continue
+            mod = {"qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+            name, w = _leaf(leaf, w)
+            key = f"{blk}.{mod.get(sub, sub)}.{name}"
+        sd[key] = torch.from_numpy(np.ascontiguousarray(w, np.float32))
+    return sd
+
+
 def load_state_dict_file(path: str, from_flax=None) -> Dict[str, torch.Tensor]:
     """A weight file as a state dict: ``.pth`` / ``.pt`` through
     ``torch.load`` (tensors only; a ``state_dict`` entry is unwrapped), or
@@ -256,4 +325,34 @@ def init_random_(module: nn.Module, seed: int) -> nn.Module:
         else:
             v = _BIAS_STD * torch.randn(p.shape, generator=g)
         p.copy_(v)
+    return module
+
+
+# the JAX package's zero-initialised UNet kernels (latentsync_tpu/utils/params.py:55
+# UNET_ZERO_PATHS), as port parameter-name patterns
+UNET_ZERO_PATHS = (r"^conv_in\.weight$", r"^conv_out\.weight$", r"proj_out\.weight$")
+
+
+@torch.no_grad()
+def fast_init_(module: nn.Module, seed: int, zero_paths=(), scale: float = 0.02) -> nn.Module:
+    """The JAX package's ``fast_init`` fill, for the trainer's fallbacks
+    where a checkpoint is absent: N(0, scale²) for weights, 0 for biases, 1
+    for norm scales, and 0 for every weight whose name matches one of
+    `zero_paths` (regular expressions). Drawn from `seed` in
+    parameter-name order on the module's device (a full-width UNet fills
+    in a fraction of a second on the card; the card's values differ from
+    the CPU's). With ``UNET_ZERO_PATHS`` the UNet's output is identically
+    zero (conv_out), as the JAX trainer's is before a checkpoint is loaded;
+    checks of gradients use ``init_random_``."""
+    device = next(module.parameters()).device
+    g = torch.Generator(device=device).manual_seed(seed)
+    norms = {id(m.weight) for m in module.modules()
+             if isinstance(m, (nn.GroupNorm, nn.LayerNorm)) and m.weight is not None}
+    for name, p in module.named_parameters():
+        if id(p) in norms:
+            p.fill_(1.0)
+        elif name.endswith("bias") or any(re.search(z, name) for z in zero_paths):
+            p.zero_()
+        else:
+            p.normal_(0.0, scale, generator=g)
     return module

@@ -260,15 +260,21 @@ _FOREIGN = ("jax", "flax", "latentsync_tpu")
 
 def test_port_imports_no_jax():
     """Importing the port's entry points (pipeline, server and batcher, the
-    job-queue worker, the three CLIs, probe, onboarding) and its face models
-    loads no module of jax, flax or the JAX package."""
+    job-queue worker, the CLIs, the trainer and its CLI, probe, onboarding),
+    its face models and the trainer's loss nets, data and checkpoints loads
+    no module of jax, flax or the JAX package."""
     code = ("import sys, latentsync_tpu_torch.serving.api, latentsync_tpu_torch.pipelines."
             "lipsync, latentsync_tpu_torch.scripts.micro_probe, "
             "latentsync_tpu_torch.scripts.prepare_video, latentsync_tpu_torch.serving.batcher, "
             "latentsync_tpu_torch.scripts.inference, latentsync_tpu_torch.scripts.api, "
             "latentsync_tpu_torch.models.face_detection, latentsync_tpu_torch.serving.worker, "
             "latentsync_tpu_torch.serving.helpers, latentsync_tpu_torch.scripts.transcribe, "
-            "latentsync_tpu_torch.audio.transcribe, latentsync_tpu_torch.audio.tokenizer; "
+            "latentsync_tpu_torch.audio.transcribe, latentsync_tpu_torch.audio.tokenizer, "
+            "latentsync_tpu_torch.scripts.train_unet, latentsync_tpu_torch.training.unet_trainer, "
+            "latentsync_tpu_torch.training.data, latentsync_tpu_torch.training.losses, "
+            "latentsync_tpu_torch.models.syncnet, latentsync_tpu_torch.models.perceptual, "
+            "latentsync_tpu_torch.models.videomae, latentsync_tpu_torch.utils.checkpoint, "
+            "latentsync_tpu_torch.ops.autograd; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {_FOREIGN!r}]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

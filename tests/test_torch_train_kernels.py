@@ -1,0 +1,151 @@
+"""Gradients through the hand kernels on the card (``cuda`` marker; skipped
+where ``torch.cuda.is_available()`` is false). Imports no JAX, so it runs on
+the card machine:
+
+    python -m pytest --noconftest tests/test_torch_train_kernels.py -m cuda -q
+
+- the flash route's backward kernels (``csrc/flash_attention_bwd.cu``)
+  against their plain version at the head dims of the training path;
+- K1-K4 and the flash route under grad: a ``grad_fn`` on the output, and
+  input and weight gradients against the plain version's autograd on the
+  same bf16 inputs;
+- every other kernel wrapper (K5-K12) and both int8 routes raise under grad.
+
+Tolerance: 2^-6 · max(1, max|plain|) per tensor, as ``chip_smoke.py``'s.
+"""
+
+import pytest
+import torch
+
+from latentsync_tpu_torch.ops import attention, attn_block, ffn, groupnorm, qconv, qmm
+from latentsync_tpu_torch.ops import temporal_attention as ta
+
+TOL_REL = 2.0**-6
+
+
+@pytest.fixture
+def rand():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    gen = torch.Generator().manual_seed(14)
+
+    def r(*shape, s=1.0, add=0.0, grad=True):
+        return (torch.randn(shape, generator=gen) * s + add).to("cuda", torch.bfloat16) \
+            .requires_grad_(grad)
+    return r
+
+
+def _close(got, ref):
+    torch.cuda.synchronize()
+    for g, p in zip(got, ref):
+        tol = TOL_REL * max(1.0, float(p.float().abs().max()))
+        assert torch.isfinite(g).all()
+        assert float((g.float() - p.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d", [(2, 256, 1, 512), (2, 1024, 8, 40), (2, 256, 8, 80)])
+def test_flash_backward_kernel_matches_plain(rand, b, s, h, d):
+    q, k, v, do = (rand(b, s, h, d, grad=False) for _ in range(4))
+    before = attention.flash_attention_bwd.launches
+    got = attention.flash_attention_bwd(q, k, v, do, d**-0.5)
+    assert attention.flash_attention_bwd.launches == before + 1
+    _close(got, attention.flash_attention_bwd_reference(q, k, v, do, d**-0.5))
+
+
+def _grads_against_plain(fn, plain, inputs):
+    """Gradients of `fn` (the wrapper) and of `plain` on the same inputs for
+    one random output gradient."""
+    out = fn(*inputs)
+    assert out.grad_fn is not None
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(3)).to(out)
+    got = torch.autograd.grad(out, inputs, cot)
+    ref = torch.autograd.grad(plain(*inputs), inputs, cot)
+    _close(got, ref)
+
+
+@pytest.mark.cuda
+def test_geglu_ffn_gradients(rand):
+    c = 320
+    args = (rand(1024, c), rand(8 * c, c, s=c**-0.5), rand(8 * c, s=0.1),
+            rand(c, 4 * c, s=(4 * c) ** -0.5), rand(c, s=0.1), rand(c, s=0.1, add=1.0),
+            rand(c, s=0.1))
+    _grads_against_plain(lambda *a: ffn.geglu_ffn(*a, residual=True),
+                         lambda *a: ffn.geglu_ffn_reference(*a, residual=True), args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temporal,b,s,c", [(True, 1024, 16, 320), (True, 256, 16, 640),
+                                            (False, 16, 256, 640)])
+def test_self_attention_block_gradients(rand, temporal, b, s, c):
+    ws = [rand(c, c, s=c**-0.5) for _ in range(4)]
+    args = [rand(b, s, c), rand(c, s=0.1, add=1.0), rand(c, s=0.1), *ws, rand(c, s=0.1),
+            rand(s, c)]
+
+    def fn(x, ls, lb, wq, wk, wv, wo, bo, pe):
+        return attn_block.self_attention_block(x, ls, lb, wq, wk, wv, wo, bo, 8,
+                                               temporal=temporal, pe=pe if temporal else None)
+
+    def plain(x, ls, lb, wq, wk, wv, wo, bo, pe):
+        return attn_block.self_attention_block_reference(
+            x, ls, lb, wq, wk, wv, wo, bo, 8, temporal=temporal, pe=pe if temporal else None)
+
+    if not temporal:
+        args = args[:-1]
+        _grads_against_plain(lambda *a: fn(*a, None), lambda *a: plain(*a, None), args)
+    else:
+        _grads_against_plain(fn, plain, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,b,s,hd", [("temporal", 64, 16, 1280),
+                                          ("spatial", 16, 1024, 320),
+                                          ("spatial", 16, 64, 1280)])
+def test_attention_core_gradients(rand, which, b, s, hd):
+    fn = ta.temporal_attention if which == "temporal" else ta.spatial_attention
+    plain = ta.temporal_attention_reference if which == "temporal" \
+        else ta.spatial_attention_reference
+    _grads_against_plain(lambda q, k, v: fn(q, k, v, 8), lambda q, k, v: plain(q, k, v, 8),
+                         [rand(b, s, hd) for _ in range(3)])
+
+
+@pytest.mark.cuda
+def test_flash_route_gradients(rand):
+    _grads_against_plain(attention.dot_product_attention,
+                         attention.dot_product_attention_reference,
+                         [rand(2, 1024, 1, 512) for _ in range(3)])
+
+
+@pytest.mark.cuda
+def test_wrappers_without_a_gradient_raise_under_grad(rand, monkeypatch):
+    c = 320
+    x = rand(64, 256, c)
+    ln = (rand(c), rand(c))
+    w = rand(c, c)
+    calls = {
+        "cross_attention_block": lambda: attn_block.cross_attention_block(
+            x, *ln, rand(64, 50, 384), w, rand(c, 384), rand(c, 384), w, rand(c), 8),
+        "group_norm_silu": lambda: groupnorm.group_norm_silu(rand(4, c, 8, 8), *ln, 32),
+        "group_norm_silu_streaming": lambda: groupnorm.group_norm_silu_streaming(
+            rand(4, c, 16, 32, 32), *ln, 32),
+        "quantized_matmul": lambda: qmm.quantized_matmul(rand(256, c), w),
+        "qkv_proj": lambda: ffn.qkv_proj(rand(256, c), w, w, w),
+        "geglu_ffn_int8io": lambda: ffn.geglu_ffn_int8io(
+            *ffn.quantize_rowwise(rand(256, c, grad=False)), rand(8 * c, c), rand(8 * c),
+            rand(c, 4 * c), rand(c)),
+        "oneshot_attention": lambda: attention.oneshot_attention(*(rand(8, 256, 40)
+                                                                   for _ in range(3))),
+        "flash_attention": lambda: attention.flash_attention(*(rand(8, 256, 128)
+                                                               for _ in range(3))),
+        "quantized_conv2d": lambda: qconv.quantized_conv2d(rand(2, c, 8, 8),
+                                                           rand(c, c, 3, 3), rand(c),
+                                                           padding=(1, 1)),
+        "dense_with_params (int8)": lambda: qconv._qdense_xla(rand(256, c), w, rand(c)),
+    }
+    monkeypatch.setenv("LATENTSYNC_FUSED_XATTN", "1")  # K5 launches only so
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no gradient"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
