@@ -37,9 +37,14 @@ and without CUDA it exits nonzero before doing anything):
    ``torch._int_mm``) against its float64 plain version at one UNet shape
    per width and the VAE's largest ones, with equal int32 accumulators;
    the flash route's backward kernels (``csrc/flash_attention_bwd.cu``)
-   against their plain version at the decode's (16, 1024, 1, 512), each of
-   dq, dk, dv within TOL_REL of its own, three device kernels a call,
-   timed beside SDPA's backward and their bound;
+   against their plain version at the three shapes of a train step
+   ((16, 1024, 1, 512), (16, 1024, 8, 40), (16, 256, 8, 80)), each of dq,
+   dk, dv within TOL_REL of its own and BWD_REL_L2_TOL in relative L2,
+   two device kernels a call from the residual forward's o and lse (three
+   without them) and none of torch's, a repeat call equal bit for bit, the
+   residual forward's lse within LSE_TOL of the plain logsumexp; timed
+   beside SDPA's backward and their bound, the residual forward beside the
+   forward without grad;
 3. the full-width UNet (LatentSync 1.5 stage 2, random seeded non-zero
    weights) in four configurations of the reference's switches: default,
    fused (``LATENTSYNC_PALLAS_GN=1 LATENTSYNC_FUSED_XATTN=1``), int8
@@ -1981,8 +1986,17 @@ def run_worker(pipeline, root: str, audios, transcriber) -> bool:
 # phase 11: stage-2 training on the card
 # ---------------------------------------------------------------------------
 
-# the VAE mid-block's attention in the decode of x̂₀: 16 frames of 32² latents
-FLASH_BWD_SHAPE = (16, 1024, 1, 512)
+# the flash backward's shapes in a train step: the VAE mid-block's attention
+# in the decode of x̂₀ (16 frames of 32² latents), then the UNet's spatial
+# attention at 32² (C = 320) and 16² (C = 640) through K4's and K2's
+# composed gradients
+FLASH_BWD_SHAPES = [(16, 1024, 1, 512), (16, 1024, 8, 40), (16, 256, 8, 80)]
+# the residual forward's lse against the plain f32 logsumexp, natural units
+LSE_TOL = 1e-3
+# the flash backward's relative L2 error a gradient, beside TOL_REL: where
+# max|plain| < 1 the latter is absolute (2^-6), and this one also holds terms
+# that are small beside dp, such as delta
+BWD_REL_L2_TOL = 1e-2
 # the share of the two runs' gradients (kernels vs every wrapper's plain
 # version, both bf16) above which a group's gradient is a fault, not rounding
 GRAD_TOL = 0.25
@@ -2024,51 +2038,98 @@ def _per_output(got, ref):
 
 def check_flash_backward(device):
     """Phase 2, last: the flash route's backward kernels against their plain
-    version at the decode's shape, three device kernels a call, timed beside
-    SDPA's backward (from one forward graph kept for repeated backwards) and
-    the bound of the five products the function needs. It runs among the
-    kernels of phase 2 because there ``torch.profiler`` keeps the events of
-    a call this short; in phase 11 the trace came back empty in every try."""
+    version at the three shapes a train step gives them (FLASH_BWD_SHAPES),
+    each gradient within TOL_REL of its own and BWD_REL_L2_TOL in relative
+    L2, and each shape timed beside the plain version and SDPA's backward
+    (from one forward graph kept for repeated backwards) with the bound of
+    the function itself: the five products it needs, and q, k, v, do read
+    and dq, dk, dv written once. The backward takes the forward's output
+    and row log-sum-exp from the residual forward (``flash_attention_fwd``),
+    as the train step's Function does: two device kernels a call, three when
+    the call has to run the residual forward itself, and none of torch's. A
+    second call must equal the first bit for bit, and the residual forward's
+    lse must be within LSE_TOL of the plain f32 logsumexp of the scaled
+    logits; its time is logged beside the forward without grad. It runs
+    among the kernels of phase 2 because there ``torch.profiler`` keeps the
+    events of a call this short; in phase 11 the trace came back empty in
+    every try. Returns (the kernels line's entry, ok)."""
     import torch
     import torch.nn.functional as F
 
     from latentsync_tpu_torch.ops import attention
 
-    b, s, h, d = FLASH_BWD_SHAPE
-    gen = torch.Generator().manual_seed(SEED + 11)
-    q, k, v, do = (torch.randn((b, s, h, d), generator=gen).to(device, torch.bfloat16)
-                   for _ in range(4))
-    scale = d**-0.5
-    before = attention.flash_attention_bwd.launches
-    got = attention.flash_attention_bwd(q, k, v, do, scale)
-    ref = attention.flash_attention_bwd_reference(q, k, v, do, scale)
-    torch.cuda.synchronize()
-    launched = attention.flash_attention_bwd.launches == before + 1
-    err, tol, close = _per_output(got, ref)
-    # three launches of the port's kernels and none of torch's
-    port_k, torch_k = kernels_a_call(lambda: attention.flash_attention_bwd(q, k, v, do, scale))
-    ms = cuda_ms(lambda: attention.flash_attention_bwd(q, k, v, do, scale))
-    plain_ms = cuda_ms(lambda: attention.flash_attention_bwd_reference(q, k, v, do, scale))
-    qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qs, ks, vs)
-    dot = do.transpose(1, 2)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dot, retain_graph=True))
-    bound_ms, bound_by = bound((q, k, v, do), {}, got, 10 * b * h * s * s * d, "bf16")
-    good = launched and close and port_k == 3 and torch_k == 0
-    label = f"B={b} S={s} H={h} D={d}"
-    log(f"kernel flash_attention_bwd    {label:28s} max_abs_err={err:.6g} tol={tol:.6g} (each "
-        f"of dq, dk, dv against its own) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms:.4f} (SDPA backward) bound_ms={bound_ms:.4f} ({bound_by}) "
-        f"kernels_a_call={port_k} (+{torch_k} torch) {'ok' if good else 'FAIL'}")
-    entry = {"name": "flash_attention_bwd", "route": "cuda",
-             "source": "latentsync_tpu_torch/csrc/flash_attention_bwd.cu",
-             "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
-             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-             "shape": label, "kernels_a_call": port_k, "torch_kernels_a_call": torch_k}
-    del q, k, v, do, got, ref, out, qs, ks, vs
-    torch.cuda.empty_cache()
-    return entry, good
+    entry, ok = None, True
+    for i, (b, s, h, d) in enumerate(FLASH_BWD_SHAPES):
+        gen = torch.Generator().manual_seed(SEED + 11 + i)
+        q, k, v, do = (torch.randn((b, s, h, d), generator=gen).to(device, torch.bfloat16)
+                       for _ in range(4))
+        scale = d**-0.5
+        o, lse = attention.flash_attention_fwd(q, k, v, scale)
+        lse_ref = attention.flash_attention_fwd_reference(q, k, v, scale)[1]
+        lse_err = float((lse - lse_ref).abs().max()) * math.log(2.0)  # natural units
+        del lse_ref
+        before = attention.flash_attention_bwd.launches
+        got = attention.flash_attention_bwd(q, k, v, do, scale, o=o, lse=lse)
+        again = attention.flash_attention_bwd(q, k, v, do, scale, o=o, lse=lse)
+        direct = attention.flash_attention_bwd(q, k, v, do, scale)  # its own residual forward
+        ref = attention.flash_attention_bwd_reference(q, k, v, do, scale)
+        torch.cuda.synchronize()
+        launched = attention.flash_attention_bwd.launches == before + 3
+        err, tol, close = _per_output(got, ref)
+        rel = max(_rel_l2(g, r) for g, r in zip(got, ref))
+        bitwise = all(torch.equal(x, y) for x, y in zip(got, again))
+        same_direct = all(torch.equal(x, y) for x, y in zip(got, direct))
+        del again, direct, ref
+        port_k, torch_k = kernels_a_call(
+            lambda: attention.flash_attention_bwd(q, k, v, do, scale, o=o, lse=lse))
+        port_d, torch_d = kernels_a_call(lambda: attention.flash_attention_bwd(q, k, v, do, scale))
+        dev_n, dev_ms = device_busy(
+            lambda: attention.flash_attention_bwd(q, k, v, do, scale, o=o, lse=lse))
+        ms = cuda_ms(lambda: attention.flash_attention_bwd(q, k, v, do, scale, o=o, lse=lse))
+        plain_ms = cuda_ms(lambda: attention.flash_attention_bwd_reference(q, k, v, do, scale))
+        fwd_ms = cuda_ms(lambda: attention.flash_attention_fwd(q, k, v, scale))
+        with torch.no_grad():
+            nograd_ms = cuda_ms(lambda: attention.dot_product_attention(q, k, v, scale))
+        qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs)
+        dot = do.transpose(1, 2)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dot,
+                                                         retain_graph=True))
+        # the function's own tensors: q, k, v, do in, dq, dk, dv out
+        bound_ms, bound_by = bound((q, k, v, do), {}, got, 10 * b * h * s * s * d, "bf16")
+        good = launched and close and rel <= BWD_REL_L2_TOL and bitwise and same_direct \
+            and lse_err <= LSE_TOL and port_k == 2 and torch_k == 0 and port_d == 3 \
+            and torch_d == 0
+        ok &= good
+        label = f"B={b} S={s} H={h} D={d}"
+        log(f"kernel flash_attention_bwd    {label:28s} max_abs_err={err:.6g} tol={tol:.6g} (each "
+            f"of dq, dk, dv against its own) rel_l2={rel:.4g} (tol {BWD_REL_L2_TOL}, each) "
+            f"bitwise_repeat={bitwise} "
+            f"same_without_residuals={same_direct} ms={ms:.4f} device_ms={dev_ms:.4f} "
+            f"({dev_n} kernels) plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (SDPA "
+            f"backward) bound_ms={bound_ms:.4f} ({bound_by}) share={bound_ms / ms:.3f} "
+            f"kernels_a_call={port_k} (+{torch_k} torch), without residuals {port_d} "
+            f"(+{torch_d} torch) {'ok' if good else 'FAIL'}")
+        log(f"kernel flash_attention_fwd    {label:28s} residual forward ms={fwd_ms:.4f} beside "
+            f"the forward without grad ms={nograd_ms:.4f}; lse max_abs_err={lse_err:.3g} "
+            f"(natural units, tol {LSE_TOL}) {'ok' if lse_err <= LSE_TOL else 'FAIL'}")
+        shape = {"shape": label, "max_abs_err": err, "rel_l2": rel, "ms": ms,
+                 "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by, "kernels_a_call": port_k,
+                 "residual_forward_ms": fwd_ms, "forward_without_grad_ms": nograd_ms}
+        if entry is None:
+            entry = {"name": "flash_attention_bwd", "route": "cuda",
+                     "source": "latentsync_tpu_torch/csrc/flash_attention_bwd.cu",
+                     "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+                     "launches": 0, "torch_kernels_a_call": torch_k, "shapes": [],
+                     **{k_: shape[k_] for k_ in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms", "kernels_a_call")},
+                     "shape": label}
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["shapes"].append(shape)
+        del q, k, v, do, o, lse, got, out, qs, ks, vs
+        torch.cuda.empty_cache()
+    return entry, ok
 
 
 def check_function_grads(device) -> bool:
@@ -2147,14 +2208,21 @@ def plain_kernels():
         return ffn.geglu_ffn_reference(x, w_up, b_up, w_down, b_down, ln_scale, ln_bias,
                                        residual, eps)
 
+    def flash_forward(q, k, v, scale, with_lse=False):
+        o = attention.dot_product_attention_reference(q, k, v, scale)
+        return (o, None) if with_lse else o
+
+    def flash_backward(q, k, v, grad, scale, o=None, lse=None):
+        return attention.flash_attention_bwd_reference(q, k, v, grad, scale)
+
     patches = [(ffn, "_geglu_ffn_kernel", k1),
                (attn_block, "self_attention_block_fused",
                 attn_block.self_attention_block_reference),
                (ta, "_temporal_kernel", ta.temporal_attention_reference),
                (ta, "_spatial_kernel", lambda q, k, v, heads, scale, block_q:
                 ta.spatial_attention_reference(q, k, v, heads, scale)),
-               (attention, "_flash_forward", attention.dot_product_attention_reference),
-               (attention, "flash_attention_bwd", attention.flash_attention_bwd_reference)]
+               (attention, "_flash_forward", flash_forward),
+               (attention, "flash_attention_bwd", flash_backward)]
     old = [(m, n, getattr(m, n)) for m, n, _ in patches]
     for m, n, fn in patches:
         setattr(m, n, fn)
@@ -2236,6 +2304,7 @@ def check_train_step(unet, vae, device, counters):
         dims = {"ls_geglu_ffn": args[1:3], "ls_temporal_block": args[1:4],
                 "ls_attn_block": args[1:4], "ls_temporal_attention": args[8:12],
                 "ls_spatial_attention": args[8:12], "ls_flash_attention": args[7:11],
+                "ls_flash_attention_lse": args[7:11],
                 "ls_flash_attention_bwd": args[13:17]}.get(entry)
         shapes[f"{entry}{tuple(dims)}"] += 1
 

@@ -86,7 +86,8 @@ constexpr int KT = 64;     // keys of one tile
 constexpr int STAGES = 3;  // ring of K/V tiles in shared memory
 constexpr float LOG2E = 1.4426950408889634f;
 
-// q and o hold seq_q rows a batch entry, k and v seq_k
+// q and o hold seq_q rows a batch entry, k and v seq_k; lse, where a
+// kernel writes the row statistics (LSE below), batch * heads * seq_q f32
 struct Args {
   const bf16 *q, *k, *v;
   int ldq, ldk, ldv;
@@ -94,6 +95,7 @@ struct Args {
   int ldo;
   int batch, seq_q, seq_k, heads;
   float scale;
+  float* lse = nullptr;
 };
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
@@ -377,6 +379,19 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[NS], float (&acc)[
   }
 }
 
+// The row statistics of a thread's two rows (row0 and row0 + 8) as one
+// base-2 log-sum-exp each, sub + log2(row sum) with sub = m c, into
+// lse[row] (this (batch, head)'s rows) by the first lane of each quad;
+// rows past seq_q are not written. All four lanes of a quad call it.
+__device__ __forceinline__ void write_lse(const Rows& r, float* lse, int row0, int seq_q, int t) {
+  const float l0 = quad_sum(r.l[0]);
+  const float l1 = quad_sum(r.l[1]);
+  if (t == 0) {
+    if (row0 < seq_q) lse[row0] = r.sub[0] + __log2f(l0);
+    if (row0 + 8 < seq_q) lse[row0 + 8] = r.sub[1] + __log2f(l1);
+  }
+}
+
 template <int D>
 struct Tile {
   static constexpr int DP = (D + 15) / 16 * 16;  // D padded to the k-step
@@ -409,12 +424,18 @@ struct Tile {
 // to bf16: K11); P_SPLIT, online softmax and p never rounded (K12: the value
 // product runs once for each of p's three bf16 terms). Site only names the
 // caller in a profile: void, or ls_attn::k2_spatial_core for K2's spatial
-// mode (the same code as K4's).
-template <int D, int NWG, int NUM, class Site = void>
+// mode (the same code as K4's). LSE (P_ROUNDED only: the flash route under
+// grad) also writes each row's log-sum-exp of the scaled logits in base 2,
+// m c + log2(l), to lse[(b * heads + h) * seq_q + row]: the residual its
+// backward (flash_attention_bwd.cu) takes P = 2^(s c - lse) from. Without
+// it the kernel is the same code as before the parameter existed.
+template <int D, int NWG, int NUM, class Site = void, bool LSE = false>
 __global__ void __launch_bounds__(128 * NWG)
     attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, int ldq, int ldk, int ldv, bf16* __restrict__ o,
-                int ldo, int seq_q, int seq_k, int heads, int q_tiles, float scale_log2) {
+                int ldo, int seq_q, int seq_k, int heads, int q_tiles, float scale_log2,
+                float* __restrict__ lse) {
+  static_assert(!LSE || NUM == P_ROUNDED, "row statistics of the online softmax only");
   using T = Tile<D>;
   constexpr int KS = T::KS;
   constexpr int THREADS = 128 * NWG;
@@ -615,6 +636,7 @@ __global__ void __launch_bounds__(128 * NWG)
   // two sweeps: the probabilities were normalised before the product
   const float inv0 = TWO_SWEEPS ? 1.f : 1.f / quad_sum(rows.l[0]);
   const float inv1 = TWO_SWEEPS ? 1.f : 1.f / quad_sum(rows.l[1]);
+  if constexpr (LSE) write_lse(rows, lse + (size_t)bh * seq_q, row0, seq_q, t);
   bf16* o0 = o + ((size_t)b * seq_q + row0) * ldo + (size_t)h * D + 2 * t;
   bf16* o1 = o0 + (size_t)8 * ldo;
 #pragma unroll
@@ -628,23 +650,24 @@ __global__ void __launch_bounds__(128 * NWG)
   }
 }
 
-template <int D, int NWG, int NUM, class Site = void>
+template <int D, int NWG, int NUM, class Site = void, bool LSE = false>
 cudaError_t launch(const Args& a, cudaStream_t s) {
+  if (LSE && a.lse == nullptr) return cudaErrorInvalidValue;
   if (a.seq_q <= 0 || a.seq_k <= 0 || a.heads <= 0 || !(a.scale > 0.f))
     return cudaErrorInvalidValue;
   const int tiles = (a.seq_k + KT - 1) / KT;
   const int steps = NUM == P_NORMALISED ? 2 * tiles : tiles;
   const size_t smem =
       (size_t)(steps < STAGES ? steps : STAGES) * Tile<D>::STAGE_BYTES + Tile<D>::SMEM_PAD;
-  cudaError_t e = ls_allow_smem(attn_kernel<D, NWG, NUM, Site>, smem);
+  cudaError_t e = ls_allow_smem(attn_kernel<D, NWG, NUM, Site, LSE>, smem);
   if (e != cudaSuccess) return e;
   constexpr int BQ = 64 * NWG;
   const int q_tiles = (a.seq_q + BQ - 1) / BQ;
   const long long blocks = (long long)q_tiles * a.heads * a.batch;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  attn_kernel<D, NWG, NUM, Site><<<(unsigned)blocks, 128 * NWG, smem, s>>>(
+  attn_kernel<D, NWG, NUM, Site, LSE><<<(unsigned)blocks, 128 * NWG, smem, s>>>(
       a.q, a.k, a.v, a.ldq, a.ldk, a.ldv, a.o, a.ldo, a.seq_q, a.seq_k, a.heads, q_tiles,
-      a.scale * LOG2E);
+      a.scale * LOG2E, a.lse);
   return cudaGetLastError();
 }
 
@@ -654,11 +677,11 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
 static inline int pick_block_q(int seq_q) { return seq_q >= 256 ? 128 : 64; }
 
 // block_q: 64, 128, or 0 for pick_block_q(seq_q).
-template <int D, int NUM, class Site = void>
+template <int D, int NUM, class Site = void, bool LSE = false>
 cudaError_t run(const Args& a, int block_q, cudaStream_t s) {
   switch (block_q ? block_q : pick_block_q(a.seq_q)) {
-    case 64: return launch<D, 1, NUM, Site>(a, s);
-    case 128: return launch<D, 2, NUM, Site>(a, s);
+    case 64: return launch<D, 1, NUM, Site, LSE>(a, s);
+    case 128: return launch<D, 2, NUM, Site, LSE>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -714,13 +737,14 @@ struct Wide {
   static constexpr int SMEM_BYTES = Q_BYTES + 2 * STAGE_BYTES + 1024;
 };
 
-// NUM: P_ROUNDED (the flash route) or P_SPLIT (K12), as above.
-template <int D, int NUM>
+// NUM: P_ROUNDED (the flash route) or P_SPLIT (K12), and LSE, as above.
+template <int D, int NUM, bool LSE = false>
 __global__ void __launch_bounds__(128 * Wide<D>::NWG, 1)
     attn_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, int ldq, int ldk, int ldv,
                      bf16* __restrict__ o, int ldo, int seq_q, int seq_k, int heads,
-                     float scale_log2) {
+                     float scale_log2, float* __restrict__ lse) {
+  static_assert(!LSE || NUM == P_ROUNDED, "row statistics of the online softmax only");
   using W = Wide<D>;
   constexpr int WKT = W::WKT;
   constexpr int TERMS = NUM == P_SPLIT ? 3 : 1;
@@ -818,6 +842,9 @@ __global__ void __launch_bounds__(128 * Wide<D>::NWG, 1)
   const float inv0 = 1.f / quad_sum(rows.l[0]);
   const float inv1 = 1.f / quad_sum(rows.l[1]);
   const int row0 = qt * W::BQ + warp * 16 + g;
+  // both warpgroups hold the same row statistics: the first writes them
+  if constexpr (LSE)
+    if (wg == 0) write_lse(rows, lse + (size_t)bh * seq_q, row0, seq_q, t);
   bf16* o0 = o + ((size_t)b * seq_q + row0) * ldo + (size_t)h * D + wg * W::DW + 2 * t;
   bf16* o1 = o0 + (size_t)8 * ldo;
 #pragma unroll
@@ -829,19 +856,19 @@ __global__ void __launch_bounds__(128 * Wide<D>::NWG, 1)
   }
 }
 
-template <int D, int NUM>
+template <int D, int NUM, bool LSE = false>
 cudaError_t run_wide(const Args& a, cudaStream_t s) {
   using W = Wide<D>;
   if (a.seq_q <= 0 || a.seq_q % W::BQ || a.seq_k <= 0 || a.seq_k % W::WKT || a.heads <= 0 ||
-      !(a.scale > 0.f))
+      !(a.scale > 0.f) || (LSE && a.lse == nullptr))
     return cudaErrorInvalidValue;
-  cudaError_t e = ls_allow_smem(attn_wide_kernel<D, NUM>, W::SMEM_BYTES);
+  cudaError_t e = ls_allow_smem(attn_wide_kernel<D, NUM, LSE>, W::SMEM_BYTES);
   if (e != cudaSuccess) return e;
   const long long blocks = (long long)(a.seq_q / W::BQ) * a.heads * a.batch;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  attn_wide_kernel<D, NUM><<<(unsigned)blocks, 128 * W::NWG, W::SMEM_BYTES, s>>>(
+  attn_wide_kernel<D, NUM, LSE><<<(unsigned)blocks, 128 * W::NWG, W::SMEM_BYTES, s>>>(
       a.q, a.k, a.v, a.ldq, a.ldk, a.ldv, a.o, a.ldo, a.seq_q, a.seq_k, a.heads,
-      a.scale * LOG2E);
+      a.scale * LOG2E, a.lse);
   return cudaGetLastError();
 }
 

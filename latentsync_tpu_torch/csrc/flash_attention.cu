@@ -14,21 +14,44 @@
 // and 80 run as K4 does; D = 512 runs the core's column-split tiling (a
 // block's two warpgroups own 256 output columns each). A head dim with no
 // instantiation below is refused. Bound: operations (attn_core.cuh).
+//
+// Under grad the route launches ls_flash_attention_lse instead: the same
+// kernels instantiated with the core's LSE parameter, which also write each
+// row's base-2 log-sum-exp, the residual of the backward
+// (flash_attention_bwd.cu), as jax's forward keeps l and m when asked for
+// residuals (flash_attention.py:246-251).
 #include "attn_core.cuh"
+
+namespace {
+
+template <bool LSE>
+int flash(const void* q, const void* k, const void* v, int ldq, int ldk, int ldv, void* o,
+          int batch, int seq, int heads, int d, float scale, void* lse, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ls_core::Args a = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                           static_cast<const bf16*>(v), ldq, ldk, ldv, static_cast<bf16*>(o),
+                           heads * d, batch, seq, seq, heads, scale, static_cast<float*>(lse)};
+  switch (d) {
+    case 40: return (int)ls_core::run<40, ls_core::P_ROUNDED, void, LSE>(a, 0, s);
+    case 80: return (int)ls_core::run<80, ls_core::P_ROUNDED, void, LSE>(a, 0, s);
+    case 512: return (int)ls_core::run_wide<512, ls_core::P_ROUNDED, LSE>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
 
 // q, k, v: (batch, seq, heads, d) bf16 with row pitches ldq, ldk, ldv (a
 // batch entry seq rows on, a head d columns on); o contiguous.
 extern "C" int ls_flash_attention(const void* q, const void* k, const void* v, int ldq, int ldk,
                                   int ldv, void* o, int batch, int seq, int heads, int d,
                                   float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const ls_core::Args a = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                           static_cast<const bf16*>(v), ldq, ldk, ldv, static_cast<bf16*>(o),
-                           heads * d, batch, seq, seq, heads, scale};
-  switch (d) {
-    case 40: return (int)ls_core::run<40, ls_core::P_ROUNDED>(a, 0, s);
-    case 80: return (int)ls_core::run<80, ls_core::P_ROUNDED>(a, 0, s);
-    case 512: return (int)ls_core::run_wide<512, ls_core::P_ROUNDED>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return flash<false>(q, k, v, ldq, ldk, ldv, o, batch, seq, heads, d, scale, nullptr, stream);
+}
+
+// The same, also writing lse: (batch, heads, seq) f32, base 2.
+extern "C" int ls_flash_attention_lse(const void* q, const void* k, const void* v, int ldq,
+                                      int ldk, int ldv, void* o, int batch, int seq, int heads,
+                                      int d, float scale, void* lse, void* stream) {
+  return flash<true>(q, k, v, ldq, ldk, ldv, o, batch, seq, heads, d, scale, lse, stream);
 }

@@ -51,6 +51,7 @@ _SIGNATURES = {
     "ls_spatial_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F,
                              _I, _P],
     "ls_flash_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _P],
+    "ls_flash_attention_lse": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _P, _P],
     "ls_cross_attn_block": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F, _P, _P,
                             _P, _P, _F, _P, _P, _P, _P, _P, _P],
     "ls_group_norm_silu": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
@@ -60,8 +61,7 @@ _SIGNATURES = {
     "ls_geglu_ffn_int8io": [_P, _P, _I, _I, *[_P] * 8],
     "ls_oneshot_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "ls_flash_kernel": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "ls_flash_attention_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _F, _P],
+    "ls_flash_attention_bwd": [*[_P] * 5, _I, _I, _I, *[_P] * 5, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

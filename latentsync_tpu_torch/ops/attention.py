@@ -23,7 +23,12 @@ whose forward is that kernel (the plain version on a CPU tensor) and whose
 backward is ``flash_attention_bwd``, the hand-written kernels of
 ``csrc/flash_attention_bwd.cu`` on a CUDA tensor (dQ, dK and dV of the
 route's forward, probabilities rounded as there) and the autograd of the
-plain version on a CPU tensor. It replaces the VJP of jax's library flash
+plain version on a CPU tensor. Under grad the forward is the kernel's
+residual instantiation (``flash_attention_fwd``): it also writes each
+row's log-sum-exp, and the Function saves q, k, v, the output and that
+lse, as jax's forward keeps its residuals; the backward is then two
+launches, dQ (which also writes delta = rowsum(o · do)) and dK / dV, with
+no sweep for row statistics. It replaces the VJP of jax's library flash
 kernel (``_flash_attention_bwd_dkv`` and ``_flash_attention_bwd_dq``),
 which the reference's ``_flash_bshd`` never reaches: it gives jax only the
 forward's block sizes, and jax raises when the route is differentiated on
@@ -117,23 +122,50 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class _FlashRoute(torch.autograd.Function):
     """The flash route: its kernel forward (plain on a CPU tensor) and
-    ``flash_attention_bwd`` for the gradient, from the saved q, k, v."""
+    ``flash_attention_bwd`` for the gradient. On a CUDA tensor with an input
+    that needs a gradient the forward is the residual instantiation, and
+    q, k, v, its output and the row log-sum-exp are saved for the backward;
+    on a CPU tensor q, k, v (the backward is the plain version's autograd)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float):
         ctx.scale = scale
-        ctx.save_for_backward(q, k, v)
         if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v)
             return dot_product_attention_reference(q, k, v, scale)
-        return _flash_forward(q, k, v, scale)
+        if not any(ctx.needs_input_grad[:3]):
+            return _flash_forward(q, k, v, scale)
+        o, lse = flash_attention_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
 
     @staticmethod
     def backward(ctx, grad):
-        q, k, v = ctx.saved_tensors
+        q, k, v, *res = ctx.saved_tensors
+        if res:
+            o, lse = res
+            return (*flash_attention_bwd(q, k, v, grad, ctx.scale, o=o, lse=lse), None)
         return (*flash_attention_bwd(q, k, v, grad, ctx.scale), None)
 
 
-def _flash_forward(q, k, v, scale: float) -> torch.Tensor:
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
+    """The flash route's forward with its residual, on a CUDA tensor: (o,
+    lse), lse (B, H, S) f32, the base-2 log-sum-exp of each row's scaled
+    logits, log2(sum 2^(s c)) with c = scale · log2(e) (natural units: lse ·
+    ln 2). One launch of ``csrc/flash_attention.cu``'s residual
+    instantiation, counted in ``dot_product_attention.launches``."""
+    return _flash_forward(q, k, v, scale, with_lse=True)
+
+
+def flash_attention_fwd_reference(q, k, v, scale: float):
+    """Plain version of ``flash_attention_fwd``: the plain forward and the
+    f32 log-sum-exp of the scaled logits, in base 2."""
+    qh, kh = q.transpose(1, 2).float(), k.transpose(1, 2).float()
+    lse = torch.logsumexp((qh @ kh.transpose(-1, -2)) * scale, dim=-1) / math.log(2.0)
+    return dot_product_attention_reference(q, k, v, scale), lse
+
+
+def _flash_forward(q, k, v, scale: float, with_lse: bool = False):
     b, s, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape or d not in FLASH_HEAD_DIMS:
         raise ValueError(f"dot_product_attention: no flash kernel for q {tuple(q.shape)}, "
@@ -142,14 +174,18 @@ def _flash_forward(q, k, v, scale: float) -> torch.Tensor:
     if not scale > 0:
         raise ValueError(f"dot_product_attention: the kernel needs scale > 0, got {scale}")
     o = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
+    lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32) if with_lse else None
     _build.check_cuda("dot_product_attention", q, k, v, o)
     if b == 0:
-        return o
-    _build.call("ls_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                _row_pitch(q, "q"), _row_pitch(k, "k"), _row_pitch(v, "v"), o.data_ptr(),
-                b, s, h, d, scale, _build.stream(q))
+        return (o, lse) if with_lse else o
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), _row_pitch(q, "q"), _row_pitch(k, "k"),
+            _row_pitch(v, "v"), o.data_ptr(), b, s, h, d, scale]
+    if with_lse:
+        args.append(lse.data_ptr())
+    _build.call("ls_flash_attention_lse" if with_lse else "ls_flash_attention", *args,
+                _build.stream(q))
     dot_product_attention.launches += 1
-    return o
+    return (o, lse) if with_lse else o
 
 
 dot_product_attention.launches = 0
@@ -166,12 +202,15 @@ def flash_attention_bwd_reference(q, k, v, grad, scale: float):
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        grad: torch.Tensor, scale: float):
+                        grad: torch.Tensor, scale: float, *, o: Optional[torch.Tensor] = None,
+                        lse: Optional[torch.Tensor] = None):
     """(dq, dk, dv) of the flash route's forward for the output gradient
-    `grad`, all (B, S, H, D). On a CUDA tensor the three launches of
-    ``csrc/flash_attention_bwd.cu`` (row statistics, then dK/dV and dQ,
-    each recomputing the probabilities), for S a multiple of 64 and head
-    dims ``FLASH_HEAD_DIMS``; on a CPU tensor the plain version."""
+    `grad`, all (B, S, H, D). On a CUDA tensor the two launches of
+    ``csrc/flash_attention_bwd.cu`` (dQ with delta = rowsum(o · grad), then
+    dK / dV), for S a multiple of 64 and head dims ``FLASH_HEAD_DIMS``, from
+    the forward's output `o` and row log-sum-exp `lse` (``flash_attention_fwd``;
+    the Function passes its saved ones): without them the residual forward
+    runs first, one more launch. On a CPU tensor the plain version."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, grad, scale)
     b, s, h, d = q.shape
@@ -182,17 +221,25 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "of 64)")
     if not scale > 0:
         raise ValueError(f"flash_attention_bwd: the kernel needs scale > 0, got {scale}")
+    if o is None or lse is None:
+        o, lse = flash_attention_fwd(q, k, v, scale)
+    if o.shape != q.shape or o.dtype != q.dtype or not o.is_contiguous() \
+            or lse.shape != (b, h, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: residuals o {tuple(o.shape)} {o.dtype}, lse "
+                         f"{tuple(lse.shape)} {lse.dtype}: want a contiguous o like q and a "
+                         f"contiguous f32 lse of shape {(b, h, s)}")
     grad = grad.to(q.dtype).contiguous()
     dq, dk, dv = (torch.empty((b, s, h, d), device=q.device, dtype=q.dtype) for _ in range(3))
-    _build.check_cuda("flash_attention_bwd", q, k, v, grad, dq, dk, dv)
+    delta = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
+    bf, f32 = torch.bfloat16, torch.float32
+    _build.check_cuda("flash_attention_bwd", q, k, v, o, grad, lse, dq, dk, dv, delta,
+                      dtypes=(bf, bf, bf, bf, bf, f32, bf, bf, bf, f32))
     if b == 0:
         return dq, dk, dv
-    # per-row log-sum-exp of the scaled logits and delta = rowsum(P * dP), f32
-    stats = torch.empty((2, b * h * s), device=q.device, dtype=torch.float32)
     _build.call("ls_flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                grad.data_ptr(), _row_pitch(q, "q"), _row_pitch(k, "k"), _row_pitch(v, "v"),
-                h * d, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(),
-                stats[1].data_ptr(), b, s, h, d, scale, _build.stream(q))
+                o.data_ptr(), grad.data_ptr(), _row_pitch(q, "q"), _row_pitch(k, "k"),
+                _row_pitch(v, "v"), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), b, s, h, d, scale, _build.stream(q))
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

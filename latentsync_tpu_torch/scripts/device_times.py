@@ -1,6 +1,6 @@
 """Device time of single kernels from ``torch.profiler``, beside their bounds.
 
-    python -m latentsync_tpu_torch.scripts.device_times [--which k3,k6,k10] [--calls 20]
+    python -m latentsync_tpu_torch.scripts.device_times [--which k3,k6,k10,bwd,fwd] [--calls 20]
 
 Times K3 (``temporal_attention``) at its four served shapes (the default
 and fused forwards' C = 1280 blocks at batch 4 and 1, the int8-dense
@@ -19,10 +19,23 @@ once over 3.35 TB/s, or the operations over the card's peak for their type,
 the larger, and ``share`` = bound / device. For K6 the last line sums
 launches x device time and launches x bound over the forward.
 
+``--which bwd`` times the flash route's backward (``flash_attention_bwd``)
+at the three shapes of a train step, with the device time of each of its
+kernels by name, beside its plain version and SDPA's backward (from one
+forward graph kept for repeated backwards); the backward takes the residual
+forward's (``flash_attention_fwd``) o and lse, as the train step does, and
+the residual forward is timed beside the forward without grad. The
+backward's bound counts the function's own bytes, q, k, v and do read and
+dq, dk and dv written, not the residuals of this design. ``--which fwd``
+times the attention kernels that share the attention core with the flash
+route, at their phase-2 shapes, without grad: the flash route itself, K4,
+K5 (``LATENTSYNC_FUSED_XATTN=1``), K11 and K12.
+
 The first line is the card's name and power limit; then one JSON line a
 measurement. It calls only the public wrappers, so the same file run from
 another checkout of the port times that checkout's kernels (two trees in
-one call compare on one card).
+one call compare on one card); ``--which bwd`` needs ``flash_attention_fwd``,
+so a checkout without it is timed by its own copy of this file.
 """
 
 from __future__ import annotations
@@ -37,7 +50,7 @@ import sys
 import torch
 import torch.nn.functional as F
 
-from ..ops import ffn
+from ..ops import attention, attn_block, ffn
 from ..ops import groupnorm as gn
 from ..ops import temporal_attention as ta
 from .micro_probe import gpu_line
@@ -86,6 +99,25 @@ def device_ms(fn, calls: int, port_only: bool, attempts: int = 3):
         raise RuntimeError("device_times: the profiler recorded no device kernel")
     total = sum((e.time_range.end - e.time_range.start) for e in evs) / 1e3
     return total / calls, len(evs) / calls
+
+
+def device_by_name(fn, calls: int) -> dict:
+    """{kernel name: device ms a call} of `fn` over `calls` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name[:80]] += (e.time_range.end - e.time_range.start) / 1e3 / calls
+    return dict(out)
 
 
 def _emit(rec):
@@ -193,9 +225,76 @@ def time_k10(r, calls: int) -> None:
                "share": bd / ms})
 
 
+FLASH_BWD_SHAPES = [(16, 1024, 1, 512), (16, 1024, 8, 40), (16, 256, 8, 80)]
+
+
+def time_bwd(r, calls: int) -> None:
+    for b, s, h, d in FLASH_BWD_SHAPES:
+        q, k, v, do = (r(b, s, h, d) for _ in range(4))
+        scale = d**-0.5
+        rec = {"kernel": "flash_attention_bwd", "shape": [b, s, h, d]}
+        o, lse = attention.flash_attention_fwd(q, k, v, scale)
+
+        def bwd():
+            return attention.flash_attention_bwd(q, k, v, do, scale, o=o, lse=lse)
+
+        with torch.no_grad():
+            rec["residual_forward_device_ms"] = device_ms(
+                lambda: attention.flash_attention_fwd(q, k, v, scale), calls, True)[0]
+            rec["forward_without_grad_device_ms"] = device_ms(
+                lambda: attention.dot_product_attention(q, k, v, scale), calls, True)[0]
+        rec["without_residuals_device_ms"] = device_ms(
+            lambda: attention.flash_attention_bwd(q, k, v, do, scale), calls, True)[0]
+        rec["device_ms"], rec["kernels_a_call"] = device_ms(bwd, calls, True)
+        rec["by_kernel_ms"] = device_by_name(bwd, calls)
+        rec["plain_device_ms"] = device_ms(
+            lambda: attention.flash_attention_bwd_reference(q, k, v, do, scale), calls, False)[0]
+        qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs)
+        dot = do.transpose(1, 2)
+        rec["library_device_ms"] = device_ms(
+            lambda: torch.autograd.grad(out, (qs, ks, vs), dot, retain_graph=True), calls,
+            False)[0]
+        # the function's bytes: q, k, v, do in, dq, dk, dv out
+        bd, by = bound_ms(7 * _nbytes(q), 10 * b * h * s * s * d, "bf16")
+        rec.update(bound_ms=bd, bound_by=by, share=bd / rec["device_ms"])
+        _emit(rec)
+
+
+def time_fwd(r, calls: int) -> None:
+    def emit(name, shape, fn):
+        ms, n = device_ms(fn, calls, True)
+        _emit({"kernel": name, "shape": shape, "device_ms": ms, "kernels_a_call": n})
+
+    for b, s, h, d in [(64, 1024, 1, 512), (16, 1024, 1, 512), (16, 1024, 8, 40),
+                       (16, 256, 8, 80)]:
+        q, k, v = (r(b, s, h, d) for _ in range(3))
+        emit("dot_product_attention", [b, s, h, d],
+             lambda: attention.dot_product_attention(q, k, v))
+    q, k, v = (r(64, 1024, 320) for _ in range(3))
+    emit("spatial_attention", [64, 1024, 320], lambda: ta.spatial_attention(q, k, v, 8))
+    c = 320
+    args = (r(64, 1024, c), 1 + r(c, s=0.1), r(c, s=0.1), r(64, 50, 384), r(c, c, s=c**-0.5),
+            r(c, 384, s=384**-0.5), r(c, 384, s=384**-0.5), r(c, c, s=c**-0.5), r(c, s=0.1), 8)
+    old = os.environ.get("LATENTSYNC_FUSED_XATTN")
+    os.environ["LATENTSYNC_FUSED_XATTN"] = "1"  # K5 launches only so
+    try:
+        emit("cross_attention_block", [64, 1024, c],
+             lambda: attn_block.cross_attention_block(*args))
+    finally:
+        os.environ.pop("LATENTSYNC_FUSED_XATTN")
+        if old is not None:
+            os.environ["LATENTSYNC_FUSED_XATTN"] = old
+    q, k, v = (r(1024, 1024, 40) for _ in range(3))
+    emit("oneshot_attention", [1024, 1024, 40], lambda: attention.oneshot_attention(q, k, v))
+    q, k, v = (r(64, 1024, 512) for _ in range(3))
+    emit("flash_attention", [64, 1024, 512], lambda: attention.flash_attention(q, k, v))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--which", default="k3,k6,k10", help="any of k3, k6, k10, comma-separated")
+    ap.add_argument("--which", default="k3,k6,k10",
+                    help="any of k3, k6, k10, bwd, fwd, comma-separated")
     ap.add_argument("--calls", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -209,7 +308,11 @@ def main(argv=None) -> int:
         return (torch.randn(shape, generator=gen) * s).to("cuda", torch.bfloat16)
 
     which = set(args.which.split(","))
+    if "bwd" in which:  # autograd: the plain version's and SDPA's backward
+        time_bwd(r, args.calls)
     with torch.inference_mode():
+        if "fwd" in which:
+            time_fwd(r, args.calls)
         if "k3" in which:
             time_k3(r, args.calls)
         if "k10" in which:

@@ -5,14 +5,21 @@ the card machine:
     python -m pytest --noconftest tests/test_torch_train_kernels.py -m cuda -q
 
 - the flash route's backward kernels (``csrc/flash_attention_bwd.cu``)
-  against their plain version at the head dims of the training path;
+  against their plain version at the head dims of the training path and at
+  the three shapes a train step gives them; two calls equal bit for bit; the
+  gradients through ``dot_product_attention`` (the residual forward's o and
+  lse, saved by the Function) equal to a direct call's; the residual
+  forward's lse against the plain logsumexp;
 - K1-K4 and the flash route under grad: a ``grad_fn`` on the output, and
   input and weight gradients against the plain version's autograd on the
   same bf16 inputs;
 - every other kernel wrapper (K5-K12) and both int8 routes raise under grad.
 
-Tolerance: 2^-6 · max(1, max|plain|) per tensor, as ``chip_smoke.py``'s.
+Tolerance: 2^-6 · max(1, max|plain|) per tensor, as ``chip_smoke.py``'s;
+the flash backward's gradients also within 1e-2 in relative L2 each.
 """
+
+import math
 
 import pytest
 import torch
@@ -21,6 +28,8 @@ from latentsync_tpu_torch.ops import attention, attn_block, ffn, groupnorm, qcon
 from latentsync_tpu_torch.ops import temporal_attention as ta
 
 TOL_REL = 2.0**-6
+# the flash backward's relative L2 error a gradient, as chip_smoke.py's
+BWD_REL_L2_TOL = 1e-2
 
 
 @pytest.fixture
@@ -43,14 +52,58 @@ def _close(got, ref):
         assert float((g.float() - p.float()).abs().max()) <= tol
 
 
+# the head dims at batch 2, then the three shapes of a train step: the VAE
+# decode's mid-block, the UNet's spatial attention at C = 320 and 640
+TRAIN_FLASH_SHAPES = [(16, 1024, 1, 512), (16, 1024, 8, 40), (16, 256, 8, 80)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,d", [(2, 256, 1, 512), (2, 1024, 8, 40), (2, 256, 8, 80)])
+@pytest.mark.parametrize("b,s,h,d", [(2, 256, 1, 512), (2, 1024, 8, 40), (2, 256, 8, 80)]
+                         + TRAIN_FLASH_SHAPES)
 def test_flash_backward_kernel_matches_plain(rand, b, s, h, d):
     q, k, v, do = (rand(b, s, h, d, grad=False) for _ in range(4))
     before = attention.flash_attention_bwd.launches
     got = attention.flash_attention_bwd(q, k, v, do, d**-0.5)
     assert attention.flash_attention_bwd.launches == before + 1
-    _close(got, attention.flash_attention_bwd_reference(q, k, v, do, d**-0.5))
+    ref = attention.flash_attention_bwd_reference(q, k, v, do, d**-0.5)
+    _close(got, ref)
+    for g, p in zip(got, ref):
+        assert float((g.float() - p.float()).norm() / p.float().norm()) <= BWD_REL_L2_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d", TRAIN_FLASH_SHAPES)
+def test_flash_backward_is_deterministic(rand, b, s, h, d):
+    q, k, v, do = (rand(b, s, h, d, grad=False) for _ in range(4))
+    o, lse = attention.flash_attention_fwd(q, k, v, d**-0.5)
+    first = attention.flash_attention_bwd(q, k, v, do, d**-0.5, o=o, lse=lse)
+    second = attention.flash_attention_bwd(q, k, v, do, d**-0.5, o=o, lse=lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d", TRAIN_FLASH_SHAPES)
+def test_flash_route_residuals_match_a_direct_call(rand, b, s, h, d):
+    """The Function's forward saves o and lse (one residual launch) and its
+    backward is the same two launches a direct call makes after its own
+    residual forward: equal bits; the output equals the forward without
+    grad; lse within 1e-3 (natural units) of the plain logsumexp."""
+    q, k, v = (rand(b, s, h, d) for _ in range(3))
+    do = rand(b, s, h, d, grad=False)
+    before = attention.dot_product_attention.launches
+    out = attention.dot_product_attention(q, k, v)
+    assert attention.dot_product_attention.launches == before + 1
+    got = torch.autograd.grad(out, (q, k, v), do)
+    with torch.no_grad():
+        plain_out = attention.dot_product_attention(q, k, v)
+        direct = attention.flash_attention_bwd(q, k, v, do, d**-0.5)
+        _, lse = attention.flash_attention_fwd(q, k, v, d**-0.5)
+        _, lse_ref = attention.flash_attention_fwd_reference(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out.detach(), plain_out)
+    assert all(torch.equal(x, y) for x, y in zip(got, direct))
+    assert float((lse - lse_ref).abs().max()) * math.log(2.0) <= 1e-3
 
 
 def _grads_against_plain(fn, plain, inputs):

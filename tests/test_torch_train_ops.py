@@ -12,10 +12,11 @@ what is compared (the flash route: the JAX package's off-TPU einsum, which
 is that route's composed form); each Function passes
 ``torch.autograd.gradcheck`` in float64; the wrappers without a gradient
 refuse a call under grad (on the card: ``tests/test_torch_train_kernels.py``);
-and a torch mirror of ``csrc/flash_attention_bwd.cu``'s tiling (32-row
-query tiles, 32- and 16-key tiles, eight partial row statistics a row
-merged at the end, bf16 probabilities and dS) agrees with the plain
-backward. f32 throughout, tolerances stated at each check.
+and a torch mirror of ``csrc/flash_attention_bwd.cu``'s tiling (the
+residual forward's lse, delta from the bf16 output, 64-row blocks over
+streamed tiles of 64 rows, of 32 at D = 512 with s and dp summed from two
+column halves, bf16 probabilities and dS) agrees with the plain backward
+and with ``jax.vjp``. f32 throughout, tolerances stated at each check.
 """
 
 import ast
@@ -272,76 +273,139 @@ def test_int8_routes_refuse_grad_on_the_card():
 # a mirror of csrc/flash_attention_bwd.cu's tiling
 # ---------------------------------------------------------------------------
 
+LOG2E = 1.4426950408889634
+TOL_REL = 2.0**-6  # chip_smoke.py's tolerance for the kernel, per output
+BWD_REL_L2_TOL = 1e-2  # and its relative L2 bound for the backward, per output
+
 
 def _bf16(t):
     return t.to(torch.bfloat16).float()
 
 
-def flash_bwd_tiled(q, k, v, do, scale):
-    """(dq, dk, dv) of one head as the kernel computes them: f32 products of
-    bf16 inputs; (1) row statistics over 32-key tiles, eight running
-    (max, sum, sum of p·dp) a row, each over 4 columns of every tile, merged
-    pairwise at the end as the three xor shuffles do; (2) per 16-key block,
-    32-row query tiles: P = exp(s - lse) rounded to bf16 for dV, dS =
-    P (dp - delta) scale rounded to bf16 for dK; (3) per 32-row query tile,
-    32-key tiles: dS rounded to bf16 for dQ. Outputs rounded to bf16."""
+def flash_fwd_residual(q, k, v, scale):
+    """The residual forward of one head as the core computes it: the online
+    softmax over key tiles of 64 (D <= 160) or 32 (D = 512), a running max m
+    of the raw logits and a sum l of p = 2^(s c - m c), c = scale log2(e);
+    o = sum bf16(p) v / l rounded to bf16, and lse = m c + log2(l) (base 2)."""
     s_len = q.shape[0]
-    lse, delta = torch.empty(s_len), torch.empty(s_len)
-    for q0 in range(0, s_len, 32):
-        qs, os_ = q[q0:q0 + 32], do[q0:q0 + 32]
-        m = torch.full((32, 8), -math.inf)
-        l, du = torch.zeros(32, 8), torch.zeros(32, 8)
-        for k0 in range(0, s_len, 32):
-            s = (qs @ k[k0:k0 + 32].T) * scale
-            dp = os_ @ v[k0:k0 + 32].T
-            for part in range(8):
-                for j in range(4):
-                    x, y = s[:, part * 4 + j], dp[:, part * 4 + j]
-                    mn = torch.maximum(m[:, part], x)
-                    corr = torch.exp(m[:, part] - mn)
-                    p = torch.exp(x - mn)
-                    l[:, part] = l[:, part] * corr + p
-                    du[:, part] = du[:, part] * corr + p * y
-                    m[:, part] = mn
-        for off in (1, 2, 4):
-            idx = torch.arange(8) ^ off
-            mo, lo, uo = m[:, idx], l[:, idx], du[:, idx]
-            mn = torch.maximum(m, mo)
-            ca, cb = torch.exp(m - mn), torch.exp(mo - mn)
-            l, du, m = l * ca + lo * cb, du * ca + uo * cb, mn
-        lse[q0:q0 + 32] = m[:, 0] + torch.log(l[:, 0])
-        delta[q0:q0 + 32] = du[:, 0] / l[:, 0]
-    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-    for k0 in range(0, s_len, 16):
-        for q0 in range(0, s_len, 32):
-            s = (q[q0:q0 + 32] @ k[k0:k0 + 16].T) * scale
-            dp = do[q0:q0 + 32] @ v[k0:k0 + 16].T
-            p = torch.exp(s - lse[q0:q0 + 32, None])
-            ds = p * (dp - delta[q0:q0 + 32, None]) * scale
-            dv[k0:k0 + 16] += _bf16(p).T @ do[q0:q0 + 32]
-            dk[k0:k0 + 16] += _bf16(ds).T @ q[q0:q0 + 32]
-    dq = torch.zeros_like(q)
-    for q0 in range(0, s_len, 32):
-        for k0 in range(0, s_len, 32):
-            s = (q[q0:q0 + 32] @ k[k0:k0 + 32].T) * scale
-            dp = do[q0:q0 + 32] @ v[k0:k0 + 32].T
-            p = torch.exp(s - lse[q0:q0 + 32, None])
-            dq[q0:q0 + 32] += _bf16(p * (dp - delta[q0:q0 + 32, None]) * scale) @ k[k0:k0 + 32]
+    kt = 32 if q.shape[1] == 512 else 64
+    c = scale * LOG2E
+    m = torch.full((s_len,), -math.inf)
+    l, acc = torch.zeros(s_len), torch.zeros(q.shape)
+    for k0 in range(0, s_len, kt):
+        logits = q @ k[k0:k0 + kt].T
+        x = torch.maximum(m, logits.max(dim=-1).values)
+        corr = torch.exp2((m - x) * c)
+        l, acc, m = l * corr, acc * corr[:, None], x
+        p = torch.exp2(logits * c - (m * c)[:, None])
+        l = l + p.sum(dim=-1)
+        acc = acc + _bf16(p) @ v[k0:k0 + kt]
+    return _bf16(acc / l[:, None]), m * c + torch.log2(l)
+
+
+def flash_bwd_tiled(q, k, v, do, scale, plant_zero_delta=False):
+    """(dq, dk, dv) of one head as the two launches compute them from the
+    residual forward's o and lse: delta = rowsum(o · do) (jax's di, from the
+    bf16 output); P = 2^(s c - lse); dS = P (dp - delta) scale; f32 products
+    of bf16 inputs. Launch 1: 64-row query blocks over streamed key tiles,
+    dQ += bf16(dS) k; launch 2: 64-key blocks over streamed query tiles,
+    dV += bf16(P^T) do, dK += bf16(dS^T) q. Streamed tiles of 64 rows (D =
+    40 and 80; D zero-padded to the k-step, which adds exact zeros), of 32
+    at D = 512, where s and dp are the sum of the two column halves' partial
+    products (half 0 + half 1, the addition the cluster's blocks make).
+    Outputs rounded to bf16. ``plant_zero_delta`` plants a fault: delta = 0."""
+    s_len, d = q.shape
+    st = 32 if d == 512 else 64
+    o, lse = flash_fwd_residual(q, k, v, scale)
+    c = scale * LOG2E
+    delta = (o * do).sum(dim=-1) * (0.0 if plant_zero_delta else 1.0)
+
+    def partial_sum(a, b):
+        if d != 512:
+            return a @ b.T
+        return a[:, :256] @ b[:, :256].T + a[:, 256:] @ b[:, 256:].T
+
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for r0 in range(0, s_len, 64):
+        rows = slice(r0, r0 + 64)
+        for t0 in range(0, s_len, st):
+            keys = slice(t0, t0 + st)
+            p = torch.exp2(partial_sum(q[rows], k[keys]) * c - lse[rows, None])
+            ds = p * (partial_sum(do[rows], v[keys]) - delta[rows, None]) * scale
+            dq[rows] += _bf16(ds) @ k[keys]
+    for r0 in range(0, s_len, 64):
+        keys = slice(r0, r0 + 64)
+        for t0 in range(0, s_len, st):
+            rows = slice(t0, t0 + st)
+            pt = torch.exp2(partial_sum(k[keys], q[rows]) * c - lse[None, rows])
+            dst = pt * (partial_sum(v[keys], do[rows]) - delta[None, rows]) * scale
+            dv[keys] += _bf16(pt) @ do[rows]
+            dk[keys] += _bf16(dst) @ q[rows]
     return _bf16(dq), _bf16(dk), _bf16(dv)
 
 
-@pytest.mark.parametrize("s,d", [(64, 40), (128, 80)])
-def test_flash_backward_tiling_matches_the_plain_backward(s, d):
-    """The mirror against ``flash_attention_bwd_reference`` (autograd of the
-    plain version in f32) on bf16-valued inputs: within 2^-6·max(1, max|plain|)
-    per output, the tolerance ``chip_smoke.py`` holds the kernel to (the
-    mirror rounds P and dS to bf16 where the plain f32 backward does not)."""
+def _bwd_within(got, plain):
+    """(max-abs check, relative-L2 check) of one gradient against its plain
+    counterpart, as chip_smoke.py holds the kernel."""
+    tol = TOL_REL * max(1.0, float(plain.abs().max()))
+    rel = float((got - plain).norm() / plain.norm())
+    return float((got - plain).abs().max()) <= tol, rel <= BWD_REL_L2_TOL
+
+
+def _bwd_case(s, d):
     gen = torch.Generator().manual_seed(s + d)
     q, k, v, do = (_bf16(torch.randn(s, d, generator=gen)) for _ in range(4))
-    scale = d**-0.5
+    return q, k, v, do, d**-0.5
+
+
+FLASH_BWD_CASES = [(64, 40), (128, 80), (128, 40), (256, 40), (256, 80), (128, 512), (256, 512)]
+
+
+@pytest.mark.parametrize("s,d", FLASH_BWD_CASES)
+def test_flash_backward_tiling_matches_the_plain_backward(s, d):
+    """The mirror against ``flash_attention_bwd_reference`` (autograd of the
+    plain version in f32) and ``jax.vjp`` of the JAX package's
+    ``dot_product_attention`` on bf16-valued inputs: within
+    2^-6·max(1, max|plain|) per output, the tolerance ``chip_smoke.py`` holds
+    the kernel to (the mirror rounds P and dS to bf16 and takes delta from
+    the bf16 output where the plain backward takes it in f32 from P); and
+    the residual forward's lse within 1e-3 (natural units) of the plain
+    logsumexp. Each gradient is also within 1e-2 of its plain counterpart
+    in relative L2."""
+    q, k, v, do, scale = _bwd_case(s, d)
     got = flash_bwd_tiled(q, k, v, do, scale)
     ref = p_attn.flash_attention_bwd_reference(*(t[None, :, None] for t in (q, k, v, do)),
                                                scale)
-    for g, r in zip(got, ref):
-        r = r[0, :, 0]
-        assert float((g - r).abs().max()) <= 2**-6 * max(1.0, float(r.abs().max()))
+    _, vjp = jax.vjp(lambda *a: j_dpa(*a, scale=scale),
+                     *(jnp.asarray(t[None, :, None].numpy()) for t in (q, k, v)))
+    j_ref = vjp(jnp.asarray(do[None, :, None].numpy()))
+    for g, r, jr in zip(got, ref, j_ref):
+        for plain in (r[0, :, 0], torch.from_numpy(np.array(jr)[0, :, 0])):
+            assert _bwd_within(g, plain) == (True, True)
+    lse = flash_fwd_residual(q, k, v, scale)[1]
+    plain_lse = torch.logsumexp((q @ k.T) * scale, dim=-1)
+    assert float((lse / LOG2E - plain_lse).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("s,d", FLASH_BWD_CASES + [(1024, 40), (1024, 512)])
+def test_flash_backward_checks_catch_a_missing_delta(s, d):
+    """The mirror with delta planted at 0 fails both of the kernel's checks
+    on dq and dk (dv takes no delta) at every case above and at a train
+    step's 1024 rows: the delta term is small beside dp, and the checks
+    still see it."""
+    q, k, v, do, scale = _bwd_case(s, d)
+    bad = flash_bwd_tiled(q, k, v, do, scale, plant_zero_delta=True)
+    ref = p_attn.flash_attention_bwd_reference(*(t[None, :, None] for t in (q, k, v, do)),
+                                               scale)
+    for g, r in zip(bad[:2], ref[:2]):
+        assert _bwd_within(g, r[0, :, 0]) == (False, False)
+    assert _bwd_within(bad[2], ref[2][0, :, 0]) == (True, True)
+
+
+def test_flash_backward_pieces_hooks_fit_the_kernel():
+    """``scripts/bwd_pieces.py`` takes the kernel apart by exact text: every
+    hook must still match once (it raises otherwise)."""
+    from latentsync_tpu_torch.scripts import bwd_pieces
+
+    text = bwd_pieces.hooked_source()
+    assert text.count("#if LS_PIECES") == len(bwd_pieces.HOOKS) - 1
