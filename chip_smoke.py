@@ -14,7 +14,10 @@ and without CUDA it exits nonzero before doing anything):
    the kernels only the kernel probe runs (K9 fused q/k/v projection, K10
    int8-in/int8-out GEGLU, K11 one-shot attention, K12 streaming attention,
    and the flash route at head dims 40 and 80), at every shape the probe
-   gives them at its default 4 windows (K10 up to C = 1280); K1, K2 (both
+   gives them at its default 4 windows (K10 up to C = 1280), and the flash
+   route at CodeFormer's head dim 64 at 4 faces and 1 (one device kernel a
+   call, none of torch's; under grad it must raise: D = 64 has no backward
+   kernel); K1, K2 (both
    modes), K3 and K4 also at the half-batch shapes of a step outside the
    CFG interval (window batch 2, no CFG batch); K2's temporal
    mode and K3 also at F = 8 and 24 frames; K1, K2 and K9 also at one shape
@@ -26,8 +29,8 @@ and without CUDA it exits nonzero before doing anything):
    ``F.linear``, SDPA, ``F.linear`` and the residual; K1: the cuBLAS
    composition of the GEGLU feed-forward; K10: dequantization, that
    composition and the row quantization), timed here and used nowhere in
-   the port; count with ``torch.profiler`` the device kernels one call of
-   each kernel's wrapper launches at its first shape, and K2's, K3's, K7's
+   the port; count the device kernels one call of each kernel's wrapper
+   launches (from a CUDA graph of the call) at its first shape, and K2's, K3's, K7's
    and K10's at every shape (K2's temporal mode must be ONE kernel, two at
    C = 640; K3, K7 and K10 one); compute each kernel's bound, the least time the card
    could take for the same work, from the bytes of its inputs and outputs and the
@@ -131,11 +134,29 @@ and without CUDA it exits nonzero before doing anything):
    step under ``torch.profiler``; (c)
    ``python -m latentsync_tpu_torch.scripts.train_unet`` on the stage-2
    config for 4 steps in its own process on clips written here (60 frames,
-   ``.wav`` sidecars), then one ``--resume`` step.
+   ``.wav`` sidecars), then one ``--resume`` step;
+12. face restoration: (a) the full-width CodeFormer (``CodeFormer()``
+   defaults, seeded random non-zero weights, positions included) in bf16 at
+   1 and 4 faces of 512², w = 0.5: finite, w = 0 and w = 1 apart, the
+   flash kernel launched once a transformer layer (9) a forward and no
+   other kernel of the port; against the same weights in f32 with every
+   wrapper forced to its plain version (TF32 off): code logits within
+   UNET_TOL in relative L2, the share of equal code indices printed, the
+   output given the f32 run's codes within UNET_TOL; median of 5 warm
+   forwards and device ms at each batch; (b) the full-width VQGAN
+   autoencoder at 4 faces, finite and timed; (c) RetinaFace (mobile0.25,
+   resnet50), YOLOv5-face (n, l), ParseNet and BiSeNet in f32 (TF32 off)
+   within NET_F32_TOL of the port on the CPU, RRDBNet x2 in bf16 within
+   UNET_TOL; (d) ``inference_codeformer --device cuda`` in a subprocess on
+   two synthetic 720p PNGs and an 8-frame ``.mp4``, then
+   ``inference_vqgan`` and ``crop_align_face``, each output of the input's
+   (or the requested) shape.
 
 The line before the last is a JSON object with each kernel's launches on
 its path (``"path"``: the served configuration, ``probe``, ``train`` for
-the flash route's backward (phase 11 (b)) or, for K12, ``kernels``), its
+the flash route's backward (phase 11 (b)), ``codeformer`` for the flash
+route at D = 64 (one forward at 4 faces in phase 12 (a)) or, for K12,
+``kernels``), its
 largest error against the plain version, its time, the plain version's,
 the library call's (or null) and its bound with the resource that sets
 it; the last line is the device record.
@@ -450,9 +471,9 @@ def kernel_cases():
         value, gate = F.linear(x, w_up, b_up.to(x.dtype)).chunk(2, dim=-1)
         return ffn.quantize_rowwise(F.linear(value * F.gelu(gate), w_dn, b_dn.to(x.dtype)))
 
-    def case(name, wrapper, plain, source, replaces, shapes, library=None):
+    def case(name, wrapper, plain, source, replaces, shapes, library=None, **extra):
         return dict(name=name, wrapper=wrapper, plain=plain, source=source, replaces=replaces,
-                    shapes=shapes, library=library)
+                    shapes=shapes, library=library, **extra)
 
     return [
         case("geglu_ffn", ffn.geglu_ffn, ffn.geglu_ffn_reference,
@@ -508,6 +529,13 @@ def kernel_cases():
              [flash_args(64), flash_args(32),
               # the probe's spatial shapes at 4 windows, 8 heads of D = 40 and 80
               flash_args(128, 1024, 8, 40), flash_args(128, 256, 8, 80)], sdpa_bshd),
+        # CodeFormer's transformer (phase 12): 8 heads of 64 over 256 tokens,
+        # 4 faces and 1; one device kernel a call at every shape
+        case("dot_product_attention", attention.dot_product_attention,
+             attention.dot_product_attention_reference,
+             "latentsync_tpu_torch/csrc/flash_attention.cu", "latentsync_tpu/ops/attention.py:85",
+             [flash_args(4, 256, 8, 64), flash_args(1, 256, 8, 64)], sdpa_bshd,
+             path="codeformer", one_kernel=True, grad_raises=True),
         case("cross_attention_block", attn_block.cross_attention_block,
              attn_block.cross_attention_block_reference,
              "latentsync_tpu_torch/csrc/cross_attn_block.cu", "latentsync_tpu/ops/attn_block.py:284",
@@ -610,38 +638,107 @@ KERNELS_A_CALL = {
 }
 
 
+def _trace(fn):
+    """[(name, device µs)] of the device kernels in one ``torch.profiler``
+    trace of one call of `fn`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
 def device_kernels(fn, attempts: int = 8):
     """[(name, device µs)] of the device kernels one call of `fn` launches,
     from ``torch.profiler``. A call launches at least one kernel, so a
     trace with none lost its events (it happens on the card now and then,
     sometimes for several traces in a row): it is taken again, up to
     `attempts` times, each after a longer pause."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     kernels = []
     for attempt in range(attempts):
         if attempt:
             time.sleep(0.25 * attempt)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
+        kernels = _trace(fn)
         if kernels:
             break
     return kernels
 
 
-def kernels_a_call(fn, attempts: int = 8):
+def graph_kernel_names(fn):
+    """The names of the kernels one call of `fn` launches, read from the
+    kernel nodes of a CUDA graph it is captured into (after one call
+    outside the capture): every launch on the current stream becomes a
+    node, so nothing is lost as a profiler trace's events can be. The
+    names come from libcuda (``cuGraphKernelNodeGetParams``,
+    ``cuFuncGetName`` / ``cuKernelGetName``)."""
+    import ctypes
+
+    import torch
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(code, what):
+        if code:
+            raise RuntimeError(f"{what}: libcuda error {code}")
+
+    class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                    ("block", ctypes.c_uint * 3), ("shared_mem", ctypes.c_uint),
+                    ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        p = KernelNodeParams()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(p)),
+              "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if p.func:
+            check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func)), "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(p.kern)),
+                  "cuKernelGetName")
+        names.append(name.value.decode(errors="replace"))
+    del graph
+    torch.cuda.synchronize()
+    return names
+
+
+def _torch_kernel(name: str) -> bool:
+    """Whether a device kernel, named as libcuda names it (mangled), is
+    torch's (the wrappers' casts of parameters): ``_ZN2at...`` or
+    ``...N2at6native...``."""
+    return name.startswith("_ZN2at") or "2at6native" in name
+
+
+def kernels_a_call(fn):
     """(the port's device kernels, torch's device kernels) that one call of
-    `fn` launches: torch's are named ``at::...`` (the wrapper's casts of
-    parameters), the port's are not."""
-    names = [n for n, _ in device_kernels(fn, attempts)]
-    port = [n for n in names if "at::" not in n]
-    return len(port), len(names) - len(port)
+    `fn` launches, counted from the kernel nodes of a CUDA graph of the call
+    (``graph_kernel_names``): a ``torch.profiler`` trace can lose some or
+    all of its events on the card, a graph loses none."""
+    names = graph_kernel_names(fn)
+    port = sum(not _torch_kernel(n) for n in names)
+    return port, len(names) - port
 
 
 def device_busy(fn):
@@ -666,6 +763,8 @@ def check_kernels(device):
                  "replaces": case["replaces"], "launches": 0, "max_abs_err": 0.0, "ms": None,
                  "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None,
                  "shape": case["shapes"][0][0]}
+        if "path" in case:
+            entry["path"] = case["path"]
         for i, (label, make, ops, kind, *exps) in enumerate(case["shapes"]):
             args, kw = make(r)
             with configured("fused"):  # the cross block launches its kernel only so
@@ -685,12 +784,14 @@ def check_kernels(device):
             # K8 must equal its plain version bit for bit
             good = launched and finite and close and (bitwise or name != "quantized_matmul")
             calls = ""
-            if i == 0 or name in KERNELS_A_CALL:
+            one = case.get("one_kernel", False)
+            if i == 0 or name in KERNELS_A_CALL or one:
                 with configured("fused"):
                     port_k, torch_k = kernels_a_call(lambda: wrapper(*args, **kw))
                 if i == 0:
                     entry.update(kernels_a_call=port_k, torch_kernels_a_call=torch_k)
                 good &= name not in KERNELS_A_CALL or port_k == KERNELS_A_CALL[name](label)
+                good &= not one or (port_k, torch_k) == (1, 0)
                 calls = f" kernels_a_call={port_k} (+{torch_k} torch)"
             ok &= good
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
@@ -707,6 +808,19 @@ def check_kernels(device):
                 f"{'ok' if good else 'FAIL'}")
             del args, kw, got
             torch.cuda.empty_cache()
+        if case.get("grad_raises"):  # a forward kernel with no backward: under grad it raises
+            args, kw = case["shapes"][0][1](r)
+            before = wrapper.launches
+            try:
+                wrapper(args[0].requires_grad_(True), *args[1:], **kw)
+                raised = ""
+            except ValueError as e:
+                raised = str(e)
+            good = bool(raised) and wrapper.launches == before
+            ok &= good
+            log(f"kernel {name:22s} {case['shapes'][0][0]:28s} under grad: "
+                f"{'raised (' + raised[:80] + '...)' if raised else 'did not raise'} "
+                f"{'ok' if good else 'FAIL'}")
         results.append(entry)
     return results, ok
 
@@ -2049,10 +2163,8 @@ def check_flash_backward(device):
     the call has to run the residual forward itself, and none of torch's. A
     second call must equal the first bit for bit, and the residual forward's
     lse must be within LSE_TOL of the plain f32 logsumexp of the scaled
-    logits; its time is logged beside the forward without grad. It runs
-    among the kernels of phase 2 because there ``torch.profiler`` keeps the
-    events of a call this short; in phase 11 the trace came back empty in
-    every try. Returns (the kernels line's entry, ok)."""
+    logits; its time is logged beside the forward without grad. Returns
+    (the kernels line's entry, ok)."""
     import torch
     import torch.nn.functional as F
 
@@ -2472,6 +2584,288 @@ def run_train_cli(root: str) -> bool:
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 12: face restoration
+# ---------------------------------------------------------------------------
+
+# f32 nets on the card (TF32 off) against the port on the CPU: relative L2
+NET_F32_TOL = 1e-3
+# CodeFormer's transformer layers at the default width: one flash launch each
+CODEFORMER_LAYERS = 9
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """f32 convolutions and products without TF32 for the duration."""
+    import torch
+
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def timed_forwards(fn, n: int = 5):
+    """(median wall ms of `n` warm calls, device ms of one call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    _, device_ms = device_busy(fn)
+    return sorted(walls)[n // 2], device_ms
+
+
+def check_codeformer(device, counters):
+    """Phase 12 (a) and (b): the full-width CodeFormer (``CodeFormer()``
+    defaults, seeded random non-zero weights, positions included) in bf16 at
+    1 and 4 faces of 512², w = 0.5: finite, w = 0 and 1 apart, the flash
+    kernel launched once a transformer layer a forward (counts set to 0
+    just before); against the same weights in f32 with every wrapper forced
+    to its plain version (TF32 off): the code logits within UNET_TOL in
+    relative L2, the share of equal code indices printed, and the output
+    given the f32 run's indices within UNET_TOL; median of 5 warm forwards
+    and device ms at each batch. Then the full-width VQAutoEncoder: finite,
+    timed. Returns (flash launches of one forward at B = 4, ok)."""
+    import copy
+
+    import torch
+
+    from latentsync_tpu_torch.models import codeformer as cf
+    from latentsync_tpu_torch.ops import attention
+    from latentsync_tpu_torch.utils.convert import init_random_
+
+    ok = True
+    gen = torch.Generator().manual_seed(SEED + 12)
+    model = init_random_(cf.CodeFormer(), seed=SEED + 12).eval()
+    ok &= bool(model.position_emb.abs().min() > 0)
+    ref_model = copy.deepcopy(model).to(device)
+    model = cf.cast_floating_(model, torch.bfloat16).to(device)
+    faces = (torch.rand((4, 3, 512, 512), generator=gen) * 2 - 1).to(device)
+    launches = 0
+    with torch.no_grad():
+        for b in (1, 4):
+            x = faces[:b]
+            for fn in counters:
+                fn.launches = 0
+            out, logits, lq = model(x, w=0.5)
+            torch.cuda.synchronize()
+            n_flash = attention.dot_product_attention.launches
+            others = {fn.__name__: fn.launches for fn in counters
+                      if fn is not attention.dot_product_attention and fn.launches}
+            if b == 4:
+                launches = n_flash
+            zero, _, _ = model(x, w=0.0)
+            one, _, _ = model(x, w=1.0)
+            finite = bool(torch.isfinite(out).all() and torch.isfinite(logits).all())
+            apart = not torch.equal(zero, one)
+            with plain_kernels(), no_tf32():
+                ref_out, ref_logits, _ = ref_model(x, w=0.5)
+            ref_idx = ref_logits.argmax(-1)
+            logits_err = _rel_l2(logits.float(), ref_logits)
+            agree = float((logits.argmax(-1) == ref_idx).float().mean())
+            lookup = model.quantize.codebook_lookup
+            model.quantize.codebook_lookup = lambda idx, shape: lookup(ref_idx, shape)
+            try:  # the generator on the f32 run's codes
+                held, _, _ = model(x, w=0.5)
+            finally:
+                model.quantize.codebook_lookup = lookup
+            out_err = _rel_l2(held.float(), ref_out)
+            wall_ms, device_ms = timed_forwards(lambda: model(x, w=0.5))
+            good = (finite and apart and n_flash == CODEFORMER_LAYERS and not others
+                    and logits_err <= UNET_TOL and out_err <= UNET_TOL
+                    and tuple(out.shape) == (b, 3, 512, 512))
+            ok &= good
+            log(f"codeformer B={b}: out {tuple(out.shape)} finite={finite} w0_vs_w1_apart={apart} "
+                f"flash_launches={n_flash} (want {CODEFORMER_LAYERS}) other_kernels={others} "
+                f"logits_rel_l2={logits_err:.5f} equal_codes={agree:.4f} "
+                f"out_rel_l2_on_f32_codes={out_err:.5f} tol={UNET_TOL} "
+                f"median_ms={wall_ms:.2f} device_ms={device_ms:.2f} {'ok' if good else 'FAIL'}")
+    del model, ref_model
+    torch.cuda.empty_cache()
+
+    vq = cf.cast_floating_(init_random_(cf.VQAutoEncoder(), seed=SEED + 13).eval(),
+                           torch.bfloat16).to(device)
+    with torch.no_grad():
+        rec, _, idx = vq(faces)
+        finite = bool(torch.isfinite(rec).all())
+        wall_ms, device_ms = timed_forwards(lambda: vq(faces))
+    good = finite and tuple(rec.shape) == (4, 3, 512, 512) and tuple(idx.shape) == (4, 16, 16)
+    ok &= good
+    log(f"vqgan autoencoder B=4: rec {tuple(rec.shape)} finite={finite} median_ms={wall_ms:.2f} "
+        f"device_ms={device_ms:.2f} {'ok' if good else 'FAIL'}")
+    del vq
+    torch.cuda.empty_cache()
+    return launches, ok
+
+
+def randomize_bn_(module, seed: int):
+    """Batch norms with seeded statistics and affine terms (scale 1 + N(0,
+    0.1²), shift N(0, 0.02²), running mean N(0, 0.1²), running variance 1 +
+    |N(0, 0.3²)|): ``init_random_`` treats a 1-D tensor as a bias."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                n = m.num_features
+                m.weight.copy_(1 + 0.1 * torch.randn(n, generator=gen))
+                m.bias.copy_(0.02 * torch.randn(n, generator=gen))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_var.copy_(1 + (0.3 * torch.randn(n, generator=gen)).abs())
+    return module
+
+
+def check_restoration_nets(device) -> bool:
+    """Phase 12 (c): the detectors, parsers and the upsampler's net on the
+    card against the port on the CPU, one small image each, seeded random
+    weights: RetinaFace (mobile0.25, resnet50), YOLOv5-face (n, l), ParseNet
+    and BiSeNet in f32 with TF32 off (within NET_F32_TOL in relative L2 of
+    all outputs), RRDBNet x2 in bf16, the dtype ``RealESRGANUpsampler``
+    runs it in (within UNET_TOL of the f32 CPU run)."""
+    import copy
+
+    import torch
+
+    from latentsync_tpu_torch.models.parsing import BiSeNet, ParseNet
+    from latentsync_tpu_torch.models.retinaface import RetinaFace
+    from latentsync_tpu_torch.models.rrdbnet import RRDBNet
+    from latentsync_tpu_torch.models.yolov5face import YOLOv5Face
+    from latentsync_tpu_torch.utils.convert import init_random_
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    bgr = torch.randn((1, 3, 160, 160), generator=gen) * 60
+    rgb01 = torch.rand((1, 3, 128, 128), generator=gen)
+    face = torch.rand((1, 3, 128, 128), generator=gen) * 2 - 1
+    nets = [("retinaface mobile0.25", lambda: RetinaFace("mobile0.25"), bgr, torch.float32),
+            ("retinaface resnet50", lambda: RetinaFace("resnet50"), bgr, torch.float32),
+            ("yolov5n-face", lambda: YOLOv5Face("yolov5n"), rgb01, torch.float32),
+            ("yolov5l-face", lambda: YOLOv5Face("yolov5l"), rgb01, torch.float32),
+            ("parsenet", ParseNet, face, torch.float32),
+            ("bisenet", BiSeNet, face, torch.float32),
+            ("rrdbnet x2", lambda: RRDBNet(scale=2), rgb01[..., :64, :64], torch.bfloat16)]
+    ok = True
+    for i, (name, make, x, dtype) in enumerate(nets):
+        cpu = randomize_bn_(init_random_(make(), seed=SEED + 20 + i), SEED + 40 + i).eval()
+        card = copy.deepcopy(cpu).to(device, dtype)
+        with torch.no_grad(), no_tf32():
+            ref = [t.float() for t in _tensors(cpu(x))]
+            t0 = time.time()
+            got = [t.float().cpu() for t in _tensors(card(x.to(device)))]
+            torch.cuda.synchronize()
+            card_s = time.time() - t0
+        err = _rel_l2(torch.cat([t.flatten() for t in got]), torch.cat([t.flatten() for t in ref]))
+        tol = NET_F32_TOL if dtype == torch.float32 else UNET_TOL
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        good = finite and err <= tol and [t.shape for t in got] == [t.shape for t in ref]
+        ok &= good
+        log(f"restoration net {name:22s} {str(dtype).split('.')[-1]} card vs CPU rel_l2={err:.3g} "
+            f"tol={tol} outputs={len(got)} first_call_s={card_s:.2f} {'ok' if good else 'FAIL'}")
+    return ok
+
+
+def _write_faces(root: str, n: int, hw) -> list:
+    """n synthetic faces (a skin ellipse, eyes and a mouth on a gradient)."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    h, w = hw
+    paths = []
+    for i in range(n):
+        img = np.zeros((h, w, 3), np.uint8)
+        img[:] = np.linspace(40, 200, w, dtype=np.uint8)[None, :, None]
+        cx, cy, r = w // 2 + 20 * i, h // 2, min(h, w) // 4
+        cv2.ellipse(img, (cx, cy), (int(r * 0.8), r), 0, 0, 360, (140, 160, 200), -1)
+        for dx in (-0.35, 0.35):
+            cv2.circle(img, (int(cx + dx * r), int(cy - 0.2 * r)), max(r // 10, 2), (40, 30, 30),
+                       -1)
+        cv2.ellipse(img, (cx, int(cy + 0.45 * r)), (r // 3, r // 10), 0, 0, 360, (60, 60, 150),
+                    -1)
+        img = cv2.add(img, rng.integers(0, 10, img.shape, dtype=np.uint8))
+        path = os.path.join(root, f"face{i}.png")
+        cv2.imwrite(path, img)
+        paths.append(path)
+    return paths
+
+
+def run_restoration_clis(root: str) -> bool:
+    """Phase 12 (d): the restoration CLIs in subprocesses on the card (seeded
+    random weights: no checkpoint files): ``inference_codeformer`` on two
+    synthetic 720p PNGs and an 8-frame ``.mp4``, ``inference_vqgan`` and
+    ``crop_align_face``; each exits 0 and writes outputs of the expected
+    shapes."""
+    import cv2
+
+    src = os.path.join(root, "faces")
+    os.makedirs(src)
+    paths = _write_faces(src, 2, (720, 1280))
+    video = os.path.join(root, "clip.mp4")
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 25, (640, 360))
+    for i in range(8):
+        writer.write(cv2.resize(cv2.imread(paths[i % 2]), (640, 360)))
+    writer.release()
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(root, "none.pth")
+
+    def run(module, *args):
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-m", f"latentsync_tpu_torch.scripts.{module}",
+                               *args, "--device", "cuda"], capture_output=True, text=True,
+                              timeout=600, cwd=here)
+        if proc.returncode:
+            log(proc.stderr[-3000:])
+        return proc.returncode, time.time() - t0
+
+    def shape(path):
+        img = cv2.imread(path)
+        return None if img is None else img.shape
+
+    ok = True
+    out = os.path.join(root, "restored")
+    rc, wall = run("inference_codeformer", "--input", src, "--out", out, "--ckpt", ckpt)
+    shapes = [shape(os.path.join(out, os.path.basename(p))) for p in paths]
+    good = rc == 0 and shapes == [(720, 1280, 3)] * 2
+    rc_v, wall_v = run("inference_codeformer", "--input", video, "--out", out, "-w", "0.7",
+                       "--ckpt", ckpt)
+    cap = cv2.VideoCapture(os.path.join(out, "clip.mp4"))
+    frames = []
+    while True:
+        read, fr = cap.read()
+        if not read:
+            break
+        frames.append(fr.shape)
+    cap.release()
+    good_v = rc_v == 0 and frames == [(360, 640, 3)] * 8
+    log(f"inference_codeformer CLI: 2 PNGs rc={rc} shapes={shapes} wall_s={wall:.1f}; 8-frame "
+        f"mp4 rc={rc_v} frames={len(frames)} wall_s={wall_v:.1f} "
+        f"{'ok' if good and good_v else 'FAIL'}")
+    ok &= good and good_v
+    rec = os.path.join(root, "rec")
+    rc, wall = run("inference_vqgan", "-i", src, "-o", rec, "--ckpt_path", ckpt)
+    shapes = [shape(os.path.join(rec, f"face{i}_rec.png")) for i in range(2)]
+    good = rc == 0 and shapes == [(512, 512, 3)] * 2
+    ok &= good
+    log(f"inference_vqgan CLI: rc={rc} shapes={shapes} wall_s={wall:.1f} {'ok' if good else 'FAIL'}")
+    aligned = os.path.join(root, "aligned")
+    rc, wall = run("crop_align_face", "-i", src, "-o", aligned, "--output_size", "256",
+                   "--transform_size", "1024")
+    shapes = [shape(os.path.join(aligned, f"face{i}.png")) for i in range(2)]
+    good = rc == 0 and shapes == [(256, 256, 3)] * 2
+    ok &= good
+    log(f"crop_align_face CLI: rc={rc} shapes={shapes} wall_s={wall:.1f} {'ok' if good else 'FAIL'}")
+    return ok
+
+
 def main() -> int:
     try:
         import torch
@@ -2624,7 +3018,21 @@ def main() -> int:
             f"gradients, a full-width loss and backward against the plain versions, the "
             f"training CLI for 4 steps and a resumed one; {time.time() - t0:.0f} s): "
             f"{'ok' if good else 'FAIL'}")
+        phase = "face restoration"
+        t0 = time.time()
+        restore_launches, good = check_codeformer(device, counters)
+        good &= check_restoration_nets(device)
+        with tempfile.TemporaryDirectory() as root:
+            good &= run_restoration_clis(root)
+        ok &= good
+        log(f"phase 12 (face restoration: full-width CodeFormer at 1 and 4 faces against its "
+            f"f32 plain run, the VQGAN autoencoder, the detectors, parsers and upsampler net "
+            f"against the CPU, the restoration CLIs; {time.time() - t0:.0f} s): "
+            f"{'ok' if good else 'FAIL'}")
         for k in kernels:
+            if k.get("path") == "codeformer":
+                k["launches"] = restore_launches
+                continue
             if k["name"] in PROBE_PATH:
                 k["path"], k["launches"] = PROBE_PATH[k["name"]], probe_launches[k["name"]]
                 continue

@@ -17,8 +17,8 @@
 // this file, on the same softmax.
 //
 // A warpgroup (four warps) owns 64 query rows, each warp 16 of them. A
-// warp's Q fragments (D zero-padded to the 16-deep k-step: 48 / 80 / 128 /
-// 160) are loaded once from device memory. Per tile of 64 keys:
+// warp's Q fragments (D zero-padded to the 16-deep k-step: 48 / 64 / 80 /
+// 128 / 160) are loaded once from device memory. Per tile of 64 keys:
 //   s = q k^T        wgmma m64n64k16, A (q) from registers, B (the K tile)
 //                    from shared memory through a descriptor, into 32 f32
 //                    accumulator registers a thread;
@@ -44,11 +44,12 @@
 // 128-byte line of device memory over eight lines of shared memory, and
 // cp.async then moves 2.2 TB/s (NVIDIA H100 80GB HBM3, 700.00 W) where
 // line-to-line copies move more than 7: nothing at D = 40, 80 and 160,
-// where the loop is bound elsewhere, but at D = 128 and 512 the rows are
-// whole 128-byte atoms and lie in the 128-byte swizzle instead (Tile::SW,
-// wgmma.cuh). Keys past the keys' end are masked to -inf before the max
-// (their K/V rows are zero or an earlier tile's in shared memory), query
-// rows past the queries' end are computed on a clamped row and not stored.
+// where the loop is bound elsewhere, but at D = 64, 128 and 512 the rows
+// are whole 128-byte atoms (at D = 64 exactly one) and lie in the 128-byte
+// swizzle instead (Tile::SW, wgmma.cuh). Keys past the keys' end are masked
+// to -inf before the max (their K/V rows are zero or an earlier tile's in
+// shared memory), query rows past the queries' end are computed on a
+// clamped row and not stored.
 //
 // Bound: operations. At S = 1024, D = 40 a (batch, head) needs 4 S^2 D
 // FLOP on the tensor cores and S^2 exponentials on the special-function
@@ -151,6 +152,26 @@ __device__ __forceinline__ void wgmma_n40(float (&d)[20], const uint32_t (&a)[4]
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// the same for D = 64 (B MN-major: the value product; wgmma_n64 above is
+// the logits' product, with B K-major)
+__device__ __forceinline__ void wgmma_n64t(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,"
+      "%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,"
+      "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,"
+      "%30,%31}, "
+      "{%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
@@ -281,6 +302,7 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], const uint32_t (&a)[
 template <int N>
 __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc) {
   if constexpr (N == 40) wgmma_n40(d, a, desc, 1);
+  if constexpr (N == 64) wgmma_n64t(d, a, desc, 1);
   if constexpr (N == 80) wgmma_n80(d, a, desc, 1);
   if constexpr (N == 128) wgmma_n128(d, a, desc, 1);
   if constexpr (N == 160) wgmma_n160(d, a, desc, 1);
@@ -401,7 +423,7 @@ struct Tile {
   static constexpr int K_BYTES = KT / 8 * KCH * 128;
   static constexpr int V_BYTES = KT / 8 * VCH * 128;
   static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
-  // A row of whole 128-byte atoms (D = 128) lies in the 128-byte swizzle of
+  // A row of whole 128-byte atoms (D = 64, 128) lies in the 128-byte swizzle of
   // wgmma.cuh, atom by atom (KT rows x 128 bytes each), so that cp.async
   // moves a 128-byte line of device memory into one line of shared memory;
   // other head dims lie as 8-row x 16-byte core matrices (see above).
@@ -417,7 +439,7 @@ struct Tile {
   }
 };
 
-// D: head dim (40, 80, 128 or 160). NWG: warpgroups a block, 64 query rows
+// D: head dim (40, 64, 80, 128 or 160). NWG: warpgroups a block, 64 query rows
 // each. NUM, where the probabilities are rounded: P_ROUNDED, online softmax
 // and p rounded to bf16 (K4, the flash route); P_NORMALISED, two sweeps
 // (statistics of the whole row first, then normalised probabilities rounded

@@ -2,7 +2,8 @@
 // for unmasked 4-D self-attention with S >= 256 and S % 128 == 0. On the
 // serving path that is the VAE mid-block (S = 1024, one head, D = 512);
 // the kernel probe sends it the UNet's spatial shapes, 8 heads of D = 40
-// and D = 80.
+// and D = 80; CodeFormer's transformer (models/codeformer.py) 8 heads of
+// D = 64 over its 256 latent tokens, nine times a forward.
 // Replaces jax's library TPU flash kernel as the reference routes to it:
 // latentsync_tpu/ops/attention.py _flash_bshd (:85, routed at :51-59).
 //
@@ -11,15 +12,19 @@
 // dot_product_attention rounds them: both products on wgmma, logits and
 // probabilities in registers, K/V tiles behind a cp.async ring. (B, S, H, D)
 // through a row pitch is the core's (rows, heads * D) layout, so head dims 40
-// and 80 run as K4 does; D = 512 runs the core's column-split tiling (a
-// block's two warpgroups own 256 output columns each). A head dim with no
-// instantiation below is refused. Bound: operations (attn_core.cuh).
+// and 80 run as K4 does, and D = 64 on the same row tiling with its K and V
+// rows one 128-byte swizzle atom each (attn_core.cuh Tile::SW); D = 512 runs
+// the core's column-split tiling (a block's two warpgroups own 256 output
+// columns each). A head dim with no instantiation below is refused. Bound:
+// operations (attn_core.cuh); at CodeFormer's shapes, bytes, and there the
+// 16 or 64 blocks of a call leave most SMs idle (PERF.md section 6).
 //
 // Under grad the route launches ls_flash_attention_lse instead: the same
 // kernels instantiated with the core's LSE parameter, which also write each
 // row's base-2 log-sum-exp, the residual of the backward
 // (flash_attention_bwd.cu), as jax's forward keeps l and m when asked for
-// residuals (flash_attention.py:246-251).
+// residuals (flash_attention.py:246-251). D = 64 has no backward yet and so
+// no such instantiation: the wrapper refuses it under grad.
 #include "attn_core.cuh"
 
 namespace {
@@ -33,6 +38,9 @@ int flash(const void* q, const void* k, const void* v, int ldq, int ldk, int ldv
                            heads * d, batch, seq, seq, heads, scale, static_cast<float*>(lse)};
   switch (d) {
     case 40: return (int)ls_core::run<40, ls_core::P_ROUNDED, void, LSE>(a, 0, s);
+    case 64:
+      if constexpr (LSE) return (int)cudaErrorInvalidValue;
+      else return (int)ls_core::run<64, ls_core::P_ROUNDED>(a, 0, s);
     case 80: return (int)ls_core::run<80, ls_core::P_ROUNDED, void, LSE>(a, 0, s);
     case 512: return (int)ls_core::run_wide<512, ls_core::P_ROUNDED, LSE>(a, s);
     default: return (int)cudaErrorInvalidValue;

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import re
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -140,6 +140,16 @@ def _module_device(device) -> torch.device:
     """The device a detector runs on: the card unless the caller asks for
     another one."""
     return torch.device("cuda" if device is None else device)
+
+
+def no_tf32(device: torch.device):
+    """cuDNN without TF32 for the duration, on a CUDA device (a no-op
+    elsewhere): the detectors' f32 convolutions."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    b = torch.backends.cudnn
+    return b.flags(enabled=b.enabled, benchmark=b.benchmark, deterministic=b.deterministic,
+                   allow_tf32=False)
 
 
 def _load(model: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
@@ -354,11 +364,7 @@ class FANLandmarkDetector:
 
     def _no_tf32(self):
         """cuDNN without TF32, for the FAN's convolutions only."""
-        if self.device.type != "cuda":
-            return contextlib.nullcontext()
-        b = torch.backends.cudnn
-        return b.flags(enabled=b.enabled, benchmark=b.benchmark, deterministic=b.deterministic,
-                       allow_tf32=False)
+        return no_tf32(self.device)
 
     @torch.inference_mode()
     def landmarks(self, crops_u8: np.ndarray) -> np.ndarray:
@@ -417,3 +423,21 @@ class FANLandmarkDetector:
 
     def __call__(self, image_rgb: np.ndarray) -> np.ndarray:
         return self.detect_batch([image_rgb])[0]
+
+
+def init_detection_model(model_name: str, state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                         device=None):
+    """The reference's detector factory by name: ``retinaface_resnet50`` (the
+    restoration default), ``retinaface_mobile0.25``, ``YOLOv5l`` and
+    ``YOLOv5n``. Returns an object whose ``detect(image_rgb)`` gives (N, 15)
+    rows [x1, y1, x2, y2, conf, 5 · (lx, ly)]; without a state dict its
+    weights are seeded random."""
+    if model_name in ("retinaface_resnet50", "retinaface_mobile0.25"):
+        from .retinaface import RetinaFaceDetector
+
+        return RetinaFaceDetector(state_dict, network=model_name, device=device)
+    if model_name in ("YOLOv5l", "YOLOv5n"):
+        from .yolov5face import YOLOv5FaceDetector
+
+        return YOLOv5FaceDetector(state_dict, network=model_name, device=device)
+    raise NotImplementedError(f"{model_name} is not implemented.")

@@ -8,9 +8,10 @@ before the value product.
 ``dot_product_attention`` routes exactly as the reference does
 (``attention.py:51-57``): unmasked 4-D self-attention with S ≥ 256 and
 S a multiple of 128 — on the serving path the VAE mid-block (S = 1024,
-one head, D = 512), where the TPU ran jax's library flash kernel, and
-from the kernel probe the UNet's spatial shapes (8 heads of D = 40 and
-80) — launches the hand-written flash kernel of
+one head, D = 512), where the TPU ran jax's library flash kernel, on the
+face-restoration path CodeFormer's transformer (S = 256, 8 heads of
+D = 64), and from the kernel probe the UNet's spatial shapes (8 heads of
+D = 40 and 80) — launches the hand-written flash kernel of
 ``csrc/flash_attention.cu`` (the tensor-core attention core of
 ``csrc/attn_core.cuh``) on a CUDA tensor. Everything else (whisper's
 S = 1500, the audio cross-attention with Sk = 50), every masked call (the
@@ -33,6 +34,10 @@ kernel (``_flash_attention_bwd_dkv`` and ``_flash_attention_bwd_dq``),
 which the reference's ``_flash_bshd`` never reaches: it gives jax only the
 forward's block sizes, and jax raises when the route is differentiated on
 a TPU. Every other call is plain torch, which autograd differentiates.
+The backward kernels exist for head dims 40, 80 and 512
+(``FLASH_BWD_HEAD_DIMS``); at D = 64 (CodeFormer, whose training is still
+to port) the route has a forward only, and a CUDA call under grad with an
+input that requires grad raises before anything launches.
 
 Two more kernels of the reference live here, in its (B, S, D) layout with
 B folding batch and heads; only the kernel probe calls them:
@@ -62,9 +67,12 @@ import torch
 
 from . import _build
 
-# head dims the flash route's kernel is instantiated for: the UNet's
-# spatial attention at C = 320 and 640 (8 heads) and the VAE mid-block's
-FLASH_HEAD_DIMS = (40, 80, 512)
+# head dims the flash route's forward kernel is instantiated for: the UNet's
+# spatial attention at C = 320 and 640 (8 heads), CodeFormer's transformer
+# (8 heads of 64) and the VAE mid-block's; and those its backward (and the
+# residual forward it reads) is instantiated for
+FLASH_FWD_HEAD_DIMS = (40, 64, 80, 512)
+FLASH_BWD_HEAD_DIMS = (40, 80, 512)
 ONESHOT_HEAD_DIMS = (40, 80)
 ONESHOT_MAX_SEQ = 1024
 FLASH_KERNEL_HEAD_DIMS = (128, 512)
@@ -116,6 +124,12 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     route, as in the reference."""
     if mask is not None or not flash_route(q, k):
         return dot_product_attention_reference(q, k, v, scale, mask)
+    if q.device.type != "cpu" and q.shape[-1] not in FLASH_BWD_HEAD_DIMS \
+            and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError(f"dot_product_attention: the flash route has no backward kernel at "
+                         f"head dim {q.shape[-1]} (backward head dims "
+                         f"{FLASH_BWD_HEAD_DIMS}; ROADMAP.md §2 queues D = 64's): call it "
+                         "under torch.no_grad() or with inputs that need no gradient")
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     return _FlashRoute.apply(q, k, v, scale)
 
@@ -167,10 +181,11 @@ def flash_attention_fwd_reference(q, k, v, scale: float):
 
 def _flash_forward(q, k, v, scale: float, with_lse: bool = False):
     b, s, h, d = q.shape
-    if k.shape != q.shape or v.shape != q.shape or d not in FLASH_HEAD_DIMS:
+    dims = FLASH_BWD_HEAD_DIMS if with_lse else FLASH_FWD_HEAD_DIMS
+    if k.shape != q.shape or v.shape != q.shape or d not in dims:
         raise ValueError(f"dot_product_attention: no flash kernel for q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)} (head dims "
-                         f"{FLASH_HEAD_DIMS})")
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} (head dims {dims}"
+                         f"{' with the residual' if with_lse else ''})")
     if not scale > 0:
         raise ValueError(f"dot_product_attention: the kernel needs scale > 0, got {scale}")
     o = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
@@ -207,7 +222,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of the flash route's forward for the output gradient
     `grad`, all (B, S, H, D). On a CUDA tensor the two launches of
     ``csrc/flash_attention_bwd.cu`` (dQ with delta = rowsum(o · grad), then
-    dK / dV), for S a multiple of 64 and head dims ``FLASH_HEAD_DIMS``, from
+    dK / dV), for S a multiple of 64 and head dims ``FLASH_BWD_HEAD_DIMS``, from
     the forward's output `o` and row log-sum-exp `lse` (``flash_attention_fwd``;
     the Function passes its saved ones): without them the residual forward
     runs first, one more launch. On a CPU tensor the plain version."""
@@ -215,9 +230,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_bwd_reference(q, k, v, grad, scale)
     b, s, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape or grad.shape != q.shape \
-            or d not in FLASH_HEAD_DIMS or s % 64:
+            or d not in FLASH_BWD_HEAD_DIMS or s % 64:
         raise ValueError(f"flash_attention_bwd: no kernel for q {tuple(q.shape)}, grad "
-                         f"{tuple(grad.shape)} (head dims {FLASH_HEAD_DIMS}, S a multiple "
+                         f"{tuple(grad.shape)} (head dims {FLASH_BWD_HEAD_DIMS}, S a multiple "
                          "of 64)")
     if not scale > 0:
         raise ValueError(f"flash_attention_bwd: the kernel needs scale > 0, got {scale}")

@@ -1,6 +1,6 @@
 """Device time of single kernels from ``torch.profiler``, beside their bounds.
 
-    python -m latentsync_tpu_torch.scripts.device_times [--which k3,k6,k10,bwd,fwd] [--calls 20]
+    python -m latentsync_tpu_torch.scripts.device_times [--which k3,k6,k10,bwd,fwd,d64] [--calls 20]
 
 Times K3 (``temporal_attention``) at its four served shapes (the default
 and fused forwards' C = 1280 blocks at batch 4 and 1, the int8-dense
@@ -29,7 +29,9 @@ backward's bound counts the function's own bytes, q, k, v and do read and
 dq, dk and dv written, not the residuals of this design. ``--which fwd``
 times the attention kernels that share the attention core with the flash
 route, at their phase-2 shapes, without grad: the flash route itself, K4,
-K5 (``LATENTSYNC_FUSED_XATTN=1``), K11 and K12.
+K5 (``LATENTSYNC_FUSED_XATTN=1``), K11 and K12. ``--which d64`` times the
+flash route at CodeFormer's head dim 64 ((B, 256, 8, 64) at 1 and 4 faces)
+beside its plain version, SDPA on the same inputs and its bound.
 
 The first line is the card's name and power limit; then one JSON line a
 measurement. It calls only the public wrappers, so the same file run from
@@ -291,10 +293,30 @@ def time_fwd(r, calls: int) -> None:
     emit("flash_attention", [64, 1024, 512], lambda: attention.flash_attention(q, k, v))
 
 
+CODEFORMER_SHAPES = [(1, 256, 8, 64), (4, 256, 8, 64)]
+
+
+def time_d64(r, calls: int) -> None:
+    """The flash route at D = 64 (CodeFormer's transformer) by device time,
+    beside the plain version's and SDPA's; bound: q, k, v read and o
+    written, against 4 B H S² D operations in bf16."""
+    for b, s, h, d in CODEFORMER_SHAPES:
+        q, k, v = (r(b, s, h, d) for _ in range(3))
+        ms, n = device_ms(lambda: attention.dot_product_attention(q, k, v), calls, True)
+        plain_ms, _ = device_ms(lambda: attention.dot_product_attention_reference(q, k, v),
+                                calls, False)
+        lib_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)), calls, False)
+        bound, by = bound_ms(_nbytes(q, k, v, q), 4 * b * h * s * s * d, "bf16")
+        _emit({"kernel": "dot_product_attention", "shape": [b, s, h, d], "device_ms": ms,
+               "kernels_a_call": n, "plain_device_ms": plain_ms, "library_device_ms": lib_ms,
+               "bound_ms": bound, "bound_by": by, "share": bound / ms})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--which", default="k3,k6,k10",
-                    help="any of k3, k6, k10, bwd, fwd, comma-separated")
+                    help="any of k3, k6, k10, bwd, fwd, d64, comma-separated")
     ap.add_argument("--calls", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -313,6 +335,8 @@ def main(argv=None) -> int:
     with torch.inference_mode():
         if "fwd" in which:
             time_fwd(r, args.calls)
+        if "d64" in which:
+            time_d64(r, args.calls)
         if "k3" in which:
             time_k3(r, args.calls)
         if "k10" in which:

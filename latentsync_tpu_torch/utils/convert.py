@@ -13,7 +13,12 @@ nets: ``convert_stable_syncnet``, ``models/perceptual.py``
 ``convert_vgg16_torchvision`` + ``convert_lpips`` and
 ``models/videomae.py`` ``convert_videomae``: flax (kh, kw, I, O) conv kernels become
 (O, I, kh, kw), (k, I, O) become (O, I, k), (I, O) dense kernels become
-(O, I), and norm ``scale`` becomes ``weight``.
+(O, I), and norm ``scale`` becomes ``weight``. The face-restoration stack's
+(``codeformer``, ``retinaface``, ``yolov5face``, ``parsenet``, ``bisenet``,
+``rrdbnet``, ``arcface``) invert ``utils/convert_codeformer.py``
+``convert_codeformer``, ``convert_bisenet`` and the converters in
+``models/{retinaface,yolov5face,parsing,rrdbnet}.py``, into basicsr's and
+facelib's layouts.
 """
 
 from __future__ import annotations
@@ -157,7 +162,11 @@ def _fan_module(path: Tuple[str, ...]) -> str:
 
 def _state_dict(variables, module_name) -> Dict[str, torch.Tensor]:
     """Flax variables (params, and batch_stats where present) → a state
-    dict, each array in its own dtype."""
+    dict, each array in its own dtype, where `module_name` maps a module
+    path (a tuple) to its torch name: conv kernels (kh, kw, I, O) become
+    (O, I, kh, kw), dense kernels (I, O) become (O, I), norm ``scale``
+    becomes ``weight`` and the batch statistics ``mean`` / ``var`` the
+    running ones."""
     if "params" not in variables:
         variables = {"params": variables}
     sd = {}
@@ -165,7 +174,7 @@ def _state_dict(variables, module_name) -> Dict[str, torch.Tensor]:
         for path, w in _flatten(variables.get(coll, {})):
             leaf = path[-1]
             if leaf == "kernel":
-                name, w = "weight", np.transpose(w, (3, 2, 0, 1))
+                name, w = "weight", (np.transpose(w, (3, 2, 0, 1)) if w.ndim == 4 else w.T)
             else:
                 name = _BN_LEAF.get(leaf, leaf)
             sd[f"{module_name(path[:-1])}.{name}"] = torch.from_numpy(np.ascontiguousarray(w))
@@ -267,13 +276,14 @@ def videomae_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
 
 def load_state_dict_file(path: str, from_flax=None) -> Dict[str, torch.Tensor]:
     """A weight file as a state dict: ``.pth`` / ``.pt`` through
-    ``torch.load`` (tensors only; a ``state_dict`` entry is unwrapped), or
+    ``torch.load`` (tensors only; a ``state_dict`` entry is unwrapped, and
+    basicsr's ``params_ema`` or ``params``), or
     an ``.npz``: of state-dict names, or a JAX package parameter tree
     (``/``-separated names), which `from_flax` (e.g.
     ``fan_state_dict_from_flax``) converts."""
     if path.endswith((".pth", ".pt")):
         sd = torch.load(path, map_location="cpu", weights_only=True)
-        sd = sd.get("state_dict", sd)
+        sd = sd.get("state_dict", sd.get("params_ema", sd.get("params", sd)))
         return {k.removeprefix("module."): v for k, v in sd.items()}
     with np.load(path, allow_pickle=False) as data:
         arrays = {k: data[k] for k in data.files}
@@ -356,3 +366,199 @@ def fast_init_(module: nn.Module, seed: int, zero_paths=(), scale: float = 0.02)
         else:
             p.normal_(0.0, scale, generator=g)
     return module
+
+
+# ---------------------------------------------------------------------------
+# face restoration: CodeFormer / VQGAN, the detectors, parsers and upsampler
+# ---------------------------------------------------------------------------
+
+
+def _tensor(w) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(w))
+
+
+def _codeformer_module(path: Tuple[str, ...]) -> str:
+    head, rest = path[0], [p for p in path[1:] if p != "gn"]
+    if head in ("encoder", "generator"):
+        return ".".join([head, "blocks", rest[0].split("_")[1]] + rest[1:])
+    m = re.fullmatch(r"ft_layers_(\d+)", head)
+    if m:
+        return ".".join(["ft_layers", m.group(1)]
+                        + (["self_attn", "out_proj"] if rest == ["out_proj"] else rest))
+    m = re.fullmatch(r"fuse_convs_(\d+)", head)
+    if m:
+        sub = re.sub(r"^(scale|shift)_(\d)$", r"\1.\2", rest[0])
+        return ".".join(["fuse_convs_dict", m.group(1), sub] + rest[1:])
+    m = re.fullmatch(r"main_(\d+)", head)
+    if m:
+        return f"main.{m.group(1)}"
+    return {"idx_pred_norm": "idx_pred_layer.0", "idx_pred_linear": "idx_pred_layer.1"}.get(
+        head, ".".join(path))
+
+
+def codeformer_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """JAX CodeFormer, VQAutoEncoder (either quantizer) or VQGANDiscriminator
+    variables → the port's state dict in basicsr's layout: the inverse of
+    ``latentsync_tpu/utils/convert_codeformer.py`` ``convert_codeformer``.
+    The transformer's q / k / v projections pack into
+    ``self_attn.in_proj_weight`` / ``in_proj_bias`` as
+    ``nn.MultiheadAttention`` keeps them; codebooks and the positions keep
+    their layout."""
+    if "params" not in variables:
+        variables = {"params": variables}
+    params = dict(variables["params"])
+    sd = {}
+    quantize = params.pop("quantize", None)
+    if quantize is not None:
+        if "embedding" in quantize:
+            sd["quantize.embedding.weight"] = _tensor(quantize["embedding"])
+        else:  # the Gumbel quantizer
+            sd["quantize.embed.weight"] = _tensor(quantize["embed"])
+            sd["quantize.proj.weight"] = _tensor(np.transpose(quantize["proj"]["kernel"],
+                                                              (3, 2, 0, 1)))
+            sd["quantize.proj.bias"] = _tensor(quantize["proj"]["bias"])
+    if "position_emb" in params:
+        sd["position_emb"] = _tensor(params.pop("position_emb"))
+    for name in [n for n in params if re.fullmatch(r"ft_layers_\d+", n)]:
+        layer = dict(params[name])
+        i = name.split("_")[-1]
+        projs = [layer.pop(p) for p in ("q_proj", "k_proj", "v_proj")]
+        sd[f"ft_layers.{i}.self_attn.in_proj_weight"] = _tensor(
+            np.concatenate([np.asarray(p["kernel"]).T for p in projs]))
+        sd[f"ft_layers.{i}.self_attn.in_proj_bias"] = _tensor(
+            np.concatenate([np.asarray(p["bias"]) for p in projs]))
+        params[name] = layer
+    sd.update(_state_dict({**variables, "params": params}, _codeformer_module))
+    return sd
+
+
+_SSH_BRANCH = {"conv3x3": "conv3X3", "conv5x5_1": "conv5X5_1", "conv5x5_2": "conv5X5_2",
+               "conv7x7_2": "conv7X7_2", "conv7x7_3": "conv7x7_3"}
+_RF_HEAD = {"class_head": "ClassHead", "bbox_head": "BboxHead", "ldm_head": "LandmarkHead"}
+_RF_DW = {"dw": 0, "dwbn": 1, "pw": 3, "pwbn": 4}
+
+
+def _retinaface_module(path: Tuple[str, ...]) -> str:
+    head = path[0]
+    m = re.fullmatch(r"(stage\d)_(\d+)_(conv|bn|dw|dwbn|pw|pwbn)", head)
+    if m:  # MobileNet: conv_bn (0 conv, 1 bn) or conv_dw
+        slot = {"conv": 0, "bn": 1}.get(m.group(3), _RF_DW.get(m.group(3)))
+        return f"body.{m.group(1)}.{m.group(2)}.{slot}"
+    if head == "body":  # ResNet50
+        rest = list(path[1:])
+        m = re.fullmatch(r"(layer\d)_(\d+)", rest[0])
+        if m:
+            sub = {"ds_conv": "downsample.0", "ds_bn": "downsample.1"}.get(rest[1], rest[1])
+            return f"body.{m.group(1)}.{m.group(2)}.{sub}"
+        return f"body.{rest[0]}"
+    m = re.fullmatch(r"fpn_(out|merge)(\d)_(conv|bn)", head)
+    if m:
+        name = "output" if m.group(1) == "out" else "merge"
+        return f"fpn.{name}{m.group(2)}.{0 if m.group(3) == 'conv' else 1}"
+    m = re.fullmatch(r"ssh\d", head)
+    if m:
+        branch, kind = path[1].rsplit("_", 1)
+        return f"{head}.{_SSH_BRANCH[branch]}.{0 if kind == 'conv' else 1}"
+    name, i = head.rsplit("_", 1)
+    return f"{_RF_HEAD[name]}.{i}.conv1x1"
+
+
+def retinaface_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """JAX RetinaFaceMobile or RetinaFaceResNet50 variables → the port's
+    RetinaFace state dict in facelib's layout: the inverse of
+    ``latentsync_tpu/models/retinaface.py`` ``convert_retinaface`` and
+    ``convert_retinaface_resnet50``."""
+    return _state_dict(variables, _retinaface_module)
+
+
+_SHUF_SLOTS = {"b1_dw": ("branch1", 0), "b1_pw": ("branch1", 2), "b2_pw1": ("branch2", 0),
+               "b2_dw": ("branch2", 3), "b2_pw2": ("branch2", 5)}
+
+
+def _yolov5face_module(detect: int):
+    def name(path: Tuple[str, ...]) -> str:
+        head, rest = path[0], list(path[1:])
+        m = re.fullmatch(r"detect_m(\d)", head)
+        if m:
+            return f"model.{detect}.m.{m.group(1)}"
+        m = re.fullmatch(r"m(\d+)(?:_(\d+))?", head)
+        out = ["model", m.group(1)] + ([m.group(2)] if m.group(2) else [])
+        if rest and rest[0] in _SHUF_SLOTS:
+            branch, slot = _SHUF_SLOTS[rest[0]]
+            return ".".join(out + [branch, str(slot + (rest[1] == "bn"))])
+        return ".".join(out + [re.sub(r"^m_(\d+)$", r"m.\1", r) for r in rest])
+    return name
+
+
+def yolov5face_state_dict_from_flax(variables, network: str = "YOLOv5n") -> Dict[str, torch.Tensor]:
+    """JAX YOLOv5nFace / YOLOv5lFace variables → the port's YOLOv5Face state
+    dict in the upstream ``model.{i}.*`` layout: the inverse of
+    ``latentsync_tpu/models/yolov5face.py`` ``convert_yolov5face`` and
+    ``convert_yolov5l_face`` (Detect is layer 21 of yolov5n, 23 of yolov5l)."""
+    detect = {"yolov5n": 21, "yolov5l": 23}[network.lower()]
+    return _state_dict(variables, _yolov5face_module(detect))
+
+
+def _parsenet_module(path: Tuple[str, ...]) -> str:
+    head, rest = path[0], list(path[1:])
+    out = head.rsplit("_", 1) if re.fullmatch(r"(encoder|body|decoder)_\d+", head) else [head]
+    return ".".join(out + [{"norm": "norm.norm"}.get(r, r) for r in rest])
+
+
+def parsenet_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """JAX ParseNet variables → the port's ParseNet state dict in facelib's
+    layout: the inverse of ``latentsync_tpu/models/parsing.py``
+    ``convert_parsenet``."""
+    return _state_dict(variables, _parsenet_module)
+
+
+def _bisenet_module(path: Tuple[str, ...]) -> str:
+    head, rest = path[0], list(path[1:])
+    if head == "cp_resnet":
+        m = re.fullmatch(r"(layer\d)_(\d)", rest[0])
+        if m:
+            sub = {"ds_conv": "downsample.0", "ds_bn": "downsample.1"}.get(rest[1], rest[1])
+            return f"cp.resnet.{m.group(1)}.{m.group(2)}.{sub}"
+        return f"cp.resnet.{rest[0]}"
+    if head.startswith("cp_"):
+        return ".".join(["cp", head[3:]] + rest)
+    return ".".join([head] + rest)
+
+
+def bisenet_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """JAX BiSeNet variables → the port's BiSeNet state dict in facelib's
+    layout: the inverse of ``latentsync_tpu/utils/convert_eval.py``
+    ``convert_bisenet``."""
+    return _state_dict(variables, _bisenet_module)
+
+
+def rrdbnet_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """JAX RRDBNet params → the port's RRDBNet state dict in basicsr's layout
+    (``body.N.rdbM.convK``): the inverse of
+    ``latentsync_tpu/models/rrdbnet.py`` ``convert_rrdbnet``."""
+    return _state_dict(variables, lambda p: ".".join(
+        p[0].rsplit("_", 1) + list(p[1:]) if p[0].startswith("body_") else p))
+
+
+def _arcface_module(path: Tuple[str, ...]) -> str:
+    out = []
+    for part in path:
+        m = re.fullmatch(r"(layer\d)_(\d+)", part)
+        out += [m.group(1), m.group(2)] if m else \
+            [{"downsample_conv": "downsample.0", "downsample_bn": "downsample.1",
+              "fc_0": "fc.0", "fc_2": "fc.2"}.get(part, part)]
+    return ".".join(out)
+
+
+def arcface_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """JAX ArcFaceResNet18 variables → the port's state dict in basicsr's
+    layout: the inverse of ``latentsync_tpu/models/rrdbnet.py``
+    ``convert_arcface`` (each PReLU's one slope ``prelu_alpha`` becomes
+    ``prelu.weight``, the SE block's ``fc_1_alpha`` ``se.fc.1.weight``)."""
+    sd = _state_dict(variables, _arcface_module)
+    renamed = {}
+    for k, v in sd.items():
+        k = k.lstrip(".")
+        k = re.sub(r"(^|\.)prelu_alpha$", r"\1prelu.weight", k)
+        renamed[re.sub(r"fc_1_alpha$", "fc.1.weight", k)] = v
+    return renamed

@@ -6,8 +6,11 @@ for ``dot_product_attention``'s flash route (``csrc/flash_attention.cu``) and
 for K12 ``flash_attention`` (``csrc/flash_kernel.cu``) is repeated here tile
 by tile:
 
-- ``rows_tiling``: head dims 40, 80 and 128. 64-key tiles, the head dim
-  zero-padded to the 16-deep MMA step, query and key lengths apart;
+- ``rows_tiling``: head dims 40, 64, 80 and 128. 64-key tiles, the head dim
+  zero-padded to the 16-deep MMA step, query and key lengths apart; at
+  D = 64 and 128 the K and V tiles lie in the 128-byte swizzle, whose
+  addresses (the loads' and the matrix unit's) are mirrored byte for byte
+  in ``swizzled_tile_reads``;
 - ``columns_tiling``: head dim 512. A block owns 64 query rows and walks
   32-key tiles; each of its two warpgroups computes the tile's whole logits
   and its own softmax and multiplies by ITS 256 columns of V, so the output
@@ -120,6 +123,66 @@ def columns_tiling(q, k, v, scale, unrounded=False):
     return out.to(q.dtype)
 
 
+def sw128_offset(r, c):
+    """Byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile
+    (``csrc/wgmma.cuh``)."""
+    return r * 128 + ((c ^ (r & 7)) << 4)
+
+
+def sw128_read(smem, addr):
+    """The bf16 element the matrix unit reads at linear byte address `addr`
+    of an operand in the 128-byte swizzle (base 1024-byte aligned): bits
+    4-6 of the address XOR bits 7-9."""
+    phys = addr ^ (((addr >> 7) & 7) << 4)
+    return smem[phys // 2]
+
+
+def swizzled_tile_reads(d, nwg, kt=ROWS_KT):
+    """The row tiling's K and V tiles in the 128-byte swizzle, as
+    ``csrc/attn_core.cuh``'s ``attn_kernel`` stores and reads them: each of
+    its 128 * nwg threads copies 16-byte chunk ``tid % 8`` of every row
+    ``tid / 8 + j * RP`` of every 64-column atom, RP = threads / 8 rows a
+    pass, to ``sw128_offset(row, chunk) + atom * ATOM``; then the first
+    product's descriptor reads k-step kk of K (keys x 16 of d, K-major)
+    from ``Tile::k_step(kk)`` on, and the second product's reads k-step j of
+    V (16 keys x d, MN-major, the next 64 of d an atom on) from
+    ``Tile::v_step(j)`` on. Returns the element ids each read saw, as
+    (K's k-steps, V's k-steps), from tiles whose element (row, col) holds
+    the id row * d + col."""
+    assert d % 64 == 0
+    threads, tpr = 128 * nwg, 8
+    rp = threads // tpr
+    assert kt % rp == 0 and rp % 8 == 0  # the kernel's static_assert (!SW || RP % 8 == 0)
+    atom = kt * 128
+    k_bytes = v_bytes = kt * d * 2
+    smem = np.full((k_bytes + v_bytes) // 2, -1, np.int64)
+    ids = np.arange(kt * d).reshape(kt, d)
+    for tid in range(threads):
+        lr, lc = tid // tpr, tid % tpr
+        for j in range(kt // rp):
+            r = lr + j * rp
+            for a in range(d // 64):
+                at = a * atom + j * rp * 128
+                dst = sw128_offset(lr, lc) + at
+                for base, tile in ((0, ids), (k_bytes, ids)):
+                    smem[(base + dst) // 2:(base + dst) // 2 + 8] = tile[r, a * 64 + lc * 8:
+                                                                         a * 64 + lc * 8 + 8]
+    assert (smem >= 0).all()
+
+    def k_step(kk):
+        return kk // 4 * atom + kk % 4 * 32
+
+    def v_step(j):
+        return j * 2048
+
+    ks = [np.array([[sw128_read(smem, k_step(kk) + n * 128 + c * 2) for c in range(16)]
+                    for n in range(kt)]) for kk in range(d // 16)]
+    vs = [np.array([[sw128_read(smem, (k_bytes + v_step(j) + (n // 64) * atom + kr * 128
+                                       + (n % 64) * 2)) for n in range(d)]
+                    for kr in range(16)]) for j in range(kt // 16)]
+    return ks, vs, ids
+
+
 def tiling_for(d):
     return columns_tiling if d == 512 else lambda *a, **kw: rows_tiling(*a, **kw)[0]
 
@@ -150,7 +213,7 @@ def _within(got, plain):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("d", [40, 80, 512])
+@pytest.mark.parametrize("d", [40, 64, 80, 512])
 @pytest.mark.parametrize("h", [1, 8])
 @pytest.mark.parametrize("s", [256, 384])
 def test_rounded_tilings_match_plain_version_and_jax(s, h, d):
@@ -302,3 +365,34 @@ def test_wrapper_checks_reach_the_cpu():
             p_attn._row_pitch(bad, "q")
     assert p_attn.flash_tiles(1024, 1024, 512, 256, 256)
     assert not p_attn.flash_tiles(128, 128, 128, 256, 256)
+
+
+@pytest.mark.parametrize("nwg", [1, 2])
+@pytest.mark.parametrize("d", [64, 128])
+def test_swizzled_tiles_read_back_as_the_products_operands(d, nwg):
+    """At D = 64 a K or V row is exactly one 128-byte atom (the first head
+    dim of the flash route on the swizzled branch; D = 128, K12's, is two):
+    what the loads store and the descriptors read must be K's 16 columns of
+    each k-step and V's 16 rows of each, for one warpgroup's 64 query rows
+    and for two (``pick_block_q(256)`` = 128 rows, CodeFormer's S)."""
+    ks, vs, ids = swizzled_tile_reads(d, nwg)
+    for kk, got in enumerate(ks):
+        np.testing.assert_array_equal(got, ids[:, 16 * kk:16 * kk + 16])
+    for j, got in enumerate(vs):
+        np.testing.assert_array_equal(got, ids[16 * j:16 * j + 16, :])
+
+
+def test_flash_route_at_64_under_grad_is_the_plain_autograd_on_the_cpu():
+    """D = 64 has a forward kernel and no backward one: on a CPU tensor the
+    route's Function saves q, k, v and differentiates the plain version, so
+    CodeFormer's gradients on the CPU are the plain attention's."""
+    q, k, v = (t.float().requires_grad_(True) for t in _inputs(64, *[(2, 256, 8, 64)] * 3))
+    assert p_attn.flash_route(q, k) and 64 in p_attn.FLASH_FWD_HEAD_DIMS
+    assert 64 not in p_attn.FLASH_BWD_HEAD_DIMS
+    out = p_attn.dot_product_attention(q, k, v)
+    grad = torch.from_numpy(np.random.default_rng(3).standard_normal(out.shape).astype(np.float32))
+    got = torch.autograd.grad(out, (q, k, v), grad)
+    ref = p_attn.flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(), grad,
+                                               64**-0.5)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)

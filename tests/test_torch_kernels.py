@@ -18,7 +18,9 @@ shape, ragged edges, an f32 weight and all-zero rows included) and the int8
 convolution route, whose int32 accumulators must equal the plain float64
 ones exactly. The kernel probe
 adds K9-K12 (fused q/k/v projection, int8-in/int8-out GEGLU, one-shot and
-streaming attention) and the flash route's head dims 40 and 80; the flash
+streaming attention) and the flash route's head dims 40 and 80; CodeFormer's
+face restoration the flash route at D = 64 (forward only: under grad it
+raises); the flash
 route and K12 also run at an odd batch, every length class, cross shapes,
 large logits and strided views. The
 kernels on the GEMM template (K1, K2, K5, K9, K10) also run at widths
@@ -455,12 +457,28 @@ def test_int8_dense_pallas_mode_launches_k8_or_raises(rand, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,d", [(2, 256, 8, 40), (2, 256, 8, 80), (8, 1024, 8, 40),
-                                     (8, 256, 8, 80), (3, 384, 2, 40)])
+                                     (8, 256, 8, 80), (3, 384, 2, 40),
+                                     # CodeFormer's transformer: 1 and 4 faces, D = 64
+                                     (1, 256, 8, 64), (4, 256, 8, 64), (3, 384, 2, 64)])
 def test_flash_route_head_dims_of_the_probe(rand, b, s, h, d):
     q, k, v = rand(b, s, h, d), rand(b, s, h, d), rand(b, s, h, d)
     before = attention.dot_product_attention.launches
     _check(attention.dot_product_attention(q, k, v),
            attention.dot_product_attention_reference(q, k, v))
+    assert attention.dot_product_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_flash_route_at_64_refuses_grad(rand):
+    """D = 64 has no backward kernel: under grad with an input that requires
+    grad the route raises before it launches anything; without grad it runs."""
+    q, k, v = rand(2, 256, 8, 64), rand(2, 256, 8, 64), rand(2, 256, 8, 64)
+    before = attention.dot_product_attention.launches
+    with pytest.raises(ValueError, match="no backward kernel"):
+        attention.dot_product_attention(q.requires_grad_(True), k, v)
+    assert attention.dot_product_attention.launches == before
+    with torch.no_grad():
+        attention.dot_product_attention(q, k, v)
     assert attention.dot_product_attention.launches == before + 1
 
 

@@ -255,14 +255,16 @@ def test_ddim_tables_and_step_match_jax():
     _close(PDDIM.step(_t(eps), _t(x), at[3], ap[3]).numpy(), ref, atol=1e-6)
 
 
-_FOREIGN = ("jax", "flax", "latentsync_tpu")
+_FOREIGN = ("jax", "flax", "latentsync_tpu", "torch_ref_models")
 
 
 def test_port_imports_no_jax():
     """Importing the port's entry points (pipeline, server and batcher, the
-    job-queue worker, the CLIs, the trainer and its CLI, probe, onboarding),
-    its face models and the trainer's loss nets, data and checkpoints loads
-    no module of jax, flax or the JAX package."""
+    job-queue worker, the CLIs, the trainer and its CLI, probe, onboarding,
+    the face-restoration CLIs), its face models, the restoration stack
+    (CodeFormer, detectors, parsers, upsampler, helper, alignment) and the
+    trainer's loss nets, data and checkpoints loads no module of jax, flax,
+    the JAX package or the tests' torch reference models."""
     code = ("import sys, latentsync_tpu_torch.serving.api, latentsync_tpu_torch.pipelines."
             "lipsync, latentsync_tpu_torch.scripts.micro_probe, "
             "latentsync_tpu_torch.scripts.prepare_video, latentsync_tpu_torch.serving.batcher, "
@@ -274,7 +276,16 @@ def test_port_imports_no_jax():
             "latentsync_tpu_torch.training.data, latentsync_tpu_torch.training.losses, "
             "latentsync_tpu_torch.models.syncnet, latentsync_tpu_torch.models.perceptual, "
             "latentsync_tpu_torch.models.videomae, latentsync_tpu_torch.utils.checkpoint, "
-            "latentsync_tpu_torch.ops.autograd; "
+            "latentsync_tpu_torch.ops.autograd, latentsync_tpu_torch.models.codeformer, "
+            "latentsync_tpu_torch.models.retinaface, latentsync_tpu_torch.models.yolov5face, "
+            "latentsync_tpu_torch.models.parsing, latentsync_tpu_torch.models.rrdbnet, "
+            "latentsync_tpu_torch.utils.realesrgan, latentsync_tpu_torch.utils.ffhq_align, "
+            "latentsync_tpu_torch.utils.face_restore_helper, "
+            "latentsync_tpu_torch.scripts.inference_codeformer, "
+            "latentsync_tpu_torch.scripts.inference_vqgan, "
+            "latentsync_tpu_torch.scripts.inference_colorization, "
+            "latentsync_tpu_torch.scripts.inference_inpainting, "
+            "latentsync_tpu_torch.scripts.crop_align_face; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {_FOREIGN!r}]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
@@ -289,7 +300,7 @@ def _port_sources():
 def test_port_source_imports_nothing_of_the_jax_package(path):
     """No import statement anywhere in the port's sources or in
     ``chip_smoke.py``, at any depth (imports inside functions included),
-    names jax, flax or ``latentsync_tpu``."""
+    names jax, flax, ``latentsync_tpu`` or the tests' ``torch_ref_models``."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
