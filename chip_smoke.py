@@ -16,8 +16,9 @@ and without CUDA it exits nonzero before doing anything):
    and the flash route at head dims 40 and 80), at every shape the probe
    gives them at its default 4 windows (K10 up to C = 1280), and the flash
    route at CodeFormer's head dim 64 at 4 faces and 1 (one device kernel a
-   call, none of torch's; under grad it must raise: D = 64 has no backward
-   kernel); K1, K2 (both
+   call, none of torch's; under grad its residual forward gives the same
+   output bits and one backward call, and a head dim with no kernel, or a
+   launch the kernels refuse, still raises); K1, K2 (both
    modes), K3 and K4 also at the half-batch shapes of a step outside the
    CFG interval (window batch 2, no CFG batch); K2's temporal
    mode and K3 also at F = 8 and 24 frames; K1, K2 and K9 also at one shape
@@ -40,14 +41,16 @@ and without CUDA it exits nonzero before doing anything):
    ``torch._int_mm``) against its float64 plain version at one UNet shape
    per width and the VAE's largest ones, with equal int32 accumulators;
    the flash route's backward kernels (``csrc/flash_attention_bwd.cu``)
-   against their plain version at the three shapes of a train step
-   ((16, 1024, 1, 512), (16, 1024, 8, 40), (16, 256, 8, 80)), each of dq,
+   against their plain version at the three shapes of a UNet train step
+   ((16, 1024, 1, 512), (16, 1024, 8, 40), (16, 256, 8, 80)) and the two
+   of CodeFormer's training ((4, 256, 8, 64), (1, 256, 8, 64)), each of dq,
    dk, dv within TOL_REL of its own and BWD_REL_L2_TOL in relative L2,
    two device kernels a call from the residual forward's o and lse (three
    without them) and none of torch's, a repeat call equal bit for bit, the
-   residual forward's lse within LSE_TOL of the plain logsumexp; timed
-   beside SDPA's backward and their bound, the residual forward beside the
-   forward without grad;
+   residual forward's o equal bit for bit to the forward without grad and
+   its lse within LSE_TOL of the plain logsumexp; timed beside SDPA's
+   backward and their bound, the residual forward beside the forward
+   without grad;
 3. the full-width UNet (LatentSync 1.5 stage 2, random seeded non-zero
    weights) in four configurations of the reference's switches: default,
    fused (``LATENTSYNC_PALLAS_GN=1 LATENTSYNC_FUSED_XATTN=1``), int8
@@ -150,16 +153,41 @@ and without CUDA it exits nonzero before doing anything):
    UNET_TOL; (d) ``inference_codeformer --device cuda`` in a subprocess on
    two synthetic 720p PNGs and an 8-frame ``.mp4``, then
    ``inference_vqgan`` and ``crop_align_face``, each output of the input's
-   (or the requested) shape.
+   (or the requested) shape;
+13. restoration training at full width (``CodeFormer()``, the 512²
+   ``VQAutoEncoder`` and ``VQGANDiscriminator``, batch 4, bf16, seeded
+   random weights, synthetic faces written here): (a) a few steps of each
+   stage (vqgan, code, joint) through ``train_codeformer.main``, finite
+   losses, the median warm step and the peak memory of each; (b) with the
+   counts set to 0 just before (a), the port's launcher of the flash
+   backward called 9 times a stage-II step (one call a transformer layer:
+   2 device kernels each, phase 2) and never in stages I and III (stage
+   III's losses reach the transformer only through the argmax of its
+   codes, so its gradient there is zero and no backward runs, as in the
+   JAX package), the flash forward 9 times a stage-II step and 18 a
+   stage-III one, neither the backward's plain version nor torch's SDPA
+   called, no other kernel of the port launched; (c) one stage-II step at
+   batch 1 on the card in bf16 and on the CPU in f32 (the plain attention)
+   from the same weights and batch: at least RESTORE_CODES_MIN of the
+   target codes equal, and with the CPU's target codes the loss within
+   RESTORE_LOSS_TOL and the transformer's gradients within
+   RESTORE_GRAD_TOL in relative L2 (the free-running loss and gradients printed); (d) ``train_restoration`` with a copy of
+   ``options/codeformer_stage2.yaml`` naming the faces, 2 steps in a
+   subprocess, and ``generate_latent_gt`` on 4 faces.
 
 The line before the last is a JSON object with each kernel's launches on
 its path (``"path"``: the served configuration, ``probe``, ``train`` for
-the flash route's backward (phase 11 (b)), ``codeformer`` for the flash
-route at D = 64 (one forward at 4 faces in phase 12 (a)) or, for K12,
-``kernels``), its
-largest error against the plain version, its time, the plain version's,
-the library call's (or null) and its bound with the resource that sets
-it; the last line is the device record.
+the flash route's backward (phase 11 (b); its launches in phase 13 (a)
+beside them as ``restoration_train_launches``, and each of its shapes
+marked ``train`` or ``restoration_train``), ``codeformer`` for the flash
+route at D = 64 (one forward at 4 faces in phase 12 (a); its launches in
+phase 13 beside them) or, for K12, ``kernels``), its largest error
+against the plain version, its time, the plain version's, the library
+call's (or null) and its bound with the resource that sets it. A name
+appears once, but for the flash route's forward
+(``dot_product_attention``), which has an entry for the served
+configurations and one for ``codeformer``. The last line is the device
+record.
 """
 
 from __future__ import annotations
@@ -535,7 +563,7 @@ def kernel_cases():
              attention.dot_product_attention_reference,
              "latentsync_tpu_torch/csrc/flash_attention.cu", "latentsync_tpu/ops/attention.py:85",
              [flash_args(4, 256, 8, 64), flash_args(1, 256, 8, 64)], sdpa_bshd,
-             path="codeformer", one_kernel=True, grad_raises=True),
+             path="codeformer", one_kernel=True, grad_runs=True),
         case("cross_attention_block", attn_block.cross_attention_block,
              attn_block.cross_attention_block_reference,
              "latentsync_tpu_torch/csrc/cross_attn_block.cu", "latentsync_tpu/ops/attn_block.py:284",
@@ -808,21 +836,56 @@ def check_kernels(device):
                 f"{'ok' if good else 'FAIL'}")
             del args, kw, got
             torch.cuda.empty_cache()
-        if case.get("grad_raises"):  # a forward kernel with no backward: under grad it raises
-            args, kw = case["shapes"][0][1](r)
-            before = wrapper.launches
-            try:
-                wrapper(args[0].requires_grad_(True), *args[1:], **kw)
-                raised = ""
-            except ValueError as e:
-                raised = str(e)
-            good = bool(raised) and wrapper.launches == before
-            ok &= good
-            log(f"kernel {name:22s} {case['shapes'][0][0]:28s} under grad: "
-                f"{'raised (' + raised[:80] + '...)' if raised else 'did not raise'} "
-                f"{'ok' if good else 'FAIL'}")
+        if case.get("grad_runs"):
+            ok &= check_grad_route(name, wrapper, case["shapes"][0], r)
         results.append(entry)
     return results, ok
+
+
+def check_grad_route(name, wrapper, shape, r) -> bool:
+    """The flash route at D = 64 under grad: the residual forward launches
+    once and gives the no-grad output bit for bit, its backward launches
+    the backward kernels once; a head dim with no kernel raises before
+    launching anything, and a launch the kernels refuse (D = 96 straight
+    at the entry point) raises."""
+    import torch
+
+    from latentsync_tpu_torch.ops import _build, attention
+
+    label, make = shape[0], shape[1]
+    args, kw = make(r)
+    q = args[0].detach().requires_grad_(True)
+    with torch.no_grad():
+        plain_out = wrapper(*args, **kw)
+    before, bwd = wrapper.launches, attention.flash_attention_bwd.launches
+    out = wrapper(q, *args[1:], **kw)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    runs = (wrapper.launches == before + 1 and attention.flash_attention_bwd.launches == bwd + 1
+            and torch.equal(out.detach(), plain_out) and bool(torch.isfinite(q.grad).all()))
+    bad = torch.zeros((1, 256, 1, 128), device=q.device, dtype=q.dtype, requires_grad=True)
+    try:
+        wrapper(bad, bad, bad)
+        no_kernel = ""
+    except ValueError as e:
+        no_kernel = str(e)
+    t = torch.zeros((1, 256, 1, 96), device=q.device, dtype=q.dtype)
+    f32 = torch.zeros((1, 1, 256), device=q.device)
+    try:
+        _build.call("ls_flash_attention_bwd", *[t.data_ptr()] * 5, 96, 96, 96,
+                    *[t.data_ptr()] * 3, f32.data_ptr(), f32.data_ptr(), 1, 256, 1, 96,
+                    96**-0.5, _build.stream(t))
+        refused = ""
+    except RuntimeError as e:
+        refused = str(e)
+    good = runs and bool(no_kernel) and bool(refused) \
+        and attention.flash_attention_bwd.launches == bwd + 1
+    log(f"kernel {name:22s} {label:28s} under grad: residual forward same_bits_as_no_grad="
+        f"{torch.equal(out.detach(), plain_out)}, backward launched once={runs}; no kernel "
+        f"at D = 128: {'raised' if no_kernel else 'did not raise'}; refused launch at D = 96: "
+        f"{'raised (' + refused[:60] + ')' if refused else 'did not raise'} "
+        f"{'ok' if good else 'FAIL'}")
+    return good
 
 
 def check_int8_conv(device) -> bool:
@@ -2100,11 +2163,13 @@ def run_worker(pipeline, root: str, audios, transcriber) -> bool:
 # phase 11: stage-2 training on the card
 # ---------------------------------------------------------------------------
 
-# the flash backward's shapes in a train step: the VAE mid-block's attention
-# in the decode of x̂₀ (16 frames of 32² latents), then the UNet's spatial
-# attention at 32² (C = 320) and 16² (C = 640) through K4's and K2's
-# composed gradients
-FLASH_BWD_SHAPES = [(16, 1024, 1, 512), (16, 1024, 8, 40), (16, 256, 8, 80)]
+# the flash backward's shapes in a UNet train step: the VAE mid-block's
+# attention in the decode of x̂₀ (16 frames of 32² latents), then the UNet's
+# spatial attention at 32² (C = 320) and 16² (C = 640) through K4's and K2's
+# composed gradients; and CodeFormer's transformer in its stage-II
+# training (phase 13) at batch 4 and 1: 8 heads of 64 over 256 tokens
+FLASH_BWD_SHAPES = [(16, 1024, 1, 512), (16, 1024, 8, 40), (16, 256, 8, 80), (4, 256, 8, 64),
+                    (1, 256, 8, 64)]
 # the residual forward's lse against the plain f32 logsumexp, natural units
 LSE_TOL = 1e-3
 # the flash backward's relative L2 error a gradient, beside TOL_REL: where
@@ -2152,7 +2217,8 @@ def _per_output(got, ref):
 
 def check_flash_backward(device):
     """Phase 2, last: the flash route's backward kernels against their plain
-    version at the three shapes a train step gives them (FLASH_BWD_SHAPES),
+    version at the shapes a UNet train step and CodeFormer's training give
+    them (FLASH_BWD_SHAPES),
     each gradient within TOL_REL of its own and BWD_REL_L2_TOL in relative
     L2, and each shape timed beside the plain version and SDPA's backward
     (from one forward graph kept for repeated backwards) with the bound of
@@ -2161,10 +2227,13 @@ def check_flash_backward(device):
     and row log-sum-exp from the residual forward (``flash_attention_fwd``),
     as the train step's Function does: two device kernels a call, three when
     the call has to run the residual forward itself, and none of torch's. A
-    second call must equal the first bit for bit, and the residual forward's
-    lse must be within LSE_TOL of the plain f32 logsumexp of the scaled
-    logits; its time is logged beside the forward without grad. Returns
-    (the kernels line's entry, ok)."""
+    second call must equal the first bit for bit, the residual forward's
+    output must equal the forward's without grad bit for bit and its lse be
+    within LSE_TOL of the plain f32 logsumexp of the scaled logits; its time
+    is logged beside the forward without grad. Returns (the kernels line's
+    entry, its top-level numbers those of the first shape and each shape
+    marked with its path: ``train`` for the UNet's shapes,
+    ``restoration_train`` for D = 64; ok)."""
     import torch
     import torch.nn.functional as F
 
@@ -2202,6 +2271,7 @@ def check_flash_backward(device):
         fwd_ms = cuda_ms(lambda: attention.flash_attention_fwd(q, k, v, scale))
         with torch.no_grad():
             nograd_ms = cuda_ms(lambda: attention.dot_product_attention(q, k, v, scale))
+            same_o = torch.equal(o, attention.dot_product_attention(q, k, v, scale))
         qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
         out = F.scaled_dot_product_attention(qs, ks, vs)
         dot = do.transpose(1, 2)
@@ -2211,7 +2281,7 @@ def check_flash_backward(device):
         bound_ms, bound_by = bound((q, k, v, do), {}, got, 10 * b * h * s * s * d, "bf16")
         good = launched and close and rel <= BWD_REL_L2_TOL and bitwise and same_direct \
             and lse_err <= LSE_TOL and port_k == 2 and torch_k == 0 and port_d == 3 \
-            and torch_d == 0
+            and torch_d == 0 and same_o
         ok &= good
         label = f"B={b} S={s} H={h} D={d}"
         log(f"kernel flash_attention_bwd    {label:28s} max_abs_err={err:.6g} tol={tol:.6g} (each "
@@ -2223,9 +2293,11 @@ def check_flash_backward(device):
             f"kernels_a_call={port_k} (+{torch_k} torch), without residuals {port_d} "
             f"(+{torch_d} torch) {'ok' if good else 'FAIL'}")
         log(f"kernel flash_attention_fwd    {label:28s} residual forward ms={fwd_ms:.4f} beside "
-            f"the forward without grad ms={nograd_ms:.4f}; lse max_abs_err={lse_err:.3g} "
-            f"(natural units, tol {LSE_TOL}) {'ok' if lse_err <= LSE_TOL else 'FAIL'}")
-        shape = {"shape": label, "max_abs_err": err, "rel_l2": rel, "ms": ms,
+            f"the forward without grad ms={nograd_ms:.4f}; same output bits={same_o}; lse "
+            f"max_abs_err={lse_err:.3g} (natural units, tol {LSE_TOL}) "
+            f"{'ok' if lse_err <= LSE_TOL and same_o else 'FAIL'}")
+        shape = {"shape": label, "path": "restoration_train" if d == 64 else "train",
+                 "max_abs_err": err, "rel_l2": rel, "ms": ms,
                  "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                  "bound_ms": bound_ms, "bound_by": bound_by, "kernels_a_call": port_k,
                  "residual_forward_ms": fwd_ms, "forward_without_grad_ms": nograd_ms}
@@ -2866,6 +2938,236 @@ def run_restoration_clis(root: str) -> bool:
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 13: restoration training on the card
+# ---------------------------------------------------------------------------
+
+# steps of each stage in (a): the first builds and warms, the median of the rest
+RESTORE_TRAIN_STEPS = 4
+# (c), one stage-II step at batch 1, bf16 on the card against f32 on the CPU,
+# each bound set from the readings of this seed on an H100 with room on both
+# sides: the share of target codes that must agree (the nearest codebook
+# entries of the encoder's output: no kernel of the port on that path, only
+# bf16's rounding against f32's; read 0.9648), then, with the CPU's codes as
+# the card's targets, the cross-entropy's relative difference (read 2.3e-4)
+# and the relative L2 of the transformer's gradients (read 0.0138; each on
+# its own codes, printed only, 0.092). A backward without its delta term
+# reads 0.05-0.33 in the CPU mirror's check.
+RESTORE_LOSS_TOL = 1e-3
+RESTORE_GRAD_TOL = 0.04
+RESTORE_CODES_MIN = 0.9
+
+
+@contextlib.contextmanager
+def counting(owner, name: str):
+    """Replace ``owner.name`` by a wrapper that counts its calls for the
+    duration; yields the count (a one-item list)."""
+    orig = getattr(owner, name)
+    calls = [0]
+
+    def wrapper(*args, **kwargs):
+        calls[0] += 1
+        return orig(*args, **kwargs)
+
+    # a launcher's body adds to the count of the module global of its own
+    # name, which is this wrapper while it is in place: carry the count over
+    counted = hasattr(orig, "launches")
+    if counted:
+        wrapper.launches = orig.launches
+    setattr(owner, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, orig)
+        if counted:
+            orig.launches = wrapper.launches
+
+
+def train_stages(root: str, counters):
+    """Phase 13 (a) and (b): ``train_codeformer.main`` for RESTORE_TRAIN_STEPS
+    steps of each stage at full width, batch 4, on the faces in `root`:
+    finite metrics, the median warm step and the peak memory of each. The
+    counts are set to 0 just before; during stage II the port's launcher of
+    the flash backward (``attention.flash_attention_bwd``, wrapped here)
+    must be called once a transformer layer a step, in stages I and III
+    never (stage III's losses reach the transformer only through an
+    argmax), and its plain version and torch's SDPA never; the flash
+    forward launches once a layer a stage-II step and twice a stage-III
+    one (the generator's step and the discriminator's); no other kernel of
+    the port may launch. Returns (the launches of the flash forward and
+    backward, ok)."""
+    import torch
+    import torch.nn.functional as F
+
+    from latentsync_tpu_torch.ops import attention
+    from latentsync_tpu_torch.scripts import train_codeformer
+
+    ok = True
+    for fn in counters:
+        fn.launches = 0
+    calls = {}
+    with counting(attention, "flash_attention_bwd") as bwd_calls, \
+            counting(attention, "flash_attention_bwd_reference") as plain_calls, \
+            counting(F, "scaled_dot_product_attention") as sdpa_calls:
+        for stage in ("vqgan", "code", "joint"):
+            before = bwd_calls[0]
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            out = train_codeformer.main(["--stage", stage, "--data-dir", root, "--max-steps",
+                                         str(RESTORE_TRAIN_STEPS), "--batch-size", "4",
+                                         "--output-dir",
+                                         os.path.join(root, "ck_" + stage), "--seed",
+                                         str(SEED + 13)])
+            wall = time.time() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            calls[stage] = bwd_calls[0] - before
+            want = CODEFORMER_LAYERS * RESTORE_TRAIN_STEPS if stage == "code" else 0
+            finite = all(math.isfinite(v) for m in out["metrics"] for v in m.values())
+            warm = sorted(out["step_seconds"][1:])[len(out["step_seconds"][1:]) // 2]
+            good = finite and calls[stage] == want
+            ok &= good
+            log(f"[{gpu_line()}] train_codeformer --stage {stage} B=4 512²: "
+                f"{RESTORE_TRAIN_STEPS} steps, metrics of the last {json.dumps(out['metrics'][-1])}"
+                f" finite={finite}; median warm step {warm * 1e3:.1f} ms (steps "
+                f"{[round(x * 1e3, 1) for x in out['step_seconds']]} ms); peak device memory "
+                f"{peak:.2f} GiB; flash backward launcher calls {calls[stage]} (want {want}); "
+                f"{wall:.1f} s with model building "
+                f"{'ok' if good else 'FAIL'}")
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters if fn.launches}
+    others = {k: v for k, v in launches.items()
+              if k not in ("dot_product_attention", "flash_attention_bwd")}
+    n_bwd = launches.get("flash_attention_bwd", 0)
+    n_fwd = launches.get("dot_product_attention", 0)
+    good = (plain_calls[0] == 0 and sdpa_calls[0] == 0 and not others
+            and n_bwd == bwd_calls[0] == CODEFORMER_LAYERS * RESTORE_TRAIN_STEPS
+            and n_fwd == 3 * CODEFORMER_LAYERS * RESTORE_TRAIN_STEPS)
+    ok &= good
+    log(f"restoration training launches (counts set to 0 before (a)): {launches}; flash "
+        f"backward launcher calls {bwd_calls[0]}, its plain version {plain_calls[0]}, SDPA "
+        f"{sdpa_calls[0]}; other kernels of the port {others} {'ok' if good else 'FAIL'}")
+    return launches, ok
+
+
+def _rel_diff(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def check_stage2_against_cpu(root: str, device) -> bool:
+    """Phase 13 (c): one stage-II loss and backward at batch 1 on the card in
+    bf16 and on the CPU in f32 (the plain attention there) from the same
+    weights and batch: at least RESTORE_CODES_MIN of the target codes
+    equal; with the CPU's codes as the card's targets the loss within
+    RESTORE_LOSS_TOL and the transformer's gradients (``ft_layers.*``)
+    within RESTORE_GRAD_TOL in relative L2; the free-running loss and gradients
+    (each on its own codes) printed."""
+    import copy
+
+    import torch
+
+    from latentsync_tpu_torch.models import codeformer as cf
+    from latentsync_tpu_torch.training.degradations import FFHQBlindSource
+    from latentsync_tpu_torch.training.restoration_trainer import CodeFormerStageII
+    from latentsync_tpu_torch.utils.convert import init_random_
+
+    sample = FFHQBlindSource(root, seed=SEED).sample()
+    batch = {k: v[None] for k, v in sample.items()}
+    with torch.no_grad():
+        cpu_model = init_random_(cf.CodeFormer(), seed=SEED + 14)
+    card = CodeFormerStageII(copy.deepcopy(cpu_model).to(device), dtype=torch.bfloat16)
+    cpu = CodeFormerStageII(cpu_model, dtype=torch.float32)
+
+    def step(trainer, codes=None):
+        """(loss, the target codes, the transformer's gradients, seconds)."""
+        t0 = time.time()
+        for t in trainer.g.leaves.values():
+            t.grad = None
+        gt = torch.from_numpy(batch["gt"]).to(trainer.device).permute(0, 3, 1, 2)
+        own = trainer.target_codes(gt)
+        if codes is not None:
+            trainer.target_codes = lambda x: codes.to(trainer.device)
+        try:
+            loss, _ = trainer.loss(batch)
+            loss.backward()
+        finally:
+            trainer.__dict__.pop("target_codes", None)
+        grads = torch.cat([t.grad.float().flatten().cpu() for k, t in trainer.g.leaves.items()
+                           if k.startswith("ft_layers.")])
+        return float(loss.detach()), own.cpu(), grads, time.time() - t0
+
+    cpu_loss, cpu_codes, cpu_grads, cpu_s = step(cpu)
+    free_loss, card_codes, free_grads, card_s = step(card)
+    held_loss, _, held_grads, _ = step(card, cpu_codes)
+    codes_equal = float((card_codes == cpu_codes).float().mean())
+    loss_rel = _rel_diff(held_loss, cpu_loss)
+    grad_rel = _rel_l2(held_grads, cpu_grads)
+    good = (codes_equal >= RESTORE_CODES_MIN and loss_rel <= RESTORE_LOSS_TOL
+            and grad_rel <= RESTORE_GRAD_TOL and math.isfinite(free_loss))
+    log(f"stage II at B=1, card bf16 vs CPU f32: equal target codes {codes_equal:.4f} (min "
+        f"{RESTORE_CODES_MIN}); on the CPU's codes: ce {held_loss:.6f} vs {cpu_loss:.6f} "
+        f"rel_diff={loss_rel:.4g} (tol {RESTORE_LOSS_TOL}), transformer gradients "
+        f"rel_l2={grad_rel:.4g} (tol {RESTORE_GRAD_TOL}); free-running: ce {free_loss:.6f} rel_diff="
+        f"{_rel_diff(free_loss, cpu_loss):.4g}, gradients rel_l2="
+        f"{_rel_l2(free_grads, cpu_grads):.4g}; card {card_s:.1f} s, CPU {cpu_s:.1f} s "
+        f"{'ok' if good else 'FAIL'}")
+    return good
+
+
+def run_restoration_train_clis(root: str, faces: str) -> bool:
+    """Phase 13 (d): ``train_restoration`` on a copy of
+    ``options/codeformer_stage2.yaml`` whose ``dataroot_gt`` names the faces,
+    2 steps in its own process (JSON lines, the EMA checkpoint), and
+    ``generate_latent_gt`` on 4 faces (seeded random weights: 16 × 16 codes
+    of each face and its flip)."""
+    import numpy as np
+    import yaml
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "options", "codeformer_stage2.yaml")) as f:
+        opt = yaml.safe_load(f)
+    opt["datasets"]["train"]["dataroot_gt"] = faces
+    options = os.path.join(root, "codeformer_stage2.yaml")
+    with open(options, "w") as f:
+        yaml.safe_dump(opt, f)
+
+    def run(module, *args):
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-m", f"latentsync_tpu_torch.scripts.{module}",
+                               *args], capture_output=True, text=True, timeout=600, cwd=here)
+        if proc.returncode:
+            log(proc.stderr[-3000:])
+        return proc, time.time() - t0
+
+    ok = True
+    ck = os.path.join(root, "option_ck")
+    proc, wall = run("train_restoration", "-opt", options, "--max-steps", "2", "--log-every", "1",
+                     "--output-dir", ck)
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    good = (proc.returncode == 0 and [x["step"] for x in lines] == [1, 2]
+            and all(math.isfinite(x["ce"]) for x in lines)
+            and os.path.isfile(os.path.join(ck, "step_00000002.pt")))
+    ok &= good
+    for x in lines:
+        log(f"  train_restoration: {json.dumps(x)}")
+    log(f"[{gpu_line()}] train_restoration -opt codeformer_stage2.yaml (batch 4, full width) "
+        f"--max-steps 2: exit {proc.returncode}, {wall:.1f} s in its own process "
+        f"{'ok' if good else 'FAIL'}")
+    codes = os.path.join(root, "codes")
+    proc, wall = run("generate_latent_gt", "-i", faces, "-o", codes)
+    path = os.path.join(codes, "latent_gt_code1024.npz")
+    good = proc.returncode == 0 and os.path.isfile(path)
+    if good:
+        with np.load(path) as data:
+            good = len(data.files) == 8 and all(
+                data[k].shape == (16, 16) and 0 <= data[k].min() and data[k].max() < 1024
+                for k in data.files)
+    ok &= good
+    log(f"generate_latent_gt on 4 faces: exit {proc.returncode}, {wall:.1f} s in its own "
+        f"process {'ok' if good else 'FAIL'}")
+    return ok
+
+
 def main() -> int:
     try:
         import torch
@@ -3029,16 +3331,32 @@ def main() -> int:
             f"f32 plain run, the VQGAN autoencoder, the detectors, parsers and upsampler net "
             f"against the CPU, the restoration CLIs; {time.time() - t0:.0f} s): "
             f"{'ok' if good else 'FAIL'}")
+        phase = "restoration training"
+        t0 = time.time()
+        with tempfile.TemporaryDirectory() as root:
+            faces = os.path.join(root, "faces")
+            os.makedirs(faces)
+            _write_faces(faces, 4, (512, 512))
+            train_launches13, good = train_stages(faces, counters)
+            good &= check_stage2_against_cpu(faces, device)
+            good &= run_restoration_train_clis(root, faces)
+        ok &= good
+        log(f"phase 13 (restoration training at full width: three stages, the flash backward "
+            f"at D = 64 nine times a step, stage II card against CPU, train_restoration and "
+            f"generate_latent_gt; {time.time() - t0:.0f} s): {'ok' if good else 'FAIL'}")
         for k in kernels:
             if k.get("path") == "codeformer":
                 k["launches"] = restore_launches
+                k["restoration_train_launches"] = train_launches13.get("dot_product_attention", 0)
                 continue
             if k["name"] in PROBE_PATH:
                 k["path"], k["launches"] = PROBE_PATH[k["name"]], probe_launches[k["name"]]
                 continue
             k["path"] = next(conf for conf in CONFIGS if k["name"] in ON_PATH[conf])
             k["launches"] = launches[k["path"]][k["name"]]
-        bwd_entry["path"], bwd_entry["launches"] = "train", train_launches["flash_attention_bwd"]
+        bwd_entry["path"] = "train"
+        bwd_entry["launches"] = train_launches["flash_attention_bwd"]
+        bwd_entry["restoration_train_launches"] = train_launches13.get("flash_attention_bwd", 0)
         kernels.append(bwd_entry)
     except Exception:  # noqa: BLE001 — report the phase, then fail
         traceback.print_exc()

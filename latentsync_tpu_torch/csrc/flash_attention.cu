@@ -23,8 +23,9 @@
 // kernels instantiated with the core's LSE parameter, which also write each
 // row's base-2 log-sum-exp, the residual of the backward
 // (flash_attention_bwd.cu), as jax's forward keeps l and m when asked for
-// residuals (flash_attention.py:246-251). D = 64 has no backward yet and so
-// no such instantiation: the wrapper refuses it under grad.
+// residuals (flash_attention.py:246-251), at every head dim the route
+// serves: 40, 64 (CodeFormer's transformer under grad in its training), 80
+// and 512.
 #include "attn_core.cuh"
 
 namespace {
@@ -38,9 +39,7 @@ int flash(const void* q, const void* k, const void* v, int ldq, int ldk, int ldv
                            heads * d, batch, seq, seq, heads, scale, static_cast<float*>(lse)};
   switch (d) {
     case 40: return (int)ls_core::run<40, ls_core::P_ROUNDED, void, LSE>(a, 0, s);
-    case 64:
-      if constexpr (LSE) return (int)cudaErrorInvalidValue;
-      else return (int)ls_core::run<64, ls_core::P_ROUNDED>(a, 0, s);
+    case 64: return (int)ls_core::run<64, ls_core::P_ROUNDED, void, LSE>(a, 0, s);
     case 80: return (int)ls_core::run<80, ls_core::P_ROUNDED, void, LSE>(a, 0, s);
     case 512: return (int)ls_core::run_wide<512, ls_core::P_ROUNDED, LSE>(a, s);
     default: return (int)cudaErrorInvalidValue;

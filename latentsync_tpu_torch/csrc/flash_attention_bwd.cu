@@ -12,7 +12,11 @@
 // pallas_call :1121) and _flash_attention_bwd_dq (:1287 / :1456). On the
 // training path: the VAE mid-block's decode, (16, 1024, 1, 512); and, through
 // K4's and K2's composed gradients (_spatial_xla routes its attention), the
-// UNet's spatial attention at (16, 1024, 8, 40) and (16, 256, 8, 80).
+// UNet's spatial attention at (16, 1024, 8, 40) and (16, 256, 8, 80); and
+// CodeFormer's transformer in its stage-II training
+// (latentsync_tpu/training/restoration_trainer.py), (B, 256, 8, 64) nine
+// times a step (stage III's losses reach the transformer only through the
+// argmax of its codes, so no backward runs there).
 //
 // jax's structure, not its blocks: the forward keeps each row's log-sum-exp
 // (the core's LSE instantiation, attn_core.cuh: one f32 a row, base 2, as
@@ -34,13 +38,19 @@
 // and to the streamed ones in 2. dQ is summed in one block's registers, as
 // jax's dq kernel sums it: no atomics, and two calls give equal bits.
 //
-// Head dims 40 and 80 (the row kernel): as the core's row tiling, the own
+// Head dims 40, 64 and 80 (the row kernel): as the core's row tiling, the own
 // rows' A fragments straight from device memory into registers (D
-// zero-padded to the 16-deep k-step: 48 / 80), streamed tiles of 64 rows in
-// the core's Tile<D> layout of 8-row x 16-byte core matrices (K-major for
-// the first two products, MN-major for the output products, whose N is D
-// itself: m64n40 / m64n80, no padding there) behind a 3-stage cp.async ring,
-// one barrier a tile; two warpgroups a block share the tiles.
+// zero-padded to the 16-deep k-step: 48 / 64 / 80), streamed tiles of 64 rows
+// in the core's Tile<D> layout (K-major for the first two products,
+// MN-major for the output products, whose N is D itself: m64n40 / m64n64 /
+// m64n80, no padding there) behind a 3-stage cp.async ring, one barrier a
+// tile; two warpgroups a block share the tiles. At D = 40 and 80 the layout
+// is 8-row x 16-byte core matrices; at D = 64 a streamed row is one 128-byte
+// atom and the tiles lie in the 128-byte swizzle (Tile<64>::SW, as the
+// forward keeps its K and V tiles there): each stage starts 1024-aligned,
+// a K-major k-step moves 32 bytes inside the atom (Tile::k_step) and an
+// MN-major one 16 rows, 2048 bytes (Tile::v_step, which equals the core
+// matrices' 2 KCH 128 at KCH = 8).
 //
 // D = 512 (the wide kernel): a 64-row tile's f32 dK and dV (256 KB) do not
 // fit one SM's registers, so the 512 columns are split over a cluster of two
@@ -73,7 +83,10 @@
 // H100 80GB HBM3 at 700.00 W (PERF.md section 6): 15-19 % of the bound at
 // the three shapes above; at D = 512 the exchange is a third of the time,
 // at D = 40 the phases add up (a block's two warpgroups meet at every
-// tile's barrier) and the copies alone take a third.
+// tile's barrier) and the copies alone take a third. At CodeFormer's
+// (4, 256, 8, 64) the bound is bytes instead: q, k, v and do read, dq, dk
+// and dv written, seven tensors of 1.05 MB, 2.2 us at 3.35 TB/s
+// beside 1.34 GFLOP, 1.4 us at the bf16 peak.
 #include <cooperative_groups.h>
 
 #include "attn_core.cuh"
@@ -180,10 +193,13 @@ __device__ __forceinline__ void st_async16(unsigned dst, float4 v, unsigned bar)
 constexpr int RING = 3;  // stages of the row kernel's ring
 
 // bytes of one stage: the sx and sy tiles (KT rows in core matrices, D
-// padded to the k-step), and in launch 2 the lse and delta of their rows
+// padded to the k-step, or KT 128-byte rows in the swizzle), and in launch 2
+// the lse and delta of their rows; a swizzled stage is rounded up to 1024
+// bytes, so that every stage's tiles start on the swizzle's alignment
 template <int D, bool DKDV>
 __host__ __device__ constexpr int row_stage_bytes() {
-  return 2 * (KT / 8 * Tile<D>::KCH * 128) + (DKDV ? 2 * KT * 4 : 0);
+  constexpr int bytes = 2 * (KT / 8 * Tile<D>::KCH * 128) + (DKDV ? 2 * KT * 4 : 0);
+  return Tile<D>::SW ? (bytes + 1023) / 1024 * 1024 : bytes;
 }
 
 // a warp's A fragments of own rows r0 (its rows g) and r1 (g + 8), D
@@ -212,8 +228,11 @@ __global__ void __launch_bounds__(128 * NWG)
   constexpr int TILE = KT / 8 * KCH * 128;
   constexpr int STAGE = row_stage_bytes<D, DKDV>();
   constexpr int NT = KT / 8;  // 8-column tiles of a logit tile
+  constexpr bool SW = T::SW;  // D = 64: the 128-byte swizzle, from a 1024-aligned ring
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const unsigned smem_base = (unsigned)__cvta_generic_to_shared(smem_raw);
+  const unsigned smem_pad = SW ? -(unsigned)__cvta_generic_to_shared(smem_raw) & 1023u : 0u;
+  unsigned char* smem = smem_raw + smem_pad;
+  const unsigned smem_base = (unsigned)__cvta_generic_to_shared(smem);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -236,13 +255,14 @@ __global__ void __launch_bounds__(128 * NWG)
   const int tiles = a.seq / KT;
 
   for (int i = tid; i < RING * STAGE / 16; i += THREADS)
-    reinterpret_cast<uint4*>(smem_raw)[i] = make_uint4(0u, 0u, 0u, 0u);
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();  // the zeros (every row's pad chunk) are down before any copy lands
 
   // the sx and sy tiles of `tile` into `stage` as core matrices (row r,
   // chunk c at (r / 8) KCH 128 + c 128 + (r % 8) 16; chunks past D stay
-  // zero), and in launch 2 the lse and delta of their rows; one commit
-  // group a call whatever it copies
+  // zero) or, at D = 64, in the swizzle (sw128_offset(r, c)), and in launch
+  // 2 the lse and delta of their rows; one commit group a call whatever it
+  // copies
   auto load = [&](int tile, int stage) {
     if (tile < tiles) {
       const size_t r0 = (size_t)tile * KT;
@@ -250,7 +270,8 @@ __global__ void __launch_bounds__(128 * NWG)
       for (int i = tid; i < KT * VCH; i += THREADS) {
         const int row = i / VCH;
         const int c = i - row * VCH;
-        const unsigned at = (row >> 3) * (KCH * 128) + c * 128 + (row & 7) * 16;
+        const unsigned at =
+            SW ? sw128_offset(row, c) : (row >> 3) * (KCH * 128) + c * 128 + (row & 7) * 16;
         cp_async16s(dst + at, sx + (r0 + row) * r.ldsx + c * 8);
         cp_async16s(dst + TILE + at, sy + (r0 + row) * r.ldsy + c * 8);
       }
@@ -304,9 +325,11 @@ __global__ void __launch_bounds__(128 * NWG)
   // K: 128 bytes to the next 8 of D, a row group to the next 8 rows) and
   // MN-major for the output products (its rows are their K, D their N: a
   // row group to the next 8 rows, 128 bytes to the next 8 of D), from one
-  // layout, as the core reads its K and V tiles.
-  const uint64_t kdesc = wg_desc(smem_base, 128, KCH * 128);
-  const uint64_t ndesc = wg_desc(smem_base, KCH * 128, 128);
+  // layout, as the core reads its K and V tiles. (Swizzled: wgmma.cuh; the
+  // MN-major N = 64 is one atom, so its leading step is not used.)
+  const uint64_t kdesc = SW ? wg_desc_sw128(smem_base) : wg_desc(smem_base, 128, KCH * 128);
+  const uint64_t ndesc =
+      SW ? wg_desc_sw128_mn(smem_base, T::ATOM) : wg_desc(smem_base, KCH * 128, 128);
   int stage = 0;
   for (int i = 0; i < tiles; ++i) {
     cp_async_wait<RING - 2>();  // this thread's copies of tile i have landed
@@ -317,16 +340,17 @@ __global__ void __launch_bounds__(128 * NWG)
     float s[4 * NT], dp[4 * NT];
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) wgmma_n64(s, ax[kk], kdesc + wg_step(sb + kk * 256), kk > 0);
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_n64(s, ax[kk], kdesc + wg_step(sb + T::k_step(kk)), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
-      wgmma_n64(dp, ay[kk], kdesc + wg_step(sb + TILE + kk * 256), kk > 0);
+      wgmma_n64(dp, ay[kk], kdesc + wg_step(sb + TILE + T::k_step(kk)), kk > 0);
     wg_commit();
     wg_wait();
 
     // P and dS of the tile as the A fragments of the output products' four
     // k-steps (two adjacent 8-column tiles are one 16-deep A tile)
-    const float* st = reinterpret_cast<const float*>(smem_raw + sb + 2 * TILE);
+    const float* st = reinterpret_cast<const float*>(smem + sb + 2 * TILE);
     uint32_t fs[KT / 16][4], fp[DKDV ? KT / 16 : 1][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -359,7 +383,8 @@ __global__ void __launch_bounds__(128 * NWG)
     }
 
     // dQ += dS k (launch 1); dK += dS^T q, dV += P^T do (launch 2): 16
-    // streamed rows a k-step, two row groups on
+    // streamed rows a k-step, two row groups on (2048 bytes at D = 64, in
+    // the swizzle too)
     wg_fence();
 #pragma unroll
     for (int j = 0; j < KT / 16; ++j) {
@@ -380,7 +405,7 @@ __global__ void __launch_bounds__(128 * NWG)
 
 template <int D, int NWG, bool DKDV>
 cudaError_t launch_row(const Bwd& a, int batch, cudaStream_t s) {
-  const size_t smem = (size_t)RING * row_stage_bytes<D, DKDV>();
+  const size_t smem = (size_t)RING * row_stage_bytes<D, DKDV>() + Tile<D>::SMEM_PAD;
   cudaError_t e = ls_allow_smem(bwd_row_kernel<D, NWG, DKDV>, smem);
   if (e != cudaSuccess) return e;
   const int own_tiles = a.seq / (64 * NWG);
@@ -691,6 +716,7 @@ extern "C" int ls_flash_attention_bwd(const void* q, const void* k, const void* 
                  static_cast<float*>(delta), seq, heads, scale};
   switch (d) {
     case 40: return (int)run_row<40>(a, batch, s);
+    case 64: return (int)run_row<64>(a, batch, s);
     case 80: return (int)run_row<80>(a, batch, s);
     case 512: {
       const cudaError_t e = launch_wide<false>(a, batch, s);

@@ -448,9 +448,21 @@ class CodeFormer(nn.Module):
         return out, logits, lq_feat
 
 
+def batch_norm_running(m: nn.BatchNorm2d, h: torch.Tensor) -> torch.Tensor:
+    """flax's ``BatchNorm(use_running_average=True)`` in f32: (h - mean) ·
+    (scale · rsqrt(var + eps)) + bias on the running statistics, written
+    out so that it is the same whatever the module's train / eval mode and
+    differentiable in the statistics (the restoration trainers train them,
+    as the JAX trainers do)."""
+    mul = torch.rsqrt(m.running_var.float() + m.eps) * m.weight.float()
+    y = (h.float() - m.running_mean.float()[:, None, None]) * mul[:, None, None]
+    return y + m.bias.float()[:, None, None]
+
+
 class VQGANDiscriminator(nn.Module):
     """The PatchGAN discriminator (forward; batch norms on their running
-    statistics): ``main`` is upstream's Sequential, index for index."""
+    statistics, ``batch_norm_running``): ``main`` is upstream's Sequential,
+    index for index."""
 
     def __init__(self, nc: int = 3, ndf: int = 64, n_layers: int = 4):
         super().__init__()
@@ -467,5 +479,5 @@ class VQGANDiscriminator(nn.Module):
     def forward(self, x):
         h = x.to(_dtype(self))
         for m in self.main:
-            h = m(h.float()).to(h.dtype) if isinstance(m, nn.BatchNorm2d) else m(h)
+            h = batch_norm_running(m, h).to(h.dtype) if isinstance(m, nn.BatchNorm2d) else m(h)
         return h

@@ -34,10 +34,9 @@ kernel (``_flash_attention_bwd_dkv`` and ``_flash_attention_bwd_dq``),
 which the reference's ``_flash_bshd`` never reaches: it gives jax only the
 forward's block sizes, and jax raises when the route is differentiated on
 a TPU. Every other call is plain torch, which autograd differentiates.
-The backward kernels exist for head dims 40, 80 and 512
-(``FLASH_BWD_HEAD_DIMS``); at D = 64 (CodeFormer, whose training is still
-to port) the route has a forward only, and a CUDA call under grad with an
-input that requires grad raises before anything launches.
+The backward kernels exist for every head dim the route serves, 40, 64
+(CodeFormer's transformer in its training), 80 and 512
+(``FLASH_BWD_HEAD_DIMS``).
 
 Two more kernels of the reference live here, in its (B, S, D) layout with
 B folding batch and heads; only the kernel probe calls them:
@@ -72,7 +71,7 @@ from . import _build
 # (8 heads of 64) and the VAE mid-block's; and those its backward (and the
 # residual forward it reads) is instantiated for
 FLASH_FWD_HEAD_DIMS = (40, 64, 80, 512)
-FLASH_BWD_HEAD_DIMS = (40, 80, 512)
+FLASH_BWD_HEAD_DIMS = (40, 64, 80, 512)
 ONESHOT_HEAD_DIMS = (40, 80)
 ONESHOT_MAX_SEQ = 1024
 FLASH_KERNEL_HEAD_DIMS = (128, 512)
@@ -124,12 +123,6 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     route, as in the reference."""
     if mask is not None or not flash_route(q, k):
         return dot_product_attention_reference(q, k, v, scale, mask)
-    if q.device.type != "cpu" and q.shape[-1] not in FLASH_BWD_HEAD_DIMS \
-            and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise ValueError(f"dot_product_attention: the flash route has no backward kernel at "
-                         f"head dim {q.shape[-1]} (backward head dims "
-                         f"{FLASH_BWD_HEAD_DIMS}; ROADMAP.md §2 queues D = 64's): call it "
-                         "under torch.no_grad() or with inputs that need no gradient")
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     return _FlashRoute.apply(q, k, v, scale)
 

@@ -56,10 +56,11 @@ HOOKS = [
     ("the row kernel's first products", """\
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) wgmma_n64(s, ax[kk], kdesc + wg_step(sb + kk * 256), kk > 0);
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_n64(s, ax[kk], kdesc + wg_step(sb + T::k_step(kk)), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
-      wgmma_n64(dp, ay[kk], kdesc + wg_step(sb + TILE + kk * 256), kk > 0);
+      wgmma_n64(dp, ay[kk], kdesc + wg_step(sb + TILE + T::k_step(kk)), kk > 0);
     wg_commit();
     wg_wait();""", """\
 #if LS_PIECES & 2
@@ -71,10 +72,11 @@ HOOKS = [
 #else
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) wgmma_n64(s, ax[kk], kdesc + wg_step(sb + kk * 256), kk > 0);
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_n64(s, ax[kk], kdesc + wg_step(sb + T::k_step(kk)), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
-      wgmma_n64(dp, ay[kk], kdesc + wg_step(sb + TILE + kk * 256), kk > 0);
+      wgmma_n64(dp, ay[kk], kdesc + wg_step(sb + TILE + T::k_step(kk)), kk > 0);
     wg_commit();
     wg_wait();
 #endif"""),

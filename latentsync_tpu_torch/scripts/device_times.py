@@ -20,7 +20,8 @@ the larger, and ``share`` = bound / device. For K6 the last line sums
 launches x device time and launches x bound over the forward.
 
 ``--which bwd`` times the flash route's backward (``flash_attention_bwd``)
-at the three shapes of a train step, with the device time of each of its
+at the three shapes of a UNet train step and CodeFormer's two (D = 64 at
+4 faces and 1, its stage-II training), with the device time of each of its
 kernels by name, beside its plain version and SDPA's backward (from one
 forward graph kept for repeated backwards); the backward takes the residual
 forward's (``flash_attention_fwd``) o and lse, as the train step does, and
@@ -227,7 +228,8 @@ def time_k10(r, calls: int) -> None:
                "share": bd / ms})
 
 
-FLASH_BWD_SHAPES = [(16, 1024, 1, 512), (16, 1024, 8, 40), (16, 256, 8, 80)]
+FLASH_BWD_SHAPES = [(16, 1024, 1, 512), (16, 1024, 8, 40), (16, 256, 8, 80), (4, 256, 8, 64),
+                    (1, 256, 8, 64)]
 
 
 def time_bwd(r, calls: int) -> None:

@@ -44,6 +44,8 @@ from latentsync_tpu_torch.utils.convert import (unet_state_dict_from_flax,
                                                 whisper_state_dict_from_flax)
 from latentsync_tpu_torch.utils.media import StreamingVideoWriter, read_video, write_audio
 
+from test_torch_ops import _one_torch_thread  # noqa: F401 (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the model tolerance of tests/test_torch_models.py, relative to max(1, max|eps|)
 ATOL, RTOL = 2e-4, 1e-4
@@ -67,16 +69,6 @@ vae:
   layers_per_block: 1
   norm_num_groups: 4
 """
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file's tiny tensors: as fast alone, and
-    the parallel test workers do not contend for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np_tree(tree):

@@ -22,6 +22,8 @@ from latentsync_tpu_torch.models import codeformer as pcf
 from latentsync_tpu_torch.ops import attention as p_attn
 from latentsync_tpu_torch.utils import convert as pconv
 
+from test_torch_ops import _one_torch_thread  # noqa: F401 (autouse)
+
 FEAT_TOL = 5e-4
 IMG_TOL = 5e-3
 
@@ -30,16 +32,6 @@ SMALL = dict(dim_embd=16, n_head=2, n_layers=2, codebook_size=16, latent_size=25
              ch_mult=(1, 2, 2, 4, 4, 8), emb_dim=8)
 VQ_SMALL = dict(img_size=32, nf=8, ch_mult=(1, 2), res_blocks=2, attn_resolutions=(16,),
                 codebook_size=16, emb_dim=16)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file's small tensors: about as fast
-    alone, and the parallel test workers do not contend for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def random_variables(model, *args, seed: int, **kw):

@@ -28,16 +28,7 @@ from latentsync_tpu_torch.scripts import inference_vqgan
 from latentsync_tpu_torch.utils import convert as pconv
 
 from test_torch_codeformer import SMALL, random_variables
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file's small tensors: about as fast
-    alone, and the parallel test workers do not contend for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from test_torch_ops import _one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture

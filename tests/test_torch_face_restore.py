@@ -38,19 +38,10 @@ from latentsync_tpu_torch.utils import ffhq_align as palign
 from latentsync_tpu_torch.utils import realesrgan as pesr
 
 from test_torch_codeformer import random_variables
+from test_torch_ops import _one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 5e-4
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file's small tensors: about as fast
-    alone, and the parallel test workers do not contend for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def close(got, ref, tol=TOL):

@@ -46,6 +46,9 @@ from jax.experimental import pallas as pl
 from latentsync_tpu.ops import attention as j_attn
 from latentsync_tpu_torch.ops import attention as p_attn
 
+from test_torch_ops import _one_torch_thread  # noqa: F401 (autouse)
+
+
 TOL_REL = 2.0**-6
 LOG2E = 1.4426950408889634
 ROWS_KT = 64     # keys of one tile of the row tiling
@@ -383,12 +386,13 @@ def test_swizzled_tiles_read_back_as_the_products_operands(d, nwg):
 
 
 def test_flash_route_at_64_under_grad_is_the_plain_autograd_on_the_cpu():
-    """D = 64 has a forward kernel and no backward one: on a CPU tensor the
-    route's Function saves q, k, v and differentiates the plain version, so
-    CodeFormer's gradients on the CPU are the plain attention's."""
+    """D = 64 has a forward kernel and a backward one (on the card); on a
+    CPU tensor the route's Function saves q, k, v and differentiates the
+    plain version, so CodeFormer's gradients on the CPU are the plain
+    attention's."""
     q, k, v = (t.float().requires_grad_(True) for t in _inputs(64, *[(2, 256, 8, 64)] * 3))
     assert p_attn.flash_route(q, k) and 64 in p_attn.FLASH_FWD_HEAD_DIMS
-    assert 64 not in p_attn.FLASH_BWD_HEAD_DIMS
+    assert 64 in p_attn.FLASH_BWD_HEAD_DIMS
     out = p_attn.dot_product_attention(q, k, v)
     grad = torch.from_numpy(np.random.default_rng(3).standard_normal(out.shape).astype(np.float32))
     got = torch.autograd.grad(out, (q, k, v), grad)

@@ -41,6 +41,8 @@ from latentsync_tpu_torch.models.vae import AutoencoderKL
 from latentsync_tpu_torch.pipelines.lipsync import LipsyncPipeline
 from latentsync_tpu_torch.utils.convert import init_random_
 
+from test_torch_ops import _one_torch_thread  # noqa: F401 (autouse)
+
 # the model tolerance of tests/test_torch_models.py
 ATOL, RTOL = 2e-4, 1e-4
 # relative L1 of a denoised trajectory against the JAX package's
@@ -52,16 +54,6 @@ STEPS = 6
 FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 MODES = {"plain": {}, "enc": {"cache_encoder": True},
          "enc:1": {"cache_encoder": True, "cache_sub": 1}}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file's tiny tensors: as fast alone, and
-    the parallel test workers do not contend for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _configs(mod):

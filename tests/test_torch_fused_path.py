@@ -40,6 +40,9 @@ from latentsync_tpu_torch.ops import attn_block as p_ab
 from latentsync_tpu_torch.ops import groupnorm as p_gn
 from latentsync_tpu_torch.utils.convert import init_random_
 
+from test_torch_ops import _one_torch_thread  # noqa: F401 (autouse)
+
+
 SWITCHES = ("LATENTSYNC_PALLAS_GN", "LATENTSYNC_FUSED_XATTN")
 # tests/test_torch_models.py's small UNet and VAE, and its UNet tolerance
 UNET_KW = dict(block_out_channels=(32, 64, 64, 64), layers_per_block=1, norm_num_groups=8,

@@ -46,6 +46,9 @@ from latentsync_tpu_torch.ops import qconv as p_qc
 from latentsync_tpu_torch.pipelines.lipsync import LipsyncPipeline
 from latentsync_tpu_torch.utils.convert import init_random_
 
+from test_torch_ops import _one_torch_thread  # noqa: F401 (autouse)
+
+
 OP_TOL = 1e-6
 MODEL_TOL = 1e-3
 SWITCHES = ("LATENTSYNC_INT8", "LATENTSYNC_INT8_DENSE", "LATENTSYNC_FUSED_ATTN",

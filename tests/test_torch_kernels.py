@@ -19,8 +19,8 @@ convolution route, whose int32 accumulators must equal the plain float64
 ones exactly. The kernel probe
 adds K9-K12 (fused q/k/v projection, int8-in/int8-out GEGLU, one-shot and
 streaming attention) and the flash route's head dims 40 and 80; CodeFormer's
-face restoration the flash route at D = 64 (forward only: under grad it
-raises); the flash
+face restoration the flash route at D = 64 (under grad its residual
+forward and the backward kernels); the flash
 route and K12 also run at an odd batch, every length class, cross shapes,
 large logits and strided views. The
 kernels on the GEMM template (K1, K2, K5, K9, K10) also run at widths
@@ -469,17 +469,23 @@ def test_flash_route_head_dims_of_the_probe(rand, b, s, h, d):
 
 
 @pytest.mark.cuda
-def test_flash_route_at_64_refuses_grad(rand):
-    """D = 64 has no backward kernel: under grad with an input that requires
-    grad the route raises before it launches anything; without grad it runs."""
+def test_flash_route_at_64_runs_under_grad(rand):
+    """D = 64 has a backward kernel: under grad the route launches its
+    residual forward once and the backward once, and a head dim with no
+    backward kernel still raises before anything launches."""
     q, k, v = rand(2, 256, 8, 64), rand(2, 256, 8, 64), rand(2, 256, 8, 64)
     before = attention.dot_product_attention.launches
-    with pytest.raises(ValueError, match="no backward kernel"):
-        attention.dot_product_attention(q.requires_grad_(True), k, v)
-    assert attention.dot_product_attention.launches == before
-    with torch.no_grad():
-        attention.dot_product_attention(q, k, v)
+    bwd = attention.flash_attention_bwd.launches
+    out = attention.dot_product_attention(q.requires_grad_(True), k, v)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
     assert attention.dot_product_attention.launches == before + 1
+    assert attention.flash_attention_bwd.launches == bwd + 1
+    assert torch.isfinite(q.grad.float()).all()
+    bad = rand(2, 256, 8, 128)
+    with pytest.raises(ValueError, match="no flash kernel"):
+        attention.dot_product_attention(bad.requires_grad_(True), bad, bad)
+    assert attention.flash_attention_bwd.launches == bwd + 1
 
 
 @pytest.mark.cuda

@@ -38,6 +38,18 @@ from latentsync_tpu_torch.ops.ddim import DDIMScheduler as PDDIM
 ATOL, RTOL = 2e-5, 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for a test file's tensors, so that the parallel
+    test workers, each with torch's default thread count, do not contend
+    for the cores. Autouse in this file and in each ``test_torch_*`` file
+    that imports it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(port, ref, atol=ATOL, rtol=RTOL):
     np.testing.assert_allclose(np.asarray(port), np.asarray(ref), atol=atol, rtol=rtol)
 

@@ -46,6 +46,9 @@ from latentsync_tpu_torch.utils.convert import init_random_
 from latentsync_tpu_torch.utils.image_processor import load_fixed_mask
 from latentsync_tpu_torch.utils.media import StreamingVideoWriter, read_video, write_audio
 
+from test_torch_ops import _one_torch_thread  # noqa: F401 (autouse)
+
+
 RES, CROP_AT, FRAME_HW, N_FRAMES = 64, 16, 96, 20
 STEPS = 2
 # decoded uint8 crops: f32 on both sides, so at most a one-step rounding

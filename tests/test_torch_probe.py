@@ -31,6 +31,8 @@ from latentsync_tpu_torch.scripts import attn_pieces, block_pieces, gemm_split, 
 from latentsync_tpu_torch.scripts import micro_probe as mp
 from latentsync_tpu_torch.utils.convert import linear_weight
 
+from test_torch_ops import _one_torch_thread  # noqa: F401 (autouse)
+
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))

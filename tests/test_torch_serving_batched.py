@@ -42,19 +42,11 @@ from latentsync_tpu_torch.serving.batcher import WindowBatcher
 from latentsync_tpu_torch.utils.convert import init_random_
 from latentsync_tpu_torch.utils.media import StreamingVideoWriter, read_video, write_audio
 
+from test_torch_ops import _one_torch_thread  # noqa: F401 (autouse)
+
 RES, CROP_AT, FRAME_HW, N_FRAMES, STEPS = 64, 16, 96, 20, 2
 # the JAX package's bound for a pipelined or batched clip against the serial one
 MEAN_VIDEO_DELTA = 1.5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file's tiny tensors: as fast alone, and
-    the parallel test workers do not contend for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------

@@ -52,14 +52,16 @@ def _close(got, ref):
         assert float((g.float() - p.float()).abs().max()) <= tol
 
 
-# the head dims at batch 2, then the three shapes of a train step: the VAE
-# decode's mid-block, the UNet's spatial attention at C = 320 and 640
-TRAIN_FLASH_SHAPES = [(16, 1024, 1, 512), (16, 1024, 8, 40), (16, 256, 8, 80)]
+# the head dims at batch 2, then the shapes of a train step: the VAE
+# decode's mid-block, the UNet's spatial attention at C = 320 and 640, and
+# CodeFormer's transformer at batch 4 and 1
+TRAIN_FLASH_SHAPES = [(16, 1024, 1, 512), (16, 1024, 8, 40), (16, 256, 8, 80),
+                      (4, 256, 8, 64), (1, 256, 8, 64)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,d", [(2, 256, 1, 512), (2, 1024, 8, 40), (2, 256, 8, 80)]
-                         + TRAIN_FLASH_SHAPES)
+@pytest.mark.parametrize("b,s,h,d", [(2, 256, 1, 512), (2, 1024, 8, 40), (2, 256, 8, 80),
+                                     (2, 384, 2, 64)] + TRAIN_FLASH_SHAPES)
 def test_flash_backward_kernel_matches_plain(rand, b, s, h, d):
     q, k, v, do = (rand(b, s, h, d, grad=False) for _ in range(4))
     before = attention.flash_attention_bwd.launches

@@ -15,8 +15,11 @@ refuse a call under grad (on the card: ``tests/test_torch_train_kernels.py``);
 and a torch mirror of ``csrc/flash_attention_bwd.cu``'s tiling (the
 residual forward's lse, delta from the bf16 output, 64-row blocks over
 streamed tiles of 64 rows, of 32 at D = 512 with s and dp summed from two
-column halves, bf16 probabilities and dS) agrees with the plain backward
-and with ``jax.vjp``. f32 throughout, tolerances stated at each check.
+column halves, at D = 64 each streamed tile stored and read back through
+the 128-byte swizzle, bf16 probabilities and dS) agrees with the plain
+backward and with ``jax.vjp``; with delta planted at 0, or at D = 64 with
+loads that ignore the swizzle, it must fail. f32 throughout, tolerances
+stated at each check.
 """
 
 import ast
@@ -38,6 +41,9 @@ from latentsync_tpu_torch.ops import attention as p_attn
 from latentsync_tpu_torch.ops import attn_block as p_ab
 from latentsync_tpu_torch.ops import ffn as p_ffn
 from latentsync_tpu_torch.ops import temporal_attention as p_ta
+
+from test_torch_ops import _one_torch_thread  # noqa: F401 (autouse)
+
 
 # f32 forward and gradients: the two packages sum in other orders (and the
 # Pallas GEGLU kernel's erf is within 1e-6 of erf), nothing else differs
@@ -154,10 +160,12 @@ def test_spatial_attention_vjp_matches_the_jax_custom_vjp():
               lambda q, k, v: p_ta.spatial_attention(q, k, v, 4), (2, 64, 32), 4)
 
 
-@pytest.mark.parametrize("shape", [(2, 256, 1, 16), (1, 384, 2, 8)])
+@pytest.mark.parametrize("shape", [(2, 256, 1, 16), (1, 384, 2, 8),
+                                   (2, 256, 2, 64), (1, 384, 1, 64)])
 def test_flash_route_vjp_matches_jax(shape):
     """S >= 256, a multiple of 128: the route of the VAE mid-block (and of
-    K4's composed gradient at S = 1024)."""
+    K4's composed gradient at S = 1024), and at D = 64 CodeFormer's
+    transformer under grad in its training."""
     assert p_attn.flash_route(torch.empty(shape), torch.empty(shape))
     _attn_vjp(j_dpa, p_attn.dot_product_attention, shape, 5)
 
@@ -303,7 +311,43 @@ def flash_fwd_residual(q, k, v, scale):
     return _bf16(acc / l[:, None]), m * c + torch.log2(l)
 
 
-def flash_bwd_tiled(q, k, v, do, scale, plant_zero_delta=False):
+def sw128_offset(r, c):
+    """Byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile
+    (``csrc/wgmma.cuh``)."""
+    return r * 128 + ((c ^ (r & 7)) << 4)
+
+
+def swizzled_stream_maps(rows=64, ignore_swizzle=False):
+    """Where the D = 64 row kernel's operands come from: each streamed tile
+    (rows x 64 bf16, one 128-byte atom a row) is stored by the loads at
+    ``sw128_offset(row, chunk)`` (``Tile<64>::SW``), and the matrix unit
+    reads it through the swizzle (bits 4-6 of a byte address XOR bits
+    7-9) as the K-major B of s and dp, k-step kk from ``Tile::k_step(kk)``
+    = 32 kk on (16 columns of D, row n at 128 n), and as the MN-major B of
+    the output products, k-step j from ``Tile::v_step(j)`` = 2048 j on (16
+    rows, column n at 2 n). Returns (K-major, MN-major) maps: the element of
+    the tile (row * 64 + col, flat) each operand position reads; both are
+    the identity where stores and reads agree. ``ignore_swizzle`` plants a
+    fault: the loads store at the linear 128 row + 16 chunk."""
+    smem = np.full(rows * 64, -1, np.int64)
+    ids = np.arange(rows * 64).reshape(rows, 64)
+    for r in range(rows):
+        for c in range(8):
+            dst = r * 128 + c * 16 if ignore_swizzle else sw128_offset(r, c)
+            smem[dst // 2:dst // 2 + 8] = ids[r, 8 * c:8 * c + 8]
+    assert (smem >= 0).all()
+
+    def read(addr):
+        return smem[(addr ^ (((addr >> 7) & 7) << 4)) // 2]
+
+    n, c = np.meshgrid(np.arange(rows), np.arange(16), indexing="ij")
+    kmaj = np.concatenate([read(32 * kk + n * 128 + c * 2) for kk in range(4)], axis=1)
+    kr, col = np.meshgrid(np.arange(16), np.arange(64), indexing="ij")
+    mnmaj = np.concatenate([read(2048 * j + kr * 128 + col * 2) for j in range(rows // 16)])
+    return torch.from_numpy(kmaj), torch.from_numpy(mnmaj)
+
+
+def flash_bwd_tiled(q, k, v, do, scale, plant_zero_delta=False, ignore_swizzle=False):
     """(dq, dk, dv) of one head as the two launches compute them from the
     residual forward's o and lse: delta = rowsum(o · do) (jax's di, from the
     bf16 output); P = 2^(s c - lse); dS = P (dp - delta) scale; f32 products
@@ -313,12 +357,23 @@ def flash_bwd_tiled(q, k, v, do, scale, plant_zero_delta=False):
     40 and 80; D zero-padded to the k-step, which adds exact zeros), of 32
     at D = 512, where s and dp are the sum of the two column halves' partial
     products (half 0 + half 1, the addition the cluster's blocks make).
-    Outputs rounded to bf16. ``plant_zero_delta`` plants a fault: delta = 0."""
+    At D = 64 every streamed tile reaches both of its products through the
+    swizzled stores and descriptor reads of ``swizzled_stream_maps``.
+    Outputs rounded to bf16. ``plant_zero_delta`` plants a fault: delta = 0;
+    ``ignore_swizzle`` another: the D = 64 loads store without the swizzle."""
     s_len, d = q.shape
     st = 32 if d == 512 else 64
     o, lse = flash_fwd_residual(q, k, v, scale)
     c = scale * LOG2E
     delta = (o * do).sum(dim=-1) * (0.0 if plant_zero_delta else 1.0)
+    maps = swizzled_stream_maps(st, ignore_swizzle) if d == 64 else None
+
+    def streamed(x):
+        """(K-major, MN-major) operand of a streamed tile x (st, D)."""
+        if maps is None:
+            return x, x
+        flat = x.reshape(-1)
+        return flat[maps[0]], flat[maps[1]]
 
     def partial_sum(a, b):
         if d != 512:
@@ -330,17 +385,19 @@ def flash_bwd_tiled(q, k, v, do, scale, plant_zero_delta=False):
         rows = slice(r0, r0 + 64)
         for t0 in range(0, s_len, st):
             keys = slice(t0, t0 + st)
-            p = torch.exp2(partial_sum(q[rows], k[keys]) * c - lse[rows, None])
-            ds = p * (partial_sum(do[rows], v[keys]) - delta[rows, None]) * scale
-            dq[rows] += _bf16(ds) @ k[keys]
+            (kk, kn), (vk, _) = streamed(k[keys]), streamed(v[keys])
+            p = torch.exp2(partial_sum(q[rows], kk) * c - lse[rows, None])
+            ds = p * (partial_sum(do[rows], vk) - delta[rows, None]) * scale
+            dq[rows] += _bf16(ds) @ kn
     for r0 in range(0, s_len, 64):
         keys = slice(r0, r0 + 64)
         for t0 in range(0, s_len, st):
             rows = slice(t0, t0 + st)
-            pt = torch.exp2(partial_sum(k[keys], q[rows]) * c - lse[None, rows])
-            dst = pt * (partial_sum(v[keys], do[rows]) - delta[None, rows]) * scale
-            dv[keys] += _bf16(pt) @ do[rows]
-            dk[keys] += _bf16(dst) @ q[rows]
+            (qk, qn), (dok, don) = streamed(q[rows]), streamed(do[rows])
+            pt = torch.exp2(partial_sum(k[keys], qk) * c - lse[None, rows])
+            dst = pt * (partial_sum(v[keys], dok) - delta[None, rows]) * scale
+            dv[keys] += _bf16(pt) @ don
+            dk[keys] += _bf16(dst) @ qn
     return _bf16(dq), _bf16(dk), _bf16(dv)
 
 
@@ -358,7 +415,8 @@ def _bwd_case(s, d):
     return q, k, v, do, d**-0.5
 
 
-FLASH_BWD_CASES = [(64, 40), (128, 80), (128, 40), (256, 40), (256, 80), (128, 512), (256, 512)]
+FLASH_BWD_CASES = [(64, 40), (128, 80), (128, 40), (256, 40), (256, 80), (128, 512), (256, 512),
+                   (128, 64), (256, 64)]
 
 
 @pytest.mark.parametrize("s,d", FLASH_BWD_CASES)
@@ -400,6 +458,29 @@ def test_flash_backward_checks_catch_a_missing_delta(s, d):
     for g, r in zip(bad[:2], ref[:2]):
         assert _bwd_within(g, r[0, :, 0]) == (False, False)
     assert _bwd_within(bad[2], ref[2][0, :, 0]) == (True, True)
+
+
+def test_swizzled_stream_maps_are_the_identity():
+    """At D = 64 the loads' swizzled stores and the descriptors' reads agree:
+    every K-major and MN-major operand position reads its own element; a
+    store without the swizzle does not."""
+    ident = torch.arange(64 * 64).reshape(64, 64)
+    for got in swizzled_stream_maps():
+        assert torch.equal(got, ident)
+    for got in swizzled_stream_maps(ignore_swizzle=True):
+        assert not torch.equal(got, ident)
+
+
+@pytest.mark.parametrize("s", [128, 256])
+def test_flash_backward_checks_catch_an_unswizzled_load(s):
+    """The D = 64 mirror whose loads store without the swizzle fails both of
+    the kernel's checks on every gradient."""
+    q, k, v, do, scale = _bwd_case(s, 64)
+    bad = flash_bwd_tiled(q, k, v, do, scale, ignore_swizzle=True)
+    ref = p_attn.flash_attention_bwd_reference(*(t[None, :, None] for t in (q, k, v, do)),
+                                               scale)
+    for g, r in zip(bad, ref):
+        assert _bwd_within(g, r[0, :, 0]) == (False, False)
 
 
 def test_flash_backward_pieces_hooks_fit_the_kernel():

@@ -40,6 +40,9 @@ from latentsync_tpu_torch.models.videomae import TREPALoss, VideoViT, VideoViTCo
 from latentsync_tpu_torch.training.unet_trainer import UNetTrainer, clip_grad_norm_all
 from latentsync_tpu_torch.utils import convert as pc
 
+from test_torch_ops import _one_torch_thread  # noqa: F401 (autouse)
+
+
 LR = 1e-2  # AdamW's decay (1e-4 against torch's default 1e-2) moves lr·wd·p
 VIT = dict(img_size=16, patch_size=8, embed_dim=32, depth=1, num_heads=2, num_frames=4,
            mlp_ratio=4.0)
