@@ -137,7 +137,7 @@ and without CUDA it exits nonzero before doing anything):
    step under ``torch.profiler``; (c)
    ``python -m latentsync_tpu_torch.scripts.train_unet`` on the stage-2
    config for 4 steps in its own process on clips written here (60 frames,
-   ``.wav`` sidecars), then one ``--resume`` step;
+   ``.wav`` sidecars), whose checkpoint phase 14 (c) resumes;
 12. face restoration: (a) the full-width CodeFormer (``CodeFormer()``
    defaults, seeded random non-zero weights, positions included) in bf16 at
    1 and 4 faces of 512², w = 0.5: finite, w = 0 and w = 1 apart, the
@@ -173,7 +173,29 @@ and without CUDA it exits nonzero before doing anything):
    RESTORE_LOSS_TOL and the transformer's gradients within
    RESTORE_GRAD_TOL in relative L2 (the free-running loss and gradients printed); (d) ``train_restoration`` with a copy of
    ``options/codeformer_stage2.yaml`` naming the faces, 2 steps in a
-   subprocess, and ``generate_latent_gt`` on 4 faces.
+   subprocess, and ``generate_latent_gt`` on 4 faces;
+14. the rest of training: (a) the gradients this slice adds against the
+   plain composition's autograd on the card (K5 at the training forward's
+   two fused shapes, K8 through ``dense_with_params`` at its 15 training
+   shapes, K9 at the probe's, and the int8 convolution and dense routes
+   straight through: the float product's gradient): one launch a call, the
+   forward under grad equal bit for bit to the one without, each gradient
+   within TOL_REL and BWD_REL_L2_TOL; (b) one full-width stage-2 loss and
+   backward in each training configuration (``LATENTSYNC_FUSED_XATTN=1``,
+   int8, int8-dense) against the same step with every wrapper forced to its
+   plain version (K5 and K8 included): loss and per-group gradient
+   distances, 100 % finite non-zero trainable gradients, the kernels of
+   each path launched (K5 10 times, K8 360 at the shapes (a) checked) and no
+   other, peak memory, the median of 3 warm steps; (c) ``train_unet`` under
+   ``LATENTSYNC_INT8=1`` launched by ``python -m torch.distributed.run
+   --nproc_per_node 1`` (NCCL, world size 1), resuming phase 11 (c)'s
+   step-4 checkpoint for 2 steps, its loss chart written; (d) the SyncNet trainer
+   at full width (``configs/syncnet_16_pixel_attn.yaml``, batch 32, bf16)
+   on seeded synthetic clips: warm steps, peak memory, ``sat_frac``, one
+   step at batch 2 on the card in f32 and in bf16 against f32 on the CPU,
+   ``train_syncnet`` for 4 steps with validation every 2 (chart,
+   checkpoints with both loss histories) and a ``--resume`` step, and
+   ``eval_syncnet_acc``.
 
 The line before the last is a JSON object with each kernel's launches on
 its path (``"path"``: the served configuration, ``probe``, ``train`` for
@@ -186,8 +208,11 @@ against the plain version, its time, the plain version's, the library
 call's (or null) and its bound with the resource that sets it. A name
 appears once, but for the flash route's forward
 (``dot_product_attention``), which has an entry for the served
-configurations and one for ``codeformer``. The last line is the device
-record.
+configurations and one for ``codeformer``. K5's and K8's entries carry
+``train_launches``, their launches in phase 14 (b)'s fused and int8-dense
+steps, K9's ``train_launches`` 0 (no trainer calls it) beside its
+launches under grad in phase 14 (a), and K1's its launches in a SyncNet
+step. The last line is the device record.
 """
 
 from __future__ import annotations
@@ -226,6 +251,13 @@ CONFIGS = {
     "int8": {"LATENTSYNC_INT8": "1"},
     "int8-dense": {"LATENTSYNC_INT8": "1", "LATENTSYNC_INT8_DENSE": "pallas"},
 }
+# the configurations that train besides the default (``LATENTSYNC_PALLAS_GN``
+# cannot: K6 and K7 have no gradient in either package)
+TRAIN_CONFIGS = {"fused": {"LATENTSYNC_FUSED_XATTN": "1"}, "int8": CONFIGS["int8"],
+                 "int8-dense": CONFIGS["int8-dense"]}
+# every configuration by the name `configured` takes: a training one as
+# ``train <name>``
+_SWITCHES_OF = {**CONFIGS, **{f"train {k}": v for k, v in TRAIN_CONFIGS.items()}}
 # the reference's production serving point and --fast mode (bench.py:32-53,
 # scripts/inference.py:139-150): int8 with DeepCache 4:1:enc and CFG on the
 # first half of the trajectory
@@ -274,9 +306,15 @@ GN_STREAMING = [((4, c, 16, 32, 32), 1e-5, True) for c in (960, 640, 320)] \
     + [((4, 2560, 16, 4, 4), 1e-5, True)]
 
 
+_T0 = time.time()
+
+
 def log(msg: str) -> None:
-    """A line of the report; a failed check's line also goes to standard
-    error, so that the reason stands beside the exit code."""
+    """A line of the report (a phase's verdict with the seconds since the
+    start); a failed check's line also goes to standard error, so that the
+    reason stands beside the exit code."""
+    if msg.startswith("phase "):
+        msg = f"{msg} [{time.time() - _T0:.0f} s since the start]"
     print(msg, flush=True)
     if "FAIL" in msg:
         print(msg, file=sys.stderr, flush=True)
@@ -303,11 +341,11 @@ def exp_rate() -> float:
 
 @contextlib.contextmanager
 def configured(conf: str, cuts: bool = False):
-    """The switches of configuration `conf` (with `cuts`, and the FLOP cuts
-    of the production point), and no other, for the duration (the port
-    reads them at each call)."""
+    """The switches of configuration `conf` (a name of _SWITCHES_OF; with
+    `cuts`, and the FLOP cuts of the production point), and no other, for
+    the duration (the port reads them at each call)."""
     old = {k: os.environ.pop(k, None) for k in SWITCHES}
-    os.environ.update(CONFIGS[conf])
+    os.environ.update(_SWITCHES_OF[conf])
     if cuts:
         os.environ.update(FLOP_CUTS)
     try:
@@ -2383,9 +2421,10 @@ def check_function_grads(device) -> bool:
 @contextlib.contextmanager
 def plain_kernels():
     """Every kernel wrapper with a gradient runs its plain version on the card
-    for the duration (the forwards of K1-K4 and the flash route, the flash
-    route's backward); the Functions and their composed backwards stay."""
-    from latentsync_tpu_torch.ops import attention, attn_block, ffn
+    for the duration (the forwards of K1-K5, K8 and the flash route, the
+    flash route's backward); the Functions and their composed or
+    straight-through backwards stay."""
+    from latentsync_tpu_torch.ops import attention, attn_block, ffn, qconv, qmm
     from latentsync_tpu_torch.ops import temporal_attention as ta
 
     def k1(x, w_up, b_up, w_down, b_down, ln_scale, ln_bias, residual, eps):
@@ -2406,7 +2445,10 @@ def plain_kernels():
                (ta, "_spatial_kernel", lambda q, k, v, heads, scale, block_q:
                 ta.spatial_attention_reference(q, k, v, heads, scale)),
                (attention, "_flash_forward", flash_forward),
-               (attention, "flash_attention_bwd", flash_backward)]
+               (attention, "flash_attention_bwd", flash_backward),
+               (attn_block, "cross_attention_block_fused",
+                attn_block.cross_attention_block_reference),
+               (qconv, "quantized_matmul", qmm.quantized_matmul_reference)]
     old = [(m, n, getattr(m, n)) for m, n, _ in patches]
     for m, n, fn in patches:
         setattr(m, n, fn)
@@ -2441,17 +2483,11 @@ def _group(name: str) -> str:
     return "cross attentions (attn2)" if ".attn2." in name else "spatial attentions"
 
 
-def check_train_step(unet, vae, device, counters):
-    """Phase 11 (b): one full-width stage-2 loss and backward (weights of
-    phase 3, nothing zeroed; the loss nets seeded; one batch, t and noise)
-    with the kernels, against the same step with every wrapper forced to
-    its plain version on the card: loss, per-group gradient rel L2, the
-    share of trainable tensors with a finite non-zero gradient (must be
-    100 %), the kernels' launches in the kernel run (counts set to 0 just
-    before it), peak memory, the step's time and its split, and one step
-    under ``torch.profiler``. Returns (launches, ok)."""
+def stage2_trainer(unet, vae, device):
+    """The stage-2 trainer of phases 11 and 14: an f32 master copy of `unet`
+    (phase 3's weights, nothing zeroed), the served VAE, and seeded SyncNet,
+    LPIPS and the small TREPA ViT in bf16."""
     import copy
-    import dataclasses
 
     import torch
 
@@ -2459,7 +2495,6 @@ def check_train_step(unet, vae, device, counters):
     from latentsync_tpu_torch.models.perceptual import LPIPS
     from latentsync_tpu_torch.models.syncnet import StableSyncNet
     from latentsync_tpu_torch.models.videomae import TREPALoss, VideoViT, VideoViTConfig
-    from latentsync_tpu_torch.ops import _build
     from latentsync_tpu_torch.training.unet_trainer import UNetTrainer
     from latentsync_tpu_torch.utils.convert import init_random_
 
@@ -2471,7 +2506,30 @@ def check_train_step(unet, vae, device, counters):
     vit = init_random_(VideoViT(VideoViTConfig(img_size=64, patch_size=16, embed_dim=64,
                                                depth=2, num_heads=4, mlp_ratio=4.0)),
                        seed=SEED + 6).to(device, bf)
-    trainer = UNetTrainer(cfg, master, vae, syncnet, lpips, TREPALoss(vit), dtype=bf)
+    return UNetTrainer(cfg, master, vae, syncnet, lpips, TREPALoss(vit), dtype=bf)
+
+
+def check_train_step(unet, vae, device, counters):
+    """Phase 11 (b): one full-width stage-2 loss and backward (weights of
+    phase 3, nothing zeroed; the loss nets seeded; one batch, t and noise)
+    with the kernels, against the same step with every wrapper forced to
+    its plain version on the card: loss, per-group gradient rel L2, the
+    share of trainable tensors with a finite non-zero gradient (must be
+    100 %), the kernels' launches in the kernel run (counts set to 0 just
+    before it), peak memory, the step's time and its split, and one step
+    under ``torch.profiler``. Returns (launches, ok)."""
+    import dataclasses
+
+    import torch
+
+    from latentsync_tpu_torch.config import LatentSyncConfig
+    from latentsync_tpu_torch.ops import _build
+    from latentsync_tpu_torch.training.unet_trainer import UNetTrainer
+
+    bf = torch.bfloat16
+    cfg = LatentSyncConfig()
+    trainer = stage2_trainer(unet, vae, device)
+    master, syncnet, lpips, vit = trainer.unet, trainer.syncnet, trainer.lpips, trainer.trepa.model
     batch = _train_batch(cfg)
     t, noise = trainer.draw(batch, 0)
     trainable = [n for n, m in trainer.mask.items() if m]
@@ -2620,8 +2678,8 @@ def _write_training_clips(root: str, n: int = 2, frames: int = 60, size: int = 2
 def run_train_cli(root: str) -> bool:
     """Phase 11 (c): ``python -m latentsync_tpu_torch.scripts.train_unet`` on
     ``configs/unet_stage2.yaml`` (its ``data.train_fileslist`` pointed at the
-    clips written here) for 4 steps in its own process, then one ``--resume``
-    step: every step's JSON line, steps/s, peak device memory."""
+    clips written here) for 4 steps in its own process: every step's JSON
+    line, steps/s, peak device memory. Phase 14 (c) resumes its checkpoint."""
     import yaml
 
     with open("configs/unet_stage2.yaml") as f:
@@ -2633,27 +2691,22 @@ def run_train_cli(root: str) -> bool:
     out = os.path.join(root, "train_out")
     cmd = [sys.executable, "-m", "latentsync_tpu_torch.scripts.train_unet", "--config", config,
            "--output-dir", out, "--log-every", "1"]
-    ok = True
-    for extra, want in ((["--max-steps", "4"], [1, 2, 3, 4]),
-                        (["--max-steps", "5", "--resume"], [5])):
-        t0 = time.time()
-        proc = subprocess.run(cmd + extra, capture_output=True, text=True, timeout=900)
-        wall = time.time() - t0
-        lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
-        steps = [x for x in lines if "loss" in x]
-        good = proc.returncode == 0 and [x["step"] for x in steps] == want \
-            and all(math.isfinite(x["loss"]) for x in steps)
-        if "--resume" in extra:
-            good &= bool(lines) and lines[0].get("step") == 4 and "resumed_from" in lines[0]
-        ok &= good
-        for x in lines:
-            log(f"  train_unet: {json.dumps(x)}")
-        log(f"[{gpu_line()}] train_unet {' '.join(extra)}: exit {proc.returncode}, {wall:.1f} s "
-            f"in its own process, steps/s "
-            f"{[round(x['steps_per_sec'], 4) for x in steps]}, peak device memory "
-            f"{max([x.get('peak_memory_gib', 0) for x in steps] or [0]):.2f} GiB "
-            f"{'ok' if good else 'FAIL: ' + proc.stderr[-3000:]}")
-    return ok
+    t0 = time.time()
+    proc = subprocess.run(cmd + ["--max-steps", "4"], capture_output=True, text=True,
+                          timeout=900)
+    wall = time.time() - t0
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    steps = [x for x in lines if "loss" in x]
+    good = proc.returncode == 0 and [x["step"] for x in steps] == [1, 2, 3, 4] \
+        and all(math.isfinite(x["loss"]) for x in steps)
+    for x in lines:
+        log(f"  train_unet: {json.dumps(x)}")
+    log(f"[{gpu_line()}] train_unet --max-steps 4: exit {proc.returncode}, {wall:.1f} s "
+        f"in its own process, steps/s "
+        f"{[round(x['steps_per_sec'], 4) for x in steps]}, peak device memory "
+        f"{max([x.get('peak_memory_gib', 0) for x in steps] or [0]):.2f} GiB "
+        f"{'ok' if good else 'FAIL: ' + proc.stderr[-3000:]}")
+    return good
 
 
 # ---------------------------------------------------------------------------
@@ -3168,6 +3221,443 @@ def run_restoration_train_clis(root: str, faces: str) -> bool:
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the rest of training on the card
+# ---------------------------------------------------------------------------
+
+# (M, K, N) of every K8 launch of one int8-dense training forward (batch 1,
+# 16 frames, no CFG): QMM_SHAPES' rows over four
+TRAIN_QMM_SHAPES = [(m // 4, k, n) for m, k, n in QMM_SHAPES]
+# (a)'s cases: K5 at the training forward's shapes (B, S, C; Sk = 50), K8 at
+# its training shapes (M, K, N), K9 at the probe's (M, C), the int8
+# convolution (frames, Cin, H = W, Cout: a UNet shape per width at 16 frames
+# and the VAE decoder's widest) and the int8 dense route (M, K, N)
+TRAIN_GRAD_CASES = [("cross_attention_block", (16, 1024, 320)),
+                    ("cross_attention_block", (16, 256, 640))] \
+    + [("quantized_matmul", dims) for dims in TRAIN_QMM_SHAPES] \
+    + [("qkv_proj", dims) for dims in ((131072, 320), (32768, 640), (8192, 1280))] \
+    + [("quantized_conv2d", dims) for dims in ((16, 320, 32, 320), (16, 640, 16, 640),
+                                               (16, 1280, 8, 1280), (16, 128, 256, 128))] \
+    + [("dense_with_params (int8)", dims) for dims in ((16384, 320, 320), (1024, 1280, 10240))]
+# the kernels (and the int8 convolution route) each training configuration
+# must launch in a step; every other counted one must not
+_TRAIN_CORES = {"temporal_attention", "spatial_attention", "dot_product_attention",
+                "flash_attention_bwd"}
+TRAIN_ON_PATH = {
+    "fused": _TRAIN_CORES | {"geglu_ffn", "self_attention_block", "cross_attention_block"},
+    "int8": _TRAIN_CORES | {"geglu_ffn", "self_attention_block", "conv_acc"},
+    "int8-dense": _TRAIN_CORES | {"quantized_matmul", "conv_acc"},
+}
+# (b): the step with the kernels against the same step with every wrapper's
+# plain version, in each training configuration: the total loss's relative
+# difference, and each trainable group's gradient in relative L2. Set from
+# the readings of this seed on an H100 with room on both sides (loss
+# 2.28e-4 fused, 7.65e-4 int8, 2.21e-4 int8-dense; the worst group
+# 0.0075, 0.0179, 0.0188; three runs agreed to three digits)
+TRAIN_LOSS_TOL = 5e-3
+TRAIN_GRAD_TOL = 0.05
+# (d): one SyncNet step at batch 2 from the same weights, on the CPU in f32
+# against the card in f32 (TF32 off, every wrapper's plain version: only
+# summation orders differ) and in bf16 with the kernels: the loss's
+# relative difference and the relative L2 of all gradients together; and
+# the kernels' bf16 gradients against the plain versions' bf16 ones. The
+# bf16 bounds are set from the readings of this seed on an H100 with room
+# on both sides. bf16 itself is the distance from f32: the plain versions
+# in bf16 read 1.7e-3 and 0.1675 (the same bits twice), the kernels 1.15e-3
+# and 0.1626, and the kernels against the plain bf16 run 0.0567 (K1's two
+# launches keep f32 where the plain version rounds to bf16)
+SYNCNET_F32_TOL = 1e-3
+SYNCNET_LOSS_TOL = 3e-3
+SYNCNET_GRAD_TOL = 0.2
+SYNCNET_KERNEL_TOL = 0.08
+
+
+def check_train_grads(device):
+    """Phase 14 (a): the gradients this slice adds, on the card against the
+    plain composition's autograd on the same bf16 inputs: K5 at the training
+    forward's shapes (16 frames, no CFG: C = 320 at 32², C = 640 at 16²;
+    Sk = 50), K8 through ``dense_with_params`` at its 15 training shapes, K9
+    at the probe's, and the int8 convolution (a UNet shape per width and the
+    VAE decoder's widest) and int8 dense routes, straight through (their
+    plain composition is the float product). Each: one launch a call under
+    grad (K5, K8, K9; the convolution at least one), the forward under grad
+    equal bit for bit to the one without, each gradient finite, within
+    TOL_REL · max(1, max|plain|) and within BWD_REL_L2_TOL in relative L2.
+    Returns ({name: launches under grad}, ok)."""
+    import torch
+
+    from latentsync_tpu_torch.ops import attn_block, ffn, qconv, qmm
+
+    gen = torch.Generator().manual_seed(SEED + 15)
+
+    def r(*shape, s=1.0, add=0.0):
+        return (torch.randn(shape, generator=gen) * s + add).to(device, torch.bfloat16) \
+            .requires_grad_(True)
+
+    def cross(b, s, c):
+        return ([r(b, s, c), r(c, s=0.1, add=1.0), r(c, s=0.1), r(b, 50, 384),
+                 r(c, c, s=c**-0.5), r(c, 384, s=384**-0.5), r(c, 384, s=384**-0.5),
+                 r(c, c, s=c**-0.5), r(c, s=0.1)],
+                lambda *a: attn_block.cross_attention_block(*a, 8),
+                lambda *a: attn_block.cross_attention_block_reference(*a, 8),
+                attn_block.cross_attention_block)
+
+    def k8(m, k, n):
+        return ([r(m, k), r(n, k, s=k**-0.5), r(n, s=0.1)],
+                lambda *a: qconv.dense_with_params(*a, torch.bfloat16), qconv.float_dense,
+                qmm.quantized_matmul)
+
+    def qkv(m, c):
+        return ([r(m, c)] + [r(c, c, s=c**-0.5) for _ in range(3)], ffn.qkv_proj,
+                ffn.qkv_proj_reference, ffn.qkv_proj)
+
+    def conv(n, cin, hw, cout):
+        return ([r(n, cin, hw, hw), r(cout, cin, 3, 3, s=(9 * cin) ** -0.5), r(cout, s=0.1)],
+                lambda *a: qconv.quantized_conv2d(*a, (1, 1), (1, 1)),
+                lambda *a: qconv.float_conv(*a, (1, 1), (1, 1)), qconv.conv_acc)
+
+    def dense(m, k, n):
+        return ([r(m, k), r(n, k, s=k**-0.5), r(n, s=0.1)], qconv._qdense_xla,
+                qconv.float_dense, None)
+
+    makers = {"cross_attention_block": cross, "quantized_matmul": k8, "qkv_proj": qkv,
+              "quantized_conv2d": conv, "dense_with_params (int8)": dense}
+    launches, ok = collections.Counter(), True
+    for name, dims in TRAIN_GRAD_CASES:
+        # K5 launches under the fused switch, K8 under the int8-dense ones
+        conf = "train fused" if name == "cross_attention_block" else "train int8-dense"
+        with configured(conf):
+            label = "x".join(map(str, dims))
+            args, fn, plain, counter = makers[name](*dims)
+            before = counter.launches if counter is not None else 0
+            out = fn(*args)
+            n_launch = (counter.launches - before) if counter is not None else None
+            with torch.no_grad():
+                again = fn(*args)
+            outs = out if isinstance(out, tuple) else (out,)
+            same = all(torch.equal(o.detach(), a) for o, a in
+                       zip(outs, again if isinstance(again, tuple) else (again,)))
+            cots = [torch.randn(o.shape, generator=gen).to(o) for o in outs]
+            got = torch.autograd.grad(outs, args, cots)
+            ref = plain(*args)
+            ref = torch.autograd.grad(ref if isinstance(ref, tuple) else (ref,), args, cots)
+            torch.cuda.synchronize()
+            err, tol, close = _per_output(got, ref)
+            rel = max(_rel_l2(g, p) for g, p in zip(got, ref))
+            once = n_launch is None or (n_launch >= 1 if name == "quantized_conv2d"
+                                        else n_launch == 1)
+            good = same and close and rel <= BWD_REL_L2_TOL and once and all(
+                o.grad_fn is not None for o in outs)
+            ok &= good
+            if n_launch:
+                launches[name] += n_launch
+            log(f"grad {name:24s} {label:26s} forward under grad same bits={same}, launches "
+                f"{n_launch}; {len(args)} gradients, worst max_abs_err={err:.6g} tol={tol:.6g}"
+                f" rel_l2={rel:.4g} (tol {BWD_REL_L2_TOL}) {'ok' if good else 'FAIL'}")
+            del args, out, again, got, ref, cots
+    torch.cuda.empty_cache()
+    return dict(launches), ok
+
+
+def check_train_configs(unet, vae, device, counters):
+    """Phase 14 (b): one full-width stage-2 loss and backward in each of the
+    fused (K5), int8 and int8-dense (K8) configurations, phase 11's trainer,
+    batch, t and noise, against the same step with every wrapper forced to
+    its plain version (``plain_kernels``): loss within TRAIN_LOSS_TOL, each
+    group's gradient within TRAIN_GRAD_TOL in relative L2, 100 % of trainable
+    tensors with a finite non-zero gradient, each kernel of the
+    configuration's path launched (counts set to 0 just before) and no
+    other, the K8 launch shapes those (a) checked, peak memory and the
+    median of 3 warm steps. Returns ({conf: launches}, ok)."""
+    import torch
+
+    from latentsync_tpu_torch.config import LatentSyncConfig
+    from latentsync_tpu_torch.ops import _build
+
+    cfg = LatentSyncConfig()
+    trainer = stage2_trainer(unet, vae, device)
+    batch = _train_batch(cfg)
+    t, noise = trainer.draw(batch, 0)
+    trainable = [n for n, m in trainer.mask.items() if m]
+
+    def step():
+        losses, grads = trainer.gradients(batch, t, noise)
+        torch.cuda.synchronize()
+        return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+    shapes = collections.Counter()
+
+    def observe(entry, args):
+        if entry == "ls_quantized_matmul":
+            shapes[tuple(args[4:7])] += 1
+
+    all_launches, ok = {}, True
+    for conf in TRAIN_CONFIGS:
+        with configured(f"train {conf}"):
+            for c in counters:
+                c.launches = 0
+            shapes.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.observer = observe
+            try:
+                losses_k, grads = step()
+            finally:
+                _build.observer = None
+            launches = {c.__name__: c.launches for c in counters}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            good_grads = [bool(torch.isfinite(grads[n]).all())
+                          and bool(grads[n].abs().max() > 0) for n in trainable]
+            kept = {n: grads[n].clone() for n in trainable}
+            del grads
+            warm = []
+            for _ in range(3):
+                t0 = time.time()
+                step()
+                warm.append(time.time() - t0)
+            with plain_kernels():
+                losses_p, grads_p = step()
+        share = sum(good_grads) / len(good_grads)
+        on_path = TRAIN_ON_PATH[conf]
+        ran = all(launches[n] > 0 for n in on_path)
+        others = {n: v for n, v in launches.items() if n not in on_path and v}
+        loss_rel = abs(losses_k["total"] - losses_p["total"]) / abs(losses_p["total"])
+        groups = collections.defaultdict(lambda: [0.0, 0.0])
+        for n in trainable:
+            g = groups[_group(n)]
+            g[0] += float((kept[n].float() - grads_p[n].float()).pow(2).sum())
+            g[1] += float(grads_p[n].float().pow(2).sum())
+        rels = {k: math.sqrt(d / max(r_, 1e-30)) for k, (d, r_) in groups.items()}
+        del kept, grads_p
+        qmm_ok = conf != "int8-dense" or set(shapes) == set(TRAIN_QMM_SHAPES)
+        good = share == 1.0 and ran and not others and qmm_ok \
+            and loss_rel <= TRAIN_LOSS_TOL and all(v <= TRAIN_GRAD_TOL for v in rels.values())
+        ok &= good
+        all_launches[conf] = launches
+        log(f"[{gpu_line()}] train step, {conf} ({' '.join(f'{k}={v}' for k, v in TRAIN_CONFIGS[conf].items())}; full "
+            f"width, batch 1, 16 frames, 256²): losses (kernels) "
+            + ", ".join(f"{k}={v:.6g}" for k, v in losses_k.items())
+            + f"; plain total={losses_p['total']:.6g}, loss rel. error {loss_rel:.3g} (tol "
+            f"{TRAIN_LOSS_TOL}); gradient rel L2 vs plain "
+            + ", ".join(f"{k} {v:.4g}" for k, v in sorted(rels.items()))
+            + f" (tol {TRAIN_GRAD_TOL}); trainable tensors with a finite non-zero gradient "
+            f"{sum(good_grads)}/{len(good_grads)} = {100 * share:.1f} %; launches "
+            f"{json.dumps({n: launches[n] for n in sorted(on_path)})}, other kernels {others}"
+            + (f"; K8 shapes {sorted(shapes.items())} (as (a): {qmm_ok})"
+               if conf == "int8-dense" else "")
+            + f"; peak device memory {peak:.2f} GiB; warm steps (s) "
+            f"{', '.join(f'{w:.3f}' for w in warm)}, median {sorted(warm)[1]:.3f} "
+            f"{'ok' if good else 'FAIL'}")
+    for p in trainer.params.values():
+        p.grad = None
+    del trainer
+    torch.cuda.empty_cache()
+    return all_launches, ok
+
+
+def _json_records(text: str):
+    return [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+
+
+def run_train_cli_ddp(root: str) -> bool:
+    """Phase 14 (c): ``train_unet`` under ``LATENTSYNC_INT8=1`` launched by
+    ``python -m torch.distributed.run --nproc_per_node 1`` (NCCL, world size
+    1) with ``--resume`` from the checkpoint phase 11 (c) left in `root`
+    (step 4, saved by the CLI without a launcher): the resume announced at
+    step 4, 2 int8 steps, its loss chart written, step 6 saved. It is the
+    resume of phase 11 (c)'s run: each process pays a checkpoint's 10 GB of
+    I/O, and the script keeps inside its time limit."""
+    out = os.path.join(root, "train_out")
+    for old in sorted(f for f in os.listdir(out) if f.startswith("step_"))[:-1]:
+        os.remove(os.path.join(out, old))  # keep the latest checkpoint alone on disk
+    chart = os.path.join(out, "loss_chart.png")
+    if os.path.exists(chart):
+        os.remove(chart)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", "-m", "latentsync_tpu_torch.scripts.train_unet", "--config",
+           os.path.join(root, "unet_stage2.yaml"), "--output-dir", out, "--log-every", "1",
+           "--max-steps", "6", "--resume"]
+    env = {k: v for k, v in os.environ.items() if k not in SWITCHES}
+    env["LATENTSYNC_INT8"] = "1"
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env)
+    wall = time.time() - t0
+    lines = _json_records(proc.stdout)
+    steps = [x for x in lines if "loss" in x]
+    dp = [x["data_parallel"] for x in lines if "data_parallel" in x]
+    good = proc.returncode == 0 and [x["step"] for x in steps] == [5, 6] \
+        and all(math.isfinite(x["loss"]) for x in steps) \
+        and dp == [{"backend": "nccl", "world": 1, "dp": 1}] \
+        and any(x.get("step") == 4 and "resumed_from" in x for x in lines) \
+        and any(x.get("step") == 6 and "saved" in x for x in lines) and os.path.isfile(chart)
+    for x in lines:
+        log(f"  train_unet (torch.distributed.run, int8): {json.dumps(x)}")
+    log(f"[{gpu_line()}] python -m torch.distributed.run --nproc_per_node 1 train_unet "
+        f"--resume --max-steps 6 (LATENTSYNC_INT8=1): exit {proc.returncode}, {wall:.1f} s, "
+        f"loss chart {os.path.isfile(chart)} {'ok' if good else 'FAIL: ' + proc.stderr[-3000:]}")
+    return good
+
+
+def check_syncnet_training(root: str, device, counters):
+    """Phase 14 (d): the SyncNet trainer at full width
+    (``configs/syncnet_16_pixel_attn.yaml``: 16 frames, 256², batch 32, bf16)
+    on seeded synthetic clips: one batch drawn by ``SyncNetSampleSource``,
+    its steps' loss and ``sat_frac`` finite, the median of 3 warm steps
+    (host clock, ending in the step's metrics), peak memory and the port's
+    kernels launched in a step; one step at batch 2 from the same weights
+    on the CPU in f32 against the card in f32 with the plain versions
+    (SYNCNET_F32_TOL), in bf16 with the plain versions (twice, printed) and
+    in bf16 with the kernels (SYNCNET_LOSS_TOL, SYNCNET_GRAD_TOL; and against
+    the plain bf16 run, SYNCNET_KERNEL_TOL); then ``train_syncnet`` for 4
+    steps with validation
+    every 2 (chart and checkpoint with both histories) and one ``--resume``
+    step, and ``eval_syncnet_acc`` on the same clips, in subprocesses.
+    Returns (launches in a step, ok)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from latentsync_tpu_torch.config import load_config
+    from latentsync_tpu_torch.training.data import SyncNetSampleSource
+    from latentsync_tpu_torch.training.syncnet_trainer import SyncNetTrainer
+    from latentsync_tpu_torch.utils.checkpoint import latest_checkpoint, restore_checkpoint
+
+    files = _write_training_clips(root)
+    path = "configs/syncnet_16_pixel_attn.yaml"
+    cfg = load_config(path)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, train_fileslist=files))
+    source = SyncNetSampleSource(cfg, seed=SEED)
+    t0 = time.time()
+    samples = [source.sample() for _ in range(cfg.data.batch_size)]
+    batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+    sample_s = time.time() - t0
+    trainer = SyncNetTrainer(cfg, device=device)
+    n_params = sum(p.numel() for p in trainer.params.values())
+    initial = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+
+    # the card in bf16 and in f32 against the CPU in f32 at batch 2, from the
+    # same weights
+    small = {k: v[:2] for k, v in batch.items()}
+    cpu = SyncNetTrainer(cfg, dtype=torch.float32, device="cpu",
+                         model=copy.deepcopy(trainer.model).cpu())
+    cpu.model.load_state_dict(initial)
+    t0 = time.time()
+    loss_f, _, grads_f = cpu.gradients(small)
+    cpu_s = time.time() - t0
+    loss_f = float(loss_f.detach())
+
+    def against_cpu(tr):
+        loss, _, grads = tr.gradients(small)
+        return abs(float(loss.detach()) - loss_f) / abs(loss_f), rel_l2(grads, grads_f), grads
+
+    def rel_l2(grads, ref):
+        num = sum(float((grads[k].float().cpu() - ref[k].float().cpu()).pow(2).sum())
+                  for k in ref)
+        den = sum(float(ref[k].float().cpu().pow(2).sum()) for k in ref)
+        return math.sqrt(num / max(den, 1e-30))
+
+    card32 = SyncNetTrainer(cfg, dtype=torch.float32, device=device,
+                            model=copy.deepcopy(trainer.model))
+    with no_tf32(), plain_kernels():  # K1 is bf16 only: f32 takes its plain version
+        loss_diff32, grad_rel32, _ = against_cpu(card32)
+    del card32
+    # bf16 with every wrapper's plain version, twice, separates bf16 rounding
+    # from the kernels: the kernels' run is held against it as well
+    with plain_kernels():
+        loss_diff_p, grad_rel_p, grads_p = against_cpu(trainer)
+        again = rel_l2(against_cpu(trainer)[2], grads_p)
+    loss_diff, grad_rel, grads_k = against_cpu(trainer)
+    kernel_rel = rel_l2(grads_k, grads_p)
+    del cpu, grads_f, grads_p, grads_k
+    vs_cpu = loss_diff32 <= SYNCNET_F32_TOL and grad_rel32 <= SYNCNET_F32_TOL \
+        and loss_diff <= SYNCNET_LOSS_TOL and grad_rel <= SYNCNET_GRAD_TOL \
+        and kernel_rel <= SYNCNET_KERNEL_TOL
+
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = [trainer.train_step(batch)]
+    launches = {c.__name__: c.launches for c in counters if c.launches}
+    warm = []
+    for _ in range(3):
+        t0 = time.time()
+        metrics.append(trainer.train_step(batch))
+        warm.append(time.time() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in metrics)
+    good = finite and vs_cpu
+    log(f"[{gpu_line()}] SyncNet trainer (full width, {n_params / 1e6:.1f}M params, batch "
+        f"{cfg.data.batch_size}, bf16; the batch drawn in {sample_s:.2f} s): losses "
+        f"{[round(m['loss'], 6) for m in metrics]}, sat_frac "
+        f"{[m['sat_frac'] for m in metrics]}, grad_norm {metrics[0]['grad_norm']:.4g}; warm "
+        f"steps (s) {', '.join(f'{w:.4f}' for w in warm)}, median {sorted(warm)[1]:.4f}; peak "
+        f"device memory {peak:.2f} GiB; the port's kernels in a step {launches}; batch 2 "
+        f"against the CPU in f32 (loss {loss_f:.6g}, {cpu_s:.1f} s): card f32 (TF32 off) loss "
+        f"rel. difference {loss_diff32:.3g}, gradients rel L2 {grad_rel32:.4g} (tol "
+        f"{SYNCNET_F32_TOL} each); card bf16 with the plain versions: loss rel. difference "
+        f"{loss_diff_p:.3g}, gradients rel L2 {grad_rel_p:.4g} (a second such run against the "
+        f"first: {again:.4g}); card bf16 with the kernels: loss rel. difference "
+        f"{loss_diff:.3g} (tol {SYNCNET_LOSS_TOL}), gradients rel L2 {grad_rel:.4g} (tol "
+        f"{SYNCNET_GRAD_TOL}), against the plain bf16 run {kernel_rel:.4g} (tol "
+        f"{SYNCNET_KERNEL_TOL}) {'ok' if good else 'FAIL'}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    with open(path) as f:
+        tree = yaml.safe_load(f)
+    tree["data"]["train_fileslist"] = files
+    config = os.path.join(root, "syncnet.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(tree, f)
+    out = os.path.join(root, "syncnet_out")
+    cmd = [sys.executable, "-m", "latentsync_tpu_torch.scripts.train_syncnet", "--config",
+           config, "--output-dir", out, "--log-every", "1", "--validation-steps", "2"]
+    for extra, want in ((["--max-steps", "4"], [1, 2, 3, 4]),
+                        (["--max-steps", "5", "--resume"], [5])):
+        t0 = time.time()
+        proc = subprocess.run(cmd + extra, capture_output=True, text=True, timeout=600)
+        wall = time.time() - t0
+        lines = _json_records(proc.stdout)
+        steps = [x for x in lines if "loss" in x]
+        vals = [x["val_step"] for x in lines if "val_step" in x]
+        ran = proc.returncode == 0 and [x["step"] for x in steps] == want \
+            and all(math.isfinite(x["loss"]) for x in steps)
+        aux = {}
+        if ran:
+            aux = restore_checkpoint(latest_checkpoint(out)).get("aux", {})
+        if "--resume" in extra:
+            ran &= any(x.get("step") == 4 and "resumed_from" in x for x in lines)
+            ran &= [s for s, _ in aux.get("train_hist", [])] == [1, 2, 3, 4, 5]
+        else:
+            ran &= vals == [2, 4] and os.path.isfile(os.path.join(out, "loss_chart.png"))
+            ran &= [s for s, _ in aux.get("train_hist", [])] == [1, 2, 3, 4] \
+                and [s for s, _ in aux.get("val_hist", [])] == [2, 4]
+        good &= ran
+        log(f"[{gpu_line()}] train_syncnet {' '.join(extra)}: exit {proc.returncode}, "
+            f"{wall:.1f} s, steps {[(x['step'], round(x['loss'], 5), x['sat_frac']) for x in steps]}"
+            f", validation at {vals}, histories in the checkpoint "
+            f"{ {k: len(v) for k, v in aux.items() if k != 'step'} } "
+            f"{'ok' if ran else 'FAIL: ' + proc.stderr[-3000:]}")
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "latentsync_tpu_torch.scripts.eval_syncnet_acc",
+                           "--config", config, "--num-samples", "32", "--batch-size", "32"],
+                          capture_output=True, text=True, timeout=600)
+    lines = _json_records(proc.stdout)
+    ran = proc.returncode == 0 and len(lines) == 1 and lines[0].get("samples") == 32 \
+        and 0 <= lines[0].get("accuracy", -1) <= 1 and math.isfinite(lines[0].get("loss", math.nan))
+    good &= ran
+    log(f"[{gpu_line()}] eval_syncnet_acc (32 samples): exit {proc.returncode}, "
+        f"{time.time() - t0:.1f} s, {lines[-1] if lines else None} "
+        f"{'ok' if ran else 'FAIL: ' + proc.stderr[-3000:]}")
+    return launches, good
+
+
+
+
 def main() -> int:
     try:
         import torch
@@ -3313,12 +3803,12 @@ def main() -> int:
         good = check_function_grads(device)
         train_launches, trained = check_train_step(unet, vae, device, counters)
         good &= trained
-        with tempfile.TemporaryDirectory() as root:
-            good &= run_train_cli(root)
+        train_root = tempfile.TemporaryDirectory()  # phase 14 (c) resumes this run
+        good &= run_train_cli(train_root.name)
         ok &= good
         log(f"phase 11 (stage-2 training on the card: the kernels' "
             f"gradients, a full-width loss and backward against the plain versions, the "
-            f"training CLI for 4 steps and a resumed one; {time.time() - t0:.0f} s): "
+            f"training CLI for 4 steps (phase 14 resumes it); {time.time() - t0:.0f} s): "
             f"{'ok' if good else 'FAIL'}")
         phase = "face restoration"
         t0 = time.time()
@@ -3344,6 +3834,33 @@ def main() -> int:
         log(f"phase 13 (restoration training at full width: three stages, the flash backward "
             f"at D = 64 nine times a step, stage II card against CPU, train_restoration and "
             f"generate_latent_gt; {time.time() - t0:.0f} s): {'ok' if good else 'FAIL'}")
+        phase = "the rest of training"
+        t0 = time.time()
+        grad_launches, good = check_train_grads(device)
+        train14, trained = check_train_configs(unet, vae, device, counters)
+        good &= trained
+        good &= run_train_cli_ddp(train_root.name)
+        train_root.cleanup()
+        with tempfile.TemporaryDirectory() as root:
+            syncnet_launches, trained = check_syncnet_training(root, device, counters)
+            good &= trained
+        ok &= good
+        log(f"phase 14 (the rest of training: K5, K8, K9 and the int8 routes' gradients, "
+            f"full-width steps in the fused, int8 and int8-dense configurations against the "
+            f"plain versions, train_unet under torch.distributed.run with its resume, the "
+            f"SyncNet trainer at full width and its two CLIs; {time.time() - t0:.0f} s): "
+            f"{'ok' if good else 'FAIL'}")
+        train_paths = {"cross_attention_block": "fused", "quantized_matmul": "int8-dense"}
+        for k in kernels:
+            if k["name"] in train_paths:
+                k["train_launches"] = train14[train_paths[k["name"]]][k["name"]]
+                k["train_path"] = train_paths[k["name"]]
+            elif k["name"] == "qkv_proj":
+                # no trainer calls K9: its launches under grad are phase 14 (a)'s
+                k["train_launches"] = 0
+                k["grad_check_launches"] = grad_launches.get("qkv_proj", 0)
+            if k["name"] in syncnet_launches:
+                k["syncnet_train_launches"] = syncnet_launches[k["name"]]
         for k in kernels:
             if k.get("path") == "codeformer":
                 k["launches"] = restore_launches

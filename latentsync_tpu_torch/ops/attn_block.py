@@ -25,10 +25,11 @@ it launches the kernel chain of ``csrc/cross_attn_block.cu`` wherever
 the reference ran ``_cross_fused`` (``cross_fused_route``: C = 320 and
 640 on the UNet; C = 1280 is over the 8 MiB weight budget). Everywhere
 else on the card it runs the composed torch of the reference's
-``_xla_cross_block``. On a CPU tensor it runs the plain version. K5 has
-no gradient in this package yet (the reference's is straight-through,
-``attn_block.py:388-404``): under grad with an input that requires grad
-its launch raises.
+``_xla_cross_block``. On a CPU tensor it runs the plain version. On the
+CPU and on the fused route it differentiates as the reference's
+``_cross_fwd`` / ``_cross_bwd`` do (``attn_block.py:388-404``): the
+backward recomputes ``cross_attention_composed`` (``_xla_cross_block``)
+and takes its gradient (``ops/autograd.py``).
 
 The two compositions, ``self_attention_composed`` and
 ``cross_attention_composed``, take the projection as an argument: the
@@ -229,18 +230,18 @@ def cross_attention_block_reference(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, b
     """Plain version: f32 LN and products, rounded to x.dtype where the
     kernel chain rounds (LN(x), q, k, v, probabilities, attention output,
     block output)."""
-    dt = x.dtype
+    dt, acc = x.dtype, acc_dtype(x)
     b, s, _ = x.shape
     sk = ctx.shape[1]
     inner = wq.shape[0]
     d = inner // heads
     h = layer_norm_f32(x, ln_scale, ln_bias, eps).to(dt)
-    cf = ctx.to(dt).float()
-    q = (h.float() @ wq.float().t()).to(dt).reshape(b, s, heads, d)
-    k = (cf @ wk.float().t()).to(dt).reshape(b, sk, heads, d)
-    v = (cf @ wv.float().t()).to(dt).reshape(b, sk, heads, d)
+    cf = ctx.to(dt).to(acc)
+    q = (h.to(acc) @ wq.to(acc).t()).to(dt).reshape(b, s, heads, d)
+    k = (cf @ wk.to(acc).t()).to(dt).reshape(b, sk, heads, d)
+    v = (cf @ wv.to(acc).t()).to(dt).reshape(b, sk, heads, d)
     o = dot_product_attention_reference(q, k, v).reshape(b, s, inner)
-    return (x.float() + o.float() @ wo.float().t() + bo.float()).to(dt)
+    return (x.to(acc) + o.to(acc) @ wo.to(acc).t() + bo.to(acc)).to(dt)
 
 
 def cross_attention_composed(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, bo, heads: int, *,
@@ -268,16 +269,35 @@ def cross_attention_block(x: torch.Tensor, ln_scale, ln_bias, ctx: torch.Tensor,
                           eps: float = 1e-6) -> torch.Tensor:
     """x: (B, S, C), ctx: (B, Sk, Cc) → x + OutProj(Attn(Q(LN(x)), K(ctx),
     V(ctx))); the context is used raw, like the reference."""
-    if x.device.type == "cpu":
-        return cross_attention_block_reference(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, bo,
-                                               heads, eps=eps)
+    cpu = x.device.type == "cpu"
+    if not cpu:
+        b, s, c = x.shape
+        sk, cc = ctx.shape[1:]
+        opted_in = os.environ.get("LATENTSYNC_FUSED_XATTN", "0") == "1"
+        if not (opted_in and cross_fused_route(b, s, sk, c, cc, wq.shape[0])):
+            return cross_attention_composed(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, bo,
+                                            heads, eps=eps)
+    kernel = cross_attention_block_reference if cpu else cross_attention_block_fused
+
+    def run(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, bo):
+        return kernel(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, bo, heads, eps=eps)
+
+    def composed(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, bo):
+        return cross_attention_composed(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, bo, heads,
+                                        eps=eps)
+
+    return with_composed_grad(run, composed, x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, bo)
+
+
+def cross_attention_block_fused(x: torch.Tensor, ln_scale, ln_bias, ctx: torch.Tensor,
+                                wq, wk, wv, wo, bo, heads: int, *,
+                                eps: float = 1e-6) -> torch.Tensor:
+    """K5's kernel chain on a CUDA tensor: what ``cross_attention_block``
+    launches on the fused route (its count goes up here); raises for a
+    shape it does not take."""
     b, s, c = x.shape
     sk, cc = ctx.shape[1:]
     inner = wq.shape[0]
-    opted_in = os.environ.get("LATENTSYNC_FUSED_XATTN", "0") == "1"
-    if not (opted_in and cross_fused_route(b, s, sk, c, cc, inner)):
-        return cross_attention_composed(x, ln_scale, ln_bias, ctx, wq, wk, wv, wo, bo, heads,
-                                        eps=eps)
     d = inner // heads
     if c % 8 or cc % 8 or inner != heads * d or d not in _CROSS_HEAD_DIMS:
         raise ValueError(f"cross_attention_block: no kernel for C={c}, Cc={cc}, "

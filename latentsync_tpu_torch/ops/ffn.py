@@ -25,8 +25,11 @@ with the value half first and the gate half second (diffusers GEGLU),
 ``quantize_rowwise`` (K10, ``csrc/geglu_i8.cu``) are the reference's
 kernel-probe prototypes: no model calls them, ``scripts/micro_probe.py``
 does. Both launch their kernel on a CUDA tensor and run their plain
-version on a CPU tensor; neither has a gradient, so a launch under grad
-with an input that requires grad raises.
+version on a CPU tensor. K9 differentiates as the reference's ``_qkv_fwd``
+/ ``_qkv_bwd`` do (``ffn.py:278-311``): the backward is the VJP of the
+three products (``qkv_proj_composed``, ``_qkv_xla``). K10 has no
+gradient in either package, so its launch under grad with an input that
+requires grad raises.
 """
 
 from __future__ import annotations
@@ -210,15 +213,26 @@ def geglu_ffn_composed(x: torch.Tensor, w_up, b_up, w_down, b_down, ln_scale, ln
 
 def qkv_proj_reference(x, wq, wk, wv):
     """Plain version: three f32 products, each rounded to x.dtype."""
-    xf = x.float()
-    return tuple((xf @ w.float().t()).to(x.dtype) for w in (wq, wk, wv))
+    acc = acc_dtype(x)
+    xf = x.to(acc)
+    return tuple((xf @ w.to(acc).t()).to(x.dtype) for w in (wq, wk, wv))
+
+
+def qkv_proj_composed(x, wq, wk, wv):
+    """The reference's ``_qkv_xla``: three products in x.dtype, the weights
+    cast to it (the function ``_qkv_bwd`` differentiates)."""
+    return tuple(F.linear(x, w.to(x.dtype)) for w in (wq, wk, wv))
 
 
 def qkv_proj(x: torch.Tensor, wq, wk, wv):
     """x: (..., C); wq, wk, wv: (inner, C), no bias → three (..., inner):
-    one launch that reads x once for the three products."""
-    if x.device.type == "cpu":
-        return qkv_proj_reference(x, wq, wk, wv)
+    one launch that reads x once for the three products; differentiated as
+    ``qkv_proj_composed``."""
+    kernel = qkv_proj_reference if x.device.type == "cpu" else _qkv_kernel
+    return with_composed_grad(kernel, qkv_proj_composed, x, wq, wk, wv)
+
+
+def _qkv_kernel(x: torch.Tensor, wq, wk, wv):
     c = x.shape[-1]
     inner = wq.shape[0]
     if any(w.shape != (inner, c) for w in (wq, wk, wv)) or c % 8 or inner % 8:

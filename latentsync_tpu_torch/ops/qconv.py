@@ -13,11 +13,17 @@ reference's names and default (off) and are read at each call:
   ``"pallas"`` the K8 kernel (``ops/qmm.py``). Any other value raises; the
   reference would quietly run ``"xla"`` for it.
 
-Neither int8 route has a gradient in this package yet (the reference's
-``_qconv2d_ste`` and ``_qdense_ste`` are straight-through,
-``qconv.py:150-202``, ``:237-272``): on a CUDA tensor under grad, with an
-input that requires grad, both raise rather than return a tensor cut off
-from autograd.
+Both routes train as the reference's straight-through rules do
+(``_qdense_ste``, ``_qdense_pallas_ste``, ``_qconv2d_ste``,
+``qconv.py:150-202``, ``:237-272``): :class:`QDenseSTE` and
+:class:`QConvSTE` run the int8 forward (grad off inside it) and save only
+x, w and the bias; their backward is the gradient of the float product
+(:func:`float_dense`, :func:`float_conv`: f32 with the bias in f32, rounded
+to x.dtype), on both devices. ``round`` alone has a zero gradient, so
+without the rule the gradient would flow only through the scales' amax.
+``torch.autograd.gradcheck`` cannot hold such a Function (its backward is
+not the forward's derivative); the tests hold it against ``jax.vjp`` of
+the reference's rules.
 
 The int32 accumulation runs, on a CUDA tensor, as ``torch._int_mm`` (for
 the convolution after a frame-chunked im2col, so the int8 column buffer
@@ -37,7 +43,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from . import _build
+from .autograd import ComposedGrad
 from .ffn import linear
 from .qmm import quantized_matmul
 
@@ -130,13 +136,32 @@ def chunk_frames(ho: int, wo: int, k: int, cout: int) -> int:
     return max(1, _CHUNK_BYTES // per_frame)
 
 
-def quantized_conv2d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
-                     stride=(1, 1), padding=(0, 0)) -> torch.Tensor:
-    """x (N, Cin, H, W) float, w (Cout, Cin, kh, kw) float → the int8
-    convolution in x.dtype (``_qconv2d_ste``'s forward). Zero padding
-    applies to the int8 codes; it moves no scale."""
-    if x.device.type != "cpu":
-        _build.refuse_grad("quantized_conv2d", x, w, bias)
+class QConvSTE(ComposedGrad):
+    """The reference's ``_qconv2d_ste``: ``apply(int8_forward, float_conv,
+    x, w, bias)`` with the stride and padding bound in both callables."""
+
+
+class QDenseSTE(ComposedGrad):
+    """The reference's ``_qdense_ste`` / ``_qdense_pallas_ste``:
+    ``apply(int8_forward, float_dense, x2d, w, bias)``."""
+
+
+def float_conv(x, w, bias, stride, padding) -> torch.Tensor:
+    """``_float_conv``: the f32 convolution with the bias added in f32,
+    rounded to x.dtype: the function whose gradient the int8 convolution
+    takes."""
+    b = None if bias is None else bias.float()
+    return F.conv2d(x.float(), w.float(), b, stride, padding).to(x.dtype)
+
+
+def float_dense(x2d, w, bias) -> torch.Tensor:
+    """``_qdense_ste_bwd``'s ``float_dense``: the f32 product with the bias
+    added in f32, rounded to x.dtype."""
+    b = None if bias is None else bias.float()
+    return F.linear(x2d.float(), w.float(), b).to(x2d.dtype)
+
+
+def _qconv2d_int8(x, w, bias, stride, padding) -> torch.Tensor:
     wq, wscale = _quantize(w.float(), (1, 2, 3))
     wscale = wscale.reshape(1, -1, 1, 1)
     n, _, h, wd = x.shape
@@ -156,6 +181,18 @@ def quantized_conv2d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tens
     return out
 
 
+def quantized_conv2d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+                     stride=(1, 1), padding=(0, 0)) -> torch.Tensor:
+    """x (N, Cin, H, W) float, w (Cout, Cin, kh, kw) float → the int8
+    convolution in x.dtype (``_qconv2d_ste``'s forward), differentiated
+    straight through (:class:`QConvSTE`). Zero padding applies to the int8
+    codes; it moves no scale."""
+    stride, padding = tuple(stride), tuple(padding)
+    return QConvSTE.apply(
+        lambda x, w, b: _qconv2d_int8(x, w, b, stride, padding),
+        lambda x, w, b: float_conv(x, w, b, stride, padding), x, w, bias)
+
+
 class QConv2d(nn.Conv2d):
     """``nn.Conv2d`` that runs :func:`quantized_conv2d` under
     ``LATENTSYNC_INT8=1`` (the reference's ``QConv``); the same parameters
@@ -167,17 +204,20 @@ class QConv2d(nn.Conv2d):
         return super().forward(x)
 
 
-def _qdense_xla(x2d: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]):
-    """The reference's ``_qdense_ste`` forward: per-row activation scales,
-    per-out-channel weight scales (both divides), bias added in f32."""
-    if x2d.device.type != "cpu":
-        _build.refuse_grad("dense_with_params (int8)", x2d, w, bias)
+def _qdense_int8(x2d: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]):
     wq, wscale = _quantize(w.float(), 1)
     xq, ascale = _quantize(x2d.float(), 1)
     out = int_mm(xq, wq).float() * (wscale.t() * ascale)
     if bias is not None:
         out = out + bias.float()
     return out.to(x2d.dtype)
+
+
+def _qdense_xla(x2d: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]):
+    """The reference's ``_qdense_ste``: per-row activation scales,
+    per-out-channel weight scales (both divides), bias added in f32;
+    differentiated straight through (:class:`QDenseSTE`)."""
+    return QDenseSTE.apply(_qdense_int8, float_dense, x2d, w, bias)
 
 
 def dense_with_params(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
@@ -188,5 +228,8 @@ def dense_with_params(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor
     if not mode:
         return linear(x.to(dtype), w, b, dtype)
     x2d = x.reshape(-1, x.shape[-1])
-    out = quantized_matmul(x2d, w, b) if mode == "pallas" else _qdense_xla(x2d, w, b)
+    if mode == "pallas":  # K8 (``_qdense_pallas_ste``)
+        out = QDenseSTE.apply(quantized_matmul, float_dense, x2d, w, b)
+    else:
+        out = _qdense_xla(x2d, w, b)
     return out.to(dtype).reshape(*x.shape[:-1], w.shape[0])

@@ -1,8 +1,10 @@
-"""Stage-2 UNet training on one card (the port's counterpart of
-``scripts/train_unet.py``).
+"""Stage-2 UNet training, on one card or data-parallel across several (the
+port's counterpart of ``scripts/train_unet.py``).
 
     python -m latentsync_tpu_torch.scripts.train_unet --config configs/unet_stage2.yaml \\
         --max-steps 4 --output-dir debug/unet [--device cpu]
+    python -m torch.distributed.run --nproc_per_node 4 \\
+        -m latentsync_tpu_torch.scripts.train_unet --config ...
 
 Trains ``training/unet_trainer.UNetTrainer`` on the clips the config's
 ``data.train_fileslist`` / ``train_data_dir`` name (``.mp4`` with a ``.wav``
@@ -15,11 +17,15 @@ checkpoint file is absent the weights are random, as the JAX CLI's: the
 UNet with ``UNET_ZERO_PATHS`` zeroed, the VAE, SyncNet and LPIPS filled
 as ``fast_init`` fills them, and TREPA on the small 64² ViT of the JAX CLI.
 ``$LATENTSYNC_LPIPS_CKPT`` and ``$LATENTSYNC_VIDEOMAE_CKPT`` name the LPIPS
-and VideoMAEv2-giant files. The card unless ``--device cpu``; one card
-(the JAX CLI's data-parallel degree gcd(batch, devices) is 1 here).
+and VideoMAEv2-giant files. The card unless ``--device cpu``. Under
+``torch.distributed.run`` the first ``gcd(batch, ranks)`` ranks train, each
+on its share of the batch and its own card (``parallel/mesh.py``); a rank
+beyond them says so and exits 0; rank 0 alone prints, saves and validates.
 Validation runs the port's ``LipsyncPipeline`` on the config's val pair at
 each checkpoint; SyncNet *scoring* of it waits for the port of eval, and the
-line says so. No loss chart is drawn.
+line says so. At the end the train losses (and validation scores, where
+there are any) are drawn to ``loss_chart.png``, best-effort as in the JAX
+CLI.
 """
 
 from __future__ import annotations
@@ -149,17 +155,38 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     from ..config import LatentSyncConfig, load_unet_config
-    from ..training.data import HostDataLoader, UNetSampleSource
-    from ..training.unet_trainer import UNetTrainer
-    from ..utils.checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
+    from ..parallel.mesh import card_of_rank, init_data_parallel, shutdown
     from .inference import no_card
 
     if no_card("train_unet", args.device):
         return 2
-    device = torch.device(args.device)
+    device = card_of_rank(args.device)
     dtype = torch.bfloat16
     config = load_unet_config(args.config) if args.config else LatentSyncConfig()
-    os.makedirs(args.output_dir, exist_ok=True)
+    batch_size = max(config.data.batch_size, 1)
+    place = init_data_parallel(batch_size, device)
+    if not place.active:
+        print(f"train_unet: rank {place.rank} of {place.world} idle: the data-parallel degree "
+              f"is gcd(batch {batch_size}, {place.world} ranks) = {place.dp}")
+        return 0
+    try:
+        return _train(args, config, place, device, dtype)
+    finally:
+        shutdown()
+
+
+def _train(args, config, place, device, dtype) -> int:
+    from ..parallel.mesh import broadcast_
+    from ..training.data import HostDataLoader, UNetSampleSource
+    from ..training.unet_trainer import UNetTrainer
+    from ..utils.checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
+
+    main = place.rank == 0
+    if main:
+        os.makedirs(args.output_dir, exist_ok=True)
+        if place.distributed:
+            print(json.dumps({"data_parallel": {"backend": torch.distributed.get_backend(),
+                                                "world": place.world, "dp": place.dp}}))
     unet, vae, syncnet, lpips, trepa, global_step = build(config, args, device, dtype)
     trainer = UNetTrainer(config, unet, vae, syncnet, lpips, trepa, dtype=dtype)
     if args.resume:
@@ -169,13 +196,17 @@ def main(argv=None) -> int:
             unet.load_state_dict(state["params"])
             trainer.optimizer.load_state_dict(state["opt_state"])
             global_step = int(state["step"])
-            print(json.dumps({"resumed_from": ckpt, "step": global_step}))
+            if main:
+                print(json.dumps({"resumed_from": ckpt, "step": global_step}))
+    broadcast_(list(trainer.params.values()))
 
     f = config.data.num_frames
     loader = HostDataLoader(UNetSampleSource(config, seed=config.run.seed),
-                            batch_size=max(config.data.batch_size, 1))
+                            batch_size=max(config.data.batch_size, 1) // place.dp,
+                            host_id=place.rank, num_hosts=place.dp)
     max_steps = args.max_steps or config.run.max_train_steps
     fixed = None
+    losses = []
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.time()
@@ -188,12 +219,14 @@ def main(argv=None) -> int:
                 # the whisper cache feeds them in full training; zero-conditioned here
                 batch["audio_embeds"] = torch.zeros(
                     (batch["gt_pixels"].shape[0], f, 50, config.unet.cross_attention_dim))
-            t, noise = trainer.draw(batch, 0 if args.overfit else global_step)
+            t, noise = trainer.draw(batch, 0 if args.overfit else global_step, place.rank,
+                                    place.dp)
             metrics = trainer.train_step(batch, t, noise)
             global_step += 1
             if global_step % args.log_every == 0:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
+                losses.append((global_step, metrics["total"]))
                 rec = {"step": global_step, "loss": metrics["total"],
                        "steps_per_sec": args.log_every / (time.time() - t0)}
                 extra = {k: v for k, v in metrics.items()
@@ -202,9 +235,12 @@ def main(argv=None) -> int:
                     rec["loss_components"] = dict({"recon": metrics["recon"]}, **extra)
                 if device.type == "cuda":
                     rec["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
-                print(json.dumps(rec), flush=True)
+                if place.dp > 1:
+                    rec["data_parallel"] = place.dp
+                if main:
+                    print(json.dumps(rec), flush=True)
                 t0 = time.time()
-            if global_step % config.run.save_ckpt_steps == 0:
+            if global_step % config.run.save_ckpt_steps == 0 and main:
                 save_checkpoint(args.output_dir, global_step, trainer.params,
                                 trainer.optimizer.state_dict())
                 run_validation(unet, vae, config, args.output_dir, global_step, device, dtype)
@@ -212,9 +248,19 @@ def main(argv=None) -> int:
                 break
     finally:
         loader.close()
+    if not main:
+        return 0
     print(json.dumps({"saved": save_checkpoint(args.output_dir, global_step, trainer.params,
                                                trainer.optimizer.state_dict()),
                       "step": global_step}))
+    if losses:
+        try:
+            from ..utils.observability import plot_loss_chart
+
+            plot_loss_chart(os.path.join(args.output_dir, "loss_chart.png"),
+                            ("train_loss", [s for s, _ in losses], [v for _, v in losses]))
+        except Exception as e:  # noqa: BLE001 — charting is best-effort
+            print(f"loss chart failed: {e}")
     return 0
 
 

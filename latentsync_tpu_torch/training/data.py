@@ -1,14 +1,18 @@
-"""Stage-2 training data: sample windows of a clip list and batch them.
+"""Training data: sample windows of a clip list and batch them.
 
 Counterpart of ``latentsync_tpu/training/data.py`` (``load_fileslist``,
-``_MelCache``, ``UNetSampleSource``, ``HostDataLoader``;
-ref:latentsync/data/unet_dataset.py): a random 16-frame ground-truth
-window and a non-overlapping reference window of the same clip, masked
-with the fixed mask, and the Wav2Lip mel window aligned at 80 mel frames
-a second (start 80·start/fps, length ceil(F/5·16)), with an optional
-``_mel.npz`` cache and resampling on any per-sample failure. Samples are
-numpy arrays in the JAX package's layout (frames channels-last), so a
-source here and one there draw the same windows from the same seed.
+``_MelCache``, ``UNetSampleSource``, ``SyncNetSampleSource``,
+``HostDataLoader``; ref:latentsync/data/unet_dataset.py,
+syncnet_dataset.py). Stage 2: a random 16-frame ground-truth window and a
+non-overlapping reference window of the same clip, masked with the fixed
+mask, and the Wav2Lip mel window aligned at 80 mel frames a second (start
+80·start/fps, length ceil(F/5·16)), with an optional ``_mel.npz`` cache and
+resampling on any per-sample failure. SyncNet: a frame window and, on a
+coin flip, its own mel window (label 1) or one shifted by more than F/2
+frames (label 0), the window's lower halves stacked into channels in
+[-1, 1]. Samples are numpy arrays in the JAX package's layout (frames
+channels-last), so a source here and one there draw the same windows from
+the same seed.
 Clips are read through ``utils/media.py``: OpenCV, and the ``.wav``
 sidecar for the audio where there is no ffmpeg.
 """
@@ -28,6 +32,9 @@ from ..config import LatentSyncConfig
 from ..ops.mel import wav2lip_melspectrogram_np
 from ..utils.image_processor import ImageProcessor, load_fixed_mask
 from ..utils.media import read_audio, read_video
+
+# How long `HostDataLoader.close` waits for the thread to finish its sample.
+CLOSE_TIMEOUT_S = 60.0
 
 
 def load_fileslist(fileslist: str = "", data_dir: str = "") -> List[str]:
@@ -129,14 +136,70 @@ class UNetSampleSource:
                 print(f"{type(e).__name__} - {e} - {path}")
 
 
-class HostDataLoader:
-    """A thread that keeps two batches of stacked samples ready. The source
-    draws from the stream the JAX loader gives host 0 of 1 (one card)."""
+@dataclass
+class SyncNetSampleSource:
+    """Aligned vs shifted windows with a coin-flip label
+    (ref:syncnet_dataset.py:123-129)."""
 
-    def __init__(self, source, batch_size: int):
+    config: LatentSyncConfig
+    video_paths: List[str] = None
+    seed: int = 0
+
+    def __post_init__(self):
+        cfg = self.config.data
+        if self.video_paths is None:
+            self.video_paths = load_fileslist(cfg.train_fileslist, cfg.train_data_dir)
+        self.rng = np.random.default_rng(self.seed)
+        self.num_frames = cfg.num_frames
+        self.mel_window = math.ceil(self.num_frames / 5 * 16)
+        self.resolution = cfg.resolution
+        self.mel_cache = _MelCache(cfg.audio_mel_cache_dir or None, cfg.audio_sample_rate)
+
+    def sample(self) -> Dict[str, np.ndarray]:
+        """{"vision" (H/2, W, F·3) in [-1, 1], "mel" (80, T, 1), "y"}; the
+        same draws in the same order as the JAX source."""
+        import cv2
+
+        while True:
+            path = self.video_paths[int(self.rng.integers(0, len(self.video_paths)))]
+            try:
+                frames = read_video(path, change_fps=False)
+                f = self.num_frames
+                if len(frames) < 3 * f:
+                    continue
+                start = int(self.rng.integers(0, len(frames) - f + 1))
+                y = int(self.rng.integers(0, 2))
+                audio_start = start
+                while y == 0:
+                    audio_start = int(self.rng.integers(0, len(frames) - f + 1))
+                    if abs(audio_start - start) > f // 2:
+                        break
+                mel_full = self.mel_cache.mel_for(path)
+                m0 = int(80.0 * audio_start / self.config.data.video_fps)
+                mel = mel_full[:, m0:m0 + self.mel_window]
+                if mel.shape[-1] != self.mel_window:
+                    continue
+                res = self.resolution
+                win = np.stack([cv2.resize(fr, (res, res)) for fr in frames[start:start + f]])
+                # lower half, frames stacked into channels (ref:train_syncnet.py:204-206)
+                half = win[:, res // 2:]
+                vis = np.moveaxis(half, 0, -2).reshape(half.shape[1], half.shape[2], -1)
+                return {"vision": vis.astype(np.float32) / 255.0 * 2.0 - 1.0,
+                        "mel": mel[:, :, None].astype(np.float32), "y": np.float32(y)}
+            except Exception as e:  # noqa: BLE001 — resample on any failure
+                print(f"{type(e).__name__} - {e} - {path}")
+
+
+class HostDataLoader:
+    """A thread that keeps two batches of stacked samples ready. The
+    source draws the stream the JAX loader gives host `host_id` of
+    `num_hosts`: under data parallelism each rank is one such host."""
+
+    def __init__(self, source, batch_size: int, host_id: int = 0, num_hosts: int = 1):
         self.source = source
         self.batch_size = batch_size
-        source.rng = np.random.default_rng(np.random.SeedSequence([source.seed, 0, 1]))
+        source.rng = np.random.default_rng(
+            np.random.SeedSequence([source.seed, host_id, num_hosts]))
         self.q: "queue.Queue" = queue.Queue(maxsize=2)
         self._stop = threading.Event()
         self.thread = threading.Thread(target=self._worker, daemon=True)
@@ -144,7 +207,11 @@ class HostDataLoader:
 
     def _worker(self):
         while not self._stop.is_set():
-            samples = [self.source.sample() for _ in range(self.batch_size)]
+            samples = []
+            for _ in range(self.batch_size):
+                if self._stop.is_set():
+                    return
+                samples.append(self.source.sample())
             batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]
                      if isinstance(samples[0][k], np.ndarray) or np.isscalar(samples[0][k])}
             while not self._stop.is_set():
@@ -159,4 +226,8 @@ class HostDataLoader:
             yield self.q.get()
 
     def close(self):
+        """Stop the thread and wait for it (it finishes the sample it is
+        drawing): a thread left inside a native video read while the
+        interpreter exits aborts the process."""
         self._stop.set()
+        self.thread.join(CLOSE_TIMEOUT_S)

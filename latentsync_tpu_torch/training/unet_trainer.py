@@ -1,4 +1,4 @@
-"""The stage-2 UNet trainer on one card.
+"""The stage-2 UNet trainer, on one card or data-parallel across several.
 
 Counterpart of ``latentsync_tpu/training/unet_trainer.py``
 (ref:scripts/train_unet.py:60-517): ε-MSE, and with pixel-space
@@ -25,7 +25,10 @@ weights, in the same order.
 - ``t`` and the noise come from an explicit ``torch.Generator`` seeded from
   the run's seed and the step (the JAX trainer folds the step into its
   PRNG key); ``loss_fn`` also takes them given, which is how the tests
-  inject the JAX draws.
+  inject the JAX draws. Under data parallelism (``parallel/mesh.py``) the
+  draws are the global batch's and each rank takes its own rows; the
+  gradients and the step's losses are averaged across ranks before the
+  clip.
 
 Batches are the data source's numpy arrays in the JAX package's layout:
 frames (B, F, H, W, 3) in [-1, 1], masks (B, F, h, w, 1), audio embeddings
@@ -44,6 +47,7 @@ import torch.nn.functional as F
 from ..config import LatentSyncConfig
 from ..models.vae import scale_latents, unscale_latents
 from ..ops.ddim import DDIMScheduler
+from ..parallel.mesh import average_, average_metrics
 from .losses import cosine_bce_loss, mixed_noise
 
 # optax.adamw's defaults (torch.optim.AdamW's weight decay is 1e-2)
@@ -113,20 +117,26 @@ class UNetTrainer:
         s = self.config.vae.scale_factor
         return b, self.config.vae.latent_channels, f, h // s, w // s
 
-    def draw(self, batch, step: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    def draw(self, batch, step: int, rank: int = 0,
+             ranks: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
         """This step's (t (B,), noise (B, C, F, h, w)), from a generator seeded
         with (run seed, step); the draws are made on the CPU, so they do not
-        depend on the device."""
+        depend on the device. With `ranks` data-parallel ranks of B samples
+        each, the draws are the global batch's and this is rank `rank`'s
+        share."""
         run = self.config.run
         gen = torch.Generator().manual_seed(int(run.seed) * 1_000_003 + int(step))
         shape = self.latent_shape(batch)
+        b = shape[0]
+        shape = (b * ranks,) + shape[1:]
         t = torch.randint(0, self.config.scheduler.num_train_timesteps, (shape[0],),
                           generator=gen)
         if run.use_mixed_noise:
             noise = mixed_noise(shape, run.mixed_noise_alpha, generator=gen)
         else:
             noise = torch.randn(shape, generator=gen)
-        return t.to(self.device), noise.to(self.device)
+        rows = slice(rank * b, (rank + 1) * b)
+        return t[rows].to(self.device), noise[rows].to(self.device)
 
     def _encode(self, px: np.ndarray, b: int, f: int) -> torch.Tensor:
         with torch.no_grad():
@@ -194,14 +204,16 @@ class UNetTrainer:
         return losses, {n: p.grad for n, p in self.params.items()}
 
     def train_step(self, batch, t, noise) -> Dict[str, float]:
-        """One step: gradients of every parameter, the clip over all of them,
-        AdamW on the trainable set. Returns the loss components and the
-        gradient norm before the clip, as floats."""
+        """One step: gradients of every parameter (averaged across
+        data-parallel ranks), the clip over all of them, AdamW on the
+        trainable set. Returns the loss components and the gradient norm
+        before the clip, as floats."""
         losses, grads = self.gradients(batch, t, noise)
+        average_(list(grads.values()))
         norm = clip_grad_norm_all(list(grads.values()), self.config.run.max_grad_norm)
         self.optimizer.step()
         for p in self.params.values():
             p.grad = None
-        out = {k: float(v.detach()) for k, v in losses.items()}
+        out = average_metrics({k: float(v.detach()) for k, v in losses.items()}, self.device)
         out["grad_norm"] = float(norm)
         return out

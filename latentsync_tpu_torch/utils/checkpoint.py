@@ -4,8 +4,9 @@ and the step, in one ``torch.save`` file a step.
 Counterpart of ``latentsync_tpu/utils/checkpoint.py`` (Orbax directories
 ``step_%08d`` there; no Orbax on the card): the files are named the same
 way, ``step_%08d.pt``, and hold what the JAX package's do — parameters,
-optimizer state and the step — which the reference's own trainer never
-saves (SURVEY §5.4).
+optimizer state, the step and an optional ``aux`` dict (the SyncNet
+trainer's train / val loss histories, ``aux.npz`` there) — which the
+reference's own trainer never saves (SURVEY §5.4).
 """
 
 from __future__ import annotations
@@ -13,17 +14,23 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 
 def save_checkpoint(ckpt_dir: str, step: int, params: Dict[str, torch.Tensor],
-                    opt_state: Optional[Dict[str, Any]] = None) -> str:
-    """Write ``step_<step>.pt`` (atomically: a temporary file, then a rename)."""
+                    opt_state: Optional[Dict[str, Any]] = None,
+                    aux: Optional[Dict[str, Any]] = None) -> str:
+    """Write ``step_<step>.pt`` (atomically: a temporary file, then a rename).
+    `aux` values are array-likes (lists of ``(step, loss)`` pairs); they are
+    stored as nested lists, beside ``step`` as the JAX ``aux.npz`` holds it."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.abspath(os.path.join(ckpt_dir, f"step_{step:08d}.pt"))
     payload = {"step": step, "params": {k: v.detach().cpu() for k, v in params.items()}}
     if opt_state is not None:
         payload["opt_state"] = opt_state
+    if aux is not None:
+        payload["aux"] = {"step": step, **{k: np.asarray(v).tolist() for k, v in aux.items()}}
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -39,5 +46,5 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 
 
 def restore_checkpoint(path: str) -> Dict[str, Any]:
-    """{"step", "params", and "opt_state" where saved}, on the CPU."""
+    """{"step", "params", and "opt_state" and "aux" where saved}, on the CPU."""
     return torch.load(path, map_location="cpu", weights_only=True)

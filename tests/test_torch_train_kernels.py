@@ -10,10 +10,12 @@ the card machine:
   gradients through ``dot_product_attention`` (the residual forward's o and
   lse, saved by the Function) equal to a direct call's; the residual
   forward's lse against the plain logsumexp;
-- K1-K4 and the flash route under grad: a ``grad_fn`` on the output, and
-  input and weight gradients against the plain version's autograd on the
-  same bf16 inputs;
-- every other kernel wrapper (K5-K12) and both int8 routes raise under grad.
+- K1-K5, K9 and the flash route under grad: a ``grad_fn`` on the output,
+  and input and weight gradients against the plain version's autograd on
+  the same bf16 inputs; the int8 convolution, the int8 dense route and K8
+  (straight through): the gradient of the float product, finite, with the
+  forward under grad equal bit for bit to the one without;
+- every other kernel wrapper (K6, K7, K10-K12) raises under grad.
 
 Tolerance: 2^-6 · max(1, max|plain|) per tensor, as ``chip_smoke.py``'s;
 the flash backward's gradients also within 1e-2 in relative L2 each.
@@ -110,12 +112,15 @@ def test_flash_route_residuals_match_a_direct_call(rand, b, s, h, d):
 
 def _grads_against_plain(fn, plain, inputs):
     """Gradients of `fn` (the wrapper) and of `plain` on the same inputs for
-    one random output gradient."""
-    out = fn(*inputs)
-    assert out.grad_fn is not None
-    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(3)).to(out)
-    got = torch.autograd.grad(out, inputs, cot)
-    ref = torch.autograd.grad(plain(*inputs), inputs, cot)
+    one random output gradient (one a tensor where they return a tuple)."""
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    assert all(o.grad_fn is not None for o in outs)
+    gen = torch.Generator().manual_seed(3)
+    cots = [torch.randn(o.shape, generator=gen).to(o) for o in outs]
+    got = torch.autograd.grad(outs, inputs, cots)
+    ref = plain(*inputs)
+    ref = torch.autograd.grad(ref if isinstance(ref, tuple) else (ref,), inputs, cots)
     _close(got, ref)
 
 
@@ -172,19 +177,13 @@ def test_flash_route_gradients(rand):
 
 
 @pytest.mark.cuda
-def test_wrappers_without_a_gradient_raise_under_grad(rand, monkeypatch):
+def test_wrappers_without_a_gradient_raise_under_grad(rand):
     c = 320
-    x = rand(64, 256, c)
     ln = (rand(c), rand(c))
-    w = rand(c, c)
     calls = {
-        "cross_attention_block": lambda: attn_block.cross_attention_block(
-            x, *ln, rand(64, 50, 384), w, rand(c, 384), rand(c, 384), w, rand(c), 8),
         "group_norm_silu": lambda: groupnorm.group_norm_silu(rand(4, c, 8, 8), *ln, 32),
         "group_norm_silu_streaming": lambda: groupnorm.group_norm_silu_streaming(
             rand(4, c, 16, 32, 32), *ln, 32),
-        "quantized_matmul": lambda: qmm.quantized_matmul(rand(256, c), w),
-        "qkv_proj": lambda: ffn.qkv_proj(rand(256, c), w, w, w),
         "geglu_ffn_int8io": lambda: ffn.geglu_ffn_int8io(
             *ffn.quantize_rowwise(rand(256, c, grad=False)), rand(8 * c, c), rand(8 * c),
             rand(c, 4 * c), rand(c)),
@@ -192,15 +191,60 @@ def test_wrappers_without_a_gradient_raise_under_grad(rand, monkeypatch):
                                                                    for _ in range(3))),
         "flash_attention": lambda: attention.flash_attention(*(rand(8, 256, 128)
                                                                for _ in range(3))),
-        "quantized_conv2d": lambda: qconv.quantized_conv2d(rand(2, c, 8, 8),
-                                                           rand(c, c, 3, 3), rand(c),
-                                                           padding=(1, 1)),
-        "dense_with_params (int8)": lambda: qconv._qdense_xla(rand(256, c), w, rand(c)),
     }
-    monkeypatch.setenv("LATENTSYNC_FUSED_XATTN", "1")  # K5 launches only so
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no gradient"):
             call()
         with torch.no_grad():
             call()
     torch.cuda.synchronize()
+
+
+def _float_dense(x, w, b):
+    return qconv.float_dense(x, w, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["cross_attention_block", "qkv_proj", "quantized_matmul",
+                                   "quantized_conv2d", "dense_with_params (int8)"])
+def test_wrappers_with_a_gradient_train(rand, monkeypatch, which):
+    """K5 and K9 through their composed gradient, K8 and the int8 routes
+    straight through: a launch a call under grad (K5, K8, K9), the forward
+    under grad equal bit for bit to the one without, and each gradient
+    against the plain composition's autograd (for the int8 routes: the
+    float product's), finite."""
+    c = 320
+    monkeypatch.setenv("LATENTSYNC_FUSED_XATTN", "1")  # K5 launches only so
+    monkeypatch.setenv("LATENTSYNC_INT8_DENSE", "pallas")
+    counter = None
+    if which == "cross_attention_block":
+        args = [rand(64, 256, c), rand(c, s=0.1, add=1.0), rand(c, s=0.1), rand(64, 50, 384),
+                rand(c, c, s=c**-0.5), rand(c, 384, s=384**-0.5), rand(c, 384, s=384**-0.5),
+                rand(c, c, s=c**-0.5), rand(c, s=0.1)]
+        fn = lambda *a: attn_block.cross_attention_block(*a, 8)  # noqa: E731
+        plain = lambda *a: attn_block.cross_attention_block_reference(*a, 8)  # noqa: E731
+        counter = attn_block.cross_attention_block
+    elif which == "qkv_proj":
+        args = [rand(256, c)] + [rand(c, c, s=c**-0.5) for _ in range(3)]
+        fn, plain, counter = ffn.qkv_proj, ffn.qkv_proj_reference, ffn.qkv_proj
+    elif which == "quantized_matmul":
+        args = [rand(1024, c), rand(2560, c, s=c**-0.5), rand(2560, s=0.1)]
+        fn = lambda *a: qconv.dense_with_params(*a, torch.bfloat16)  # noqa: E731
+        plain, counter = _float_dense, qmm.quantized_matmul
+    elif which == "quantized_conv2d":
+        args = [rand(2, c, 8, 8), rand(c, c, 3, 3, s=(9 * c) ** -0.5), rand(c, s=0.1)]
+        fn = lambda *a: qconv.quantized_conv2d(*a, padding=(1, 1))  # noqa: E731
+        plain = lambda *a: qconv.float_conv(*a, (1, 1), (1, 1))  # noqa: E731
+    else:
+        args = [rand(256, c), rand(c, c, s=c**-0.5), rand(c, s=0.1)]
+        fn, plain = qconv._qdense_xla, _float_dense
+    before = counter.launches if counter else 0
+    out = fn(*args)
+    if counter:
+        assert counter.launches == before + 1
+    with torch.no_grad():
+        again = fn(*args)
+    for o, a in zip(out if isinstance(out, tuple) else (out,),
+                    again if isinstance(again, tuple) else (again,)):
+        assert torch.equal(o.detach(), a)
+    _grads_against_plain(fn, plain, args)

@@ -266,15 +266,26 @@ def test_every_kernel_launch_passes_the_grad_guard(name, fn):
 
 
 def test_int8_routes_refuse_grad_on_the_card():
-    """The int8 convolution and int8 dense routes launch no kernel of their
-    own but would cut autograd the same way; both refuse on a CUDA tensor."""
-    from latentsync_tpu_torch.ops import qconv
+    """The int8 routes no longer refuse grad: each reaches its int8 work
+    only inside its straight-through Function (``QConvSTE``, ``QDenseSTE``),
+    whose forward runs with grad off. What still refuses on the card is
+    K8's launcher called directly under grad (``check_cuda`` before its
+    launch); ``dense_with_params`` hands it to ``QDenseSTE``."""
+    from latentsync_tpu_torch.ops import qconv, qmm
 
-    for fn in (qconv.quantized_conv2d, qconv._qdense_xla):
-        src = ast.unparse(next(n for n in ast.walk(ast.parse(
-            pathlib.Path(qconv.__file__).read_text()))
-            if isinstance(n, ast.FunctionDef) and n.name == fn.__name__))
-        assert "_build.refuse_grad" in src, fn.__name__
+    def source(module, name):
+        return ast.unparse(next(n for n in ast.walk(ast.parse(
+            pathlib.Path(module.__file__).read_text()))
+            if isinstance(n, ast.FunctionDef) and n.name == name))
+
+    assert "QConvSTE.apply" in source(qconv, "quantized_conv2d")
+    assert "QDenseSTE.apply" in source(qconv, "_qdense_xla")
+    assert "QDenseSTE.apply(quantized_matmul" in source(qconv, "dense_with_params")
+    assert "refuse_grad" not in pathlib.Path(qconv.__file__).read_text()
+    assert "_build.check_cuda" in source(qmm, "quantized_matmul")
+    x = torch.ones(4, 8, requires_grad=True)
+    assert type(qconv._qdense_xla(x, torch.ones(8, 8), None).grad_fn).__name__ == \
+        "QDenseSTEBackward"
 
 
 # ---------------------------------------------------------------------------
