@@ -195,7 +195,36 @@ and without CUDA it exits nonzero before doing anything):
    step at batch 2 on the card in f32 and in bf16 against f32 on the CPU,
    ``train_syncnet`` for 4 steps with validation every 2 (chart,
    checkpoints with both loss histories) and a ``--resume`` step, and
-   ``eval_syncnet_acc``.
+   ``eval_syncnet_acc``;
+15. evaluation and data preparation (seeded random weights, batch-norm
+   statistics included; each sub-phase's wall time printed): (a) the SyncNet
+   scorer (f32, TF32 off) on a 5 s synthetic talking clip (125 frames at
+   224², 16 kHz), card against the CPU port: lip and audio features and the
+   distance matrix within EVAL_TOL in relative L2, the offset (unless the
+   CPU's two smallest mean distances are a near tie) and the confidence;
+   the median ``evaluate_arrays`` and windows per second; (b) HyperIQA
+   (ResNet50, 224²) on the quality gate's 3 sampled frames and a batch of
+   16, card against CPU, frames per second; (c) Inception-I3D at the FVD
+   point (16 × 224², batch 4), logits card against CPU, clips per second,
+   and ``eval_fvd --device cuda`` in a subprocess on two directories of 4
+   synthetic 16-frame clips (a finite FVD tagged ``random``); (d)
+   ``data_processing_pipeline --device cuda --with-quality-gate`` in a
+   subprocess with permissive gates on a 6 s clip and a 12 s one with a hard
+   cut at 6 s (256², ``.wav`` sidecars): three 256² clips with their
+   sidecars, every stage's count, no stage's failure line (the stages
+   swallow a file's exception), the same list from a resumed run in process,
+   then ``eval_sync_conf --device cuda`` over them in process (a finite row a
+   file and the mean); (e) at
+   full width, each ``main()`` in process (``build_pipeline`` answering with
+   phase 4's pipeline): ``validate_fidelity`` on a 1.2 s clip, the exact
+   trajectory against the production point (``weights: random``, gate
+   INCONCLUSIVE, finite confidences, a non-zero ``pixel_delta``; each
+   render's launches read on its own: the exact render's the default
+   configuration's kernels and no other, the production render's the int8
+   configuration's and no other),
+   ``inference_videos --score`` on one pair (the default configuration's
+   kernels and no other) and the trainer's ``run_validation`` on phase 3's
+   UNet (a finite ``val_sync_conf``).
 
 The line before the last is a JSON object with each kernel's launches on
 its path (``"path"``: the served configuration, ``probe``, ``train`` for
@@ -205,7 +234,8 @@ marked ``train`` or ``restoration_train``), ``codeformer`` for the flash
 route at D = 64 (one forward at 4 faces in phase 12 (a); its launches in
 phase 13 beside them) or, for K12, ``kernels``), its largest error
 against the plain version, its time, the plain version's, the library
-call's (or null) and its bound with the resource that sets it. A name
+call's (or null) and its bound with the resource that sets it (K12's
+``at_shapes``: those numbers at each of its three shapes). A name
 appears once, but for the flash route's forward
 (``dot_product_attention``), which has an entry for the served
 configurations and one for ``codeformer``. K5's and K8's entries carry
@@ -220,6 +250,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import io
 import json
 import math
 import os
@@ -292,6 +323,8 @@ EXP_PER_CLOCK_SM = 16
 PROBE_PATH = {"qkv_proj": "probe", "geglu_ffn_int8io": "probe", "oneshot_attention": "probe",
               "flash_attention": "kernels"}
 FLASH_KERNEL_SHAPES = [(64, 1024, 512), (32, 1024, 512), (512, 1024, 128)]
+# kernels whose every shape the kernels line gives (``at_shapes``), not the first alone
+SHAPES_IN_LINE = {"flash_attention"}
 _CORES = {"temporal_attention", "spatial_attention", "dot_product_attention"}
 ON_PATH = {
     "default": _CORES | {"geglu_ffn", "self_attention_block"},
@@ -862,6 +895,10 @@ def check_kernels(device):
             ok &= good
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
             exp_bound = f" exp_bound_ms={exps[0] / exps_per_s * 1e3:.4f}" if exps else ""
+            if name in SHAPES_IN_LINE:
+                entry.setdefault("at_shapes", []).append(
+                    {"shape": label, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
             if i == 0:
                 entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                              bound_by=bound_by)
@@ -3658,6 +3695,411 @@ def check_syncnet_training(root: str, device, counters):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 15: evaluation and data preparation
+# ---------------------------------------------------------------------------
+
+# the evaluation nets in f32 on the card (TF32 off) against the CPU port on the
+# same inputs, relative L2: 10x this phase's first readings on an H100 (lip
+# 2.17e-6, audio 1.54e-6, distances 2.26e-7, HyperIQA 2.2e-7, I3D 4.08e-7;
+# PERF.md §6)
+EVAL_TOL = {"syncnet_lip": 2e-5, "syncnet_aud": 1.5e-5, "syncnet_dists": 2e-6,
+            "hyperiqa": 2e-6, "i3d": 4e-6}
+# the production point validate_fidelity holds against the exact trajectory
+PRODUCTION_FAST = "int8,deepcache=4:1:enc,cfg=0:0.5"
+
+
+def _eval_clip(root: str, name: str, seconds: float, size: int = 320, cut: bool = False,
+               seed: int = SEED):
+    """A synthetic talking head of `seconds` at 25 fps with its ``.wav``
+    sidecar (``make_face_video`` and ``write_speech``); with `cut`, the second
+    half a hard cut away (the colour channels swapped, the head moved). Returns
+    (path, frames)."""
+    import numpy as np
+
+    from latentsync_tpu_torch.utils.media import write_video
+
+    n = int(round(seconds * 25))
+    path = os.path.join(root, f"{name}.mp4")
+    frames = make_face_video(path, n_frames=n, size=size)
+    if cut:
+        half = n // 2
+        frames = frames.copy()
+        frames[half:] = np.roll(frames[half:, ..., ::-1], size // 5, axis=2)
+        write_video(path, frames, fps=25)
+    write_speech(os.path.join(root, f"{name}.wav"), seconds, seed=seed)
+    return path, frames
+
+
+def _median_s(fn, n: int = 5) -> float:
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[n // 2]
+
+
+def check_sync_scorer(root: str, device) -> bool:
+    """Phase 15 (a): the SyncNet scorer (f32, TF32 off, seeded random weights
+    with batch-norm statistics) on a 5 s synthetic talking clip (125 frames
+    at 224², 16 kHz audio), on the card and on the CPU: lip and audio
+    features and the distance matrix in relative L2, the offset under the
+    tie rule, min_dist and the confidence; the median of 5 ``evaluate_arrays``
+    on the card and windows per second."""
+    import numpy as np
+
+    from latentsync_tpu_torch.eval import sync_eval as se
+    from latentsync_tpu_torch.utils.media import read_audio
+
+    path, frames = _eval_clip(root, "scorer", 5.0, size=224)
+    audio = read_audio(path[:-4] + ".wav")
+    card, cpu = se.SyncNetEvaluator(device=device), se.SyncNetEvaluator(device="cpu")
+    t0 = time.time()
+    c_lip, c_aud = cpu.features(frames, audio)
+    cpu_s = time.time() - t0
+    g_lip, g_aud = card.features(frames, audio)
+    c_d = se.pairwise_shift_distances(c_lip, c_aud)
+    g_d = se.pairwise_shift_distances(g_lip, g_aud).cpu()
+    errs = {"syncnet_lip": _rel_l2(g_lip.cpu(), c_lip), "syncnet_aud": _rel_l2(g_aud.cpu(), c_aud),
+            "syncnet_dists": _rel_l2(g_d, c_d)}
+    c_res, g_res = se.offset_and_confidence(c_d), se.offset_and_confidence(g_d)
+    mean = np.sort(c_d.mean(0).numpy())
+    scale = float(c_d.abs().max())
+    # the tie rule: offsets must agree where the CPU's two smallest mean distances
+    # are further apart than the distances' tolerance of its largest distance
+    near = EVAL_TOL["syncnet_dists"] * scale
+    tie = mean[1] - mean[0] <= near
+    good = all(errs[k] <= EVAL_TOL[k] for k in errs) and (tie or g_res[0] == c_res[0])
+    good &= abs(g_res[2] - c_res[2]) <= near and math.isfinite(g_res[2])
+    windows = len(c_lip)
+    med = _median_s(lambda: card.evaluate_arrays(frames, audio))
+    log(f"[{gpu_line()}] SyncNet scorer, 5 s clip ({windows} windows, batch {card.batch_size}): "
+        f"card vs CPU rel L2 lip {errs['syncnet_lip']:.3g} audio {errs['syncnet_aud']:.3g} "
+        f"distances {errs['syncnet_dists']:.3g} (tols {EVAL_TOL['syncnet_lip']}, "
+        f"{EVAL_TOL['syncnet_aud']}, {EVAL_TOL['syncnet_dists']}); "
+        f"(offset, min_dist, conf) card {tuple(round(x, 5) for x in g_res)} CPU "
+        f"{tuple(round(x, 5) for x in c_res)}{' (a near tie: offsets not compared)' if tie else ''}; "
+        f"evaluate_arrays median {med * 1e3:.2f} ms = {windows / med:.1f} windows/s "
+        f"(CPU features {cpu_s:.2f} s) {'ok' if good else 'FAIL'}")
+    return good
+
+
+def check_hyperiqa(frames, device) -> bool:
+    """Phase 15 (b): HyperIQA (ResNet50 at 224², f32, TF32 off, seeded random
+    weights) on the quality gate's 3 evenly spaced frames and on a batch of
+    16, card against CPU; the median of 5 batches of 16 on the card and
+    frames per second."""
+    import numpy as np
+
+    from latentsync_tpu_torch.models.hyper_iqa import HyperIQAScorer
+
+    card, cpu = HyperIQAScorer(device=device), HyperIQAScorer(device="cpu")
+    sampled = frames[np.linspace(0, len(frames) - 1, 3).astype(int)]
+    batch = frames[:16]
+    good, errs = True, []
+    for x in (sampled, batch):
+        got, want = card.score_batch(x), cpu.score_batch(x)
+        err = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        errs.append(err)
+        good &= bool(np.isfinite(got).all()) and err <= EVAL_TOL["hyperiqa"]
+    gate = float(np.mean([card(f) for f in sampled]))
+    med = _median_s(lambda: card.score_batch(batch))
+    log(f"[{gpu_line()}] HyperIQA: card vs CPU rel L2 {errs[0]:.3g} (3 sampled frames), "
+        f"{errs[1]:.3g} (batch 16) (tol {EVAL_TOL['hyperiqa']}); the gate's mean score "
+        f"{gate:.4f}; batch 16 median {med * 1e3:.2f} ms = {16 / med:.1f} frames/s "
+        f"{'ok' if good else 'FAIL'}")
+    return good
+
+
+def check_i3d(root: str, device) -> bool:
+    """Phase 15 (c): Inception-I3D at the FVD point (16 × 224², batch 4, f32,
+    TF32 off, seeded random weights): logits card against CPU, the median of
+    5 batches on the card and clips per second; then ``eval_fvd --device
+    cuda`` in a subprocess on two directories of 4 synthetic 16-frame clips:
+    a finite FVD tagged ``random`` (no I3D weights), with its warning."""
+    import numpy as np
+    import torch
+
+    from latentsync_tpu_torch.models.face_detection import no_tf32
+    from latentsync_tpu_torch.models.i3d import InceptionI3D
+    from latentsync_tpu_torch.utils.convert import init_random_bn_
+    from latentsync_tpu_torch.utils.media import write_video
+
+    cpu = init_random_bn_(InceptionI3D(), seed=0).eval()
+    card = init_random_bn_(InceptionI3D(), seed=0).to(device).eval()
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.rand((4, 3, 16, 224, 224), generator=gen) * 2 - 1
+    with torch.inference_mode():
+        want = cpu(x)
+        with no_tf32(device):
+            xd = x.to(device)
+            got = card(xd).cpu()
+            med = _median_s(lambda: card(xd))
+    err = _rel_l2(got, want)
+    good = bool(torch.isfinite(got).all()) and got.shape == (4, 400) and err <= EVAL_TOL["i3d"]
+    log(f"[{gpu_line()}] I3D (4, 3, 16, 224, 224): card vs CPU logits rel L2 {err:.3g} (tol "
+        f"{EVAL_TOL['i3d']}); median {med * 1e3:.2f} ms = {4 / med:.1f} clips/s "
+        f"{'ok' if good else 'FAIL'}")
+
+    rng = np.random.default_rng(SEED)
+    for name, shift in (("real", 0), ("fake", 50)):
+        os.makedirs(os.path.join(root, name))
+        for i in range(4):
+            clip = rng.integers(shift, 150 + shift, (16, 112, 112, 3), np.uint8)
+            write_video(os.path.join(root, name, f"c{i}.mp4"), clip, fps=25)
+    env = dict(os.environ, LATENTSYNC_I3D_CKPT=os.path.join(root, "no_i3d.pt"))
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "latentsync_tpu_torch.scripts.eval_fvd",
+                           "--real-dir", os.path.join(root, "real"), "--fake-dir",
+                           os.path.join(root, "fake"), "--device", "cuda"],
+                          capture_output=True, text=True, timeout=600, env=env)
+    rows = _json_records(proc.stdout)
+    row = rows[-1] if rows else {}
+    ran = proc.returncode == 0 and math.isfinite(row.get("fvd", math.nan)) \
+        and row.get("i3d_weights") == "random" and row.get("n_real") == row.get("n_fake") == 4 \
+        and "RANDOM weights" in proc.stderr
+    log(f"[{gpu_line()}] eval_fvd --device cuda: exit {proc.returncode}, "
+        f"{time.time() - t0:.1f} s, {row} {'ok' if ran else 'FAIL: ' + proc.stderr[-3000:]}")
+    return good and ran
+
+
+PIPELINE_STAGES = ["decodable", "resampled", "shot", "segmented", "affine_transformed",
+                   "filtered_affined", "av_synced", "high_visual_quality"]
+
+
+def run_data_pipeline(root: str) -> bool:
+    """Phase 15 (d): ``data_processing_pipeline --device cuda
+    --with-quality-gate`` in a subprocess, with the permissive gates of
+    ``tests/test_preprocess_e2e.py`` (``--min-sync-conf=-1e9 --max-av-offset
+    1000000 --min-iqa=-1e9``), on a 6 s synthetic talking clip and a 12 s one
+    with a hard cut at 6 s, each with its ``.wav`` sidecar: three
+    training-ready 256² clips, each with its sidecar, every stage's count
+    printed and no stage's failure line (the stages swallow a file's
+    exception, as in the JAX package); a second run (its ``main()`` in this
+    process) resumes to the same list; then ``eval_sync_conf --device cuda``
+    (in this process) over the output prints one finite row a file and the
+    mean."""
+    from latentsync_tpu_torch.scripts import data_processing_pipeline, eval_sync_conf
+    from latentsync_tpu_torch.utils.media import video_info
+
+    src = os.path.join(root, "raw")
+    os.makedirs(src)
+    _eval_clip(src, "talk", 6.0, size=256)
+    _eval_clip(src, "cut", 12.0, size=256, cut=True, seed=SEED + 1)
+    out, files = os.path.join(root, "data"), os.path.join(root, "files.txt")
+    argv = ["--input", src, "--output", out, "--fileslist", files, "--with-quality-gate",
+            "--min-sync-conf=-1e9", "--max-av-offset", "1000000", "--min-iqa=-1e9",
+            "--device", "cuda"]
+    good, lists = True, []
+    for run in ("first", "resumed"):
+        t0 = time.time()
+        if run == "first":
+            proc = subprocess.run([sys.executable, "-m",
+                                   "latentsync_tpu_torch.scripts.data_processing_pipeline",
+                                   *argv], capture_output=True, text=True, timeout=900)
+            rc, text, err = proc.returncode, proc.stdout, proc.stderr
+        else:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = data_processing_pipeline.main(argv)
+            text, err = buf.getvalue(), ""
+        wall = time.time() - t0
+        counts = [line for line in text.splitlines() if line.startswith("stage ")]
+        listed = open(files).read().split() if os.path.exists(files) else []
+        lists.append(listed)
+        ran = rc == 0 and "failed" not in text \
+            and [c.split(":")[0] for c in counts] == [f"stage {s}" for s in PIPELINE_STAGES] \
+            and len(listed) == 3 and all(os.path.exists(p) and os.path.exists(p[:-4] + ".wav")
+                                         and video_info(p)[:2] == (256, 256) for p in listed)
+        good &= ran
+        per_s = f", {wall / 18.0:.3f} s per input video-second" if run == "first" else ""
+        log(f"[{gpu_line()}] data_processing_pipeline ({run} run"
+            f"{', its own process' if run == 'first' else ', in process'}): exit {rc}, "
+            f"{wall:.1f} s{per_s}; {'; '.join(counts)}; {len(listed)} files "
+            f"{[os.path.basename(p) for p in listed]} "
+            f"{'ok' if ran else 'FAIL: ' + (text + err)[-3000:]}")
+    resumed = lists[0] == lists[1]
+    good &= resumed
+    log(f"the resumed run's list equals the first's: {resumed} {'ok' if resumed else 'FAIL'}")
+    t0 = time.time()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = eval_sync_conf.main(["--dir", os.path.join(out, "high_visual_quality"),
+                                  "--device", "cuda"])
+    rows = _json_records(buf.getvalue())
+    per_file = [r for r in rows if "confidence" in r]
+    ran = rc == 0 and len(per_file) == 3 and "mean_confidence" in rows[-1] \
+        and all(math.isfinite(r["confidence"]) for r in per_file) \
+        and math.isfinite(rows[-1]["mean_confidence"])
+    good &= ran
+    log(f"[{gpu_line()}] eval_sync_conf --device cuda over the output: exit {rc}, "
+        f"{time.time() - t0:.1f} s, {rows} {'ok' if ran else 'FAIL'}")
+    return good
+
+
+@contextlib.contextmanager
+def _serving(pipeline):
+    """``scripts/inference.build_pipeline`` answering with `pipeline` for the
+    duration: the CLIs below build the same full-width model (seeded random
+    weights, no checkpoint files) that phase 9's inference CLI builds in its
+    own process, so they reuse phase 4's instead of drawing 1.3 G weights
+    again."""
+    from latentsync_tpu_torch.scripts import inference
+
+    real = inference.build_pipeline
+    inference.build_pipeline = lambda args, dtype=None: pipeline
+    try:
+        yield
+    finally:
+        inference.build_pipeline = real
+
+
+class _PerRender:
+    """`pipeline` answering as itself, with each call's kernel launches
+    recorded in ``renders`` (name → launches during that call), so that each
+    render of one CLI run is checked on its own."""
+
+    def __init__(self, pipeline, counters):
+        self._pipeline, self._counters, self.renders = pipeline, counters, []
+
+    def __call__(self, *args, **kwargs):
+        before = {fn.__name__: fn.launches for fn in self._counters}
+        out = self._pipeline(*args, **kwargs)
+        self.renders.append({fn.__name__: fn.launches - before[fn.__name__]
+                             for fn in self._counters})
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._pipeline, name)
+
+
+def _counted(launches: dict, want, label: str) -> bool:
+    """Every counted kernel in `want` launched, and no other (`launches`:
+    name → count)."""
+    ok = True
+    for name, n in launches.items():
+        good = n > 0 if name in want else n == 0
+        ok &= good
+        log(f"launches ({label}): {name}={n} "
+            f"{'ok' if good else 'FAIL'}{'' if name in want else ' (must be 0)'}")
+    return ok
+
+
+def run_render_paths(root: str, pipeline, unet, vae, device, counters) -> bool:
+    """Phase 15 (e), at full width (LatentSync 1.5 stage 2, 20 DDIM steps, CFG
+    1.5), each ``main()`` in this process so that the kernel counts can be
+    read: ``validate_fidelity`` on a 1.2 s synthetic talking clip (the exact
+    trajectory against the production point ``int8,deepcache=4:1:enc,cfg=
+    0:0.5``, one pipeline, the switches set per render): ``weights: random``,
+    the gate INCONCLUSIVE, finite confidences, a non-zero ``pixel_delta``,
+    and, each render's launches read on its own, the exact render's the
+    default configuration's kernels and the production render's the int8
+    configuration's, each launched and no other;
+    ``inference_videos --score`` on one pair in the default configuration;
+    and the UNet trainer's ``run_validation`` on phase 3's UNet: a finite
+    ``val_sync_conf``."""
+    import dataclasses
+
+    import torch
+
+    from latentsync_tpu_torch.scripts import inference_videos, train_unet, validate_fidelity
+
+    video, _ = _eval_clip(root, "render", 1.2)
+    audio = video[:-4] + ".wav"
+    ok = True
+    recorder = _PerRender(pipeline, counters)
+    with _serving(recorder), configured("default"):
+        for fn in counters:
+            fn.launches = 0
+        gate_path = os.path.join(root, "gate.json")
+        t0 = time.time()
+        rc = validate_fidelity.main(["--video", video, "--audio", audio, "--fast",
+                                     PRODUCTION_FAST, "--workdir", os.path.join(root, "work"),
+                                     "--out", gate_path])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        row = json.load(open(gate_path)) if os.path.exists(gate_path) else {}
+        good = rc == 0 and row.get("weights") == "random" \
+            and str(row.get("gate", "")).startswith("INCONCLUSIVE") \
+            and all(math.isfinite(row.get(k, math.nan)) for k in ("conf_exact", "conf_fast")) \
+            and row.get("pixel_delta", 0) > 0 and row.get("fast_mode") == PRODUCTION_FAST
+        log(f"[{gpu_line()}] validate_fidelity --fast {PRODUCTION_FAST}: exit {rc}, {wall:.1f} s, "
+            f"{json.dumps(row)} {'ok' if good else 'FAIL'}")
+        # each render on its own: the exact one must launch the default
+        # configuration's kernels and no int8 one, whatever the switches of the
+        # production render or of earlier phases left behind
+        good &= len(recorder.renders) == 2
+        for launches, conf, label in zip(recorder.renders, ("default", "int8"),
+                                         ("exact", "production")):
+            good &= _counted(launches, ON_PATH[conf], f"validate_fidelity, the {label} render")
+        ok &= good
+
+        for fn in counters:
+            fn.launches = 0
+        pairs = os.path.join(root, "pairs.tsv")
+        with open(pairs, "w") as f:
+            f.write(f"{video}\t{audio}\n")
+        t0 = time.time()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = inference_videos.main(["--pairs", pairs, "--out-dir", os.path.join(root, "iv"),
+                                        "--score"])
+        torch.cuda.synchronize()
+        rows = _json_records(buf.getvalue())
+        good = rc == 0 and len(rows) == 1 and rows[0].get("frames") == 32 \
+            and math.isfinite(rows[0].get("confidence", math.nan))
+        log(f"[{gpu_line()}] inference_videos --score: exit {rc}, {time.time() - t0:.1f} s, "
+            f"{rows} {'ok' if good else 'FAIL'}")
+        good &= _counted({fn.__name__: fn.launches for fn in counters}, ON_PATH["default"],
+                         "inference_videos, default configuration")
+        ok &= good
+
+        config = pipeline.config
+        config = dataclasses.replace(config, data=dataclasses.replace(
+            config.data, val_video_path=video, val_audio_path=audio))
+        t0 = time.time()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            conf = train_unet.run_validation(unet, vae, config, os.path.join(root, "val"), 1,
+                                             device, torch.bfloat16)
+        text = buf.getvalue()
+        good = isinstance(conf, float) and math.isfinite(conf) and "failed" not in text \
+            and "skipped" not in text
+        log(f"[{gpu_line()}] run_validation on phase 3's UNet: val_sync_conf {conf}, "
+            f"{time.time() - t0:.1f} s, its lines {text.strip().splitlines()} "
+            f"{'ok' if good else 'FAIL'}")
+        ok &= good
+    return ok
+
+
+def check_evaluation(pipeline, unet, vae, device, counters) -> bool:
+    """Phase 15, sub-phase by sub-phase with its wall time."""
+    ok = True
+    with tempfile.TemporaryDirectory() as root:
+        steps = [("(a) the SyncNet scorer", lambda: check_sync_scorer(root, device)),
+                 ("(b) HyperIQA", lambda: check_hyperiqa(
+                     make_face_video(os.path.join(root, "iqa.mp4"), n_frames=32, size=256),
+                     device)),
+                 ("(c) I3D and eval_fvd", lambda: check_i3d(os.path.join(root, "fvd"), device)),
+                 ("(d) the data pipeline and eval_sync_conf",
+                  lambda: run_data_pipeline(os.path.join(root, "prep"))),
+                 ("(e) the render paths", lambda: run_render_paths(
+                     os.path.join(root, "render"), pipeline, unet, vae, device, counters))]
+        for label, step in steps:
+            t0 = time.time()
+            for sub in ("fvd", "prep", "render"):
+                os.makedirs(os.path.join(root, sub), exist_ok=True)
+            good = step()
+            ok &= good
+            log(f"phase 15 {label}: {time.time() - t0:.1f} s {'ok' if good else 'FAIL'}")
+    return ok
+
+
 def main() -> int:
     try:
         import torch
@@ -3850,6 +4292,14 @@ def main() -> int:
             f"plain versions, train_unet under torch.distributed.run with its resume, the "
             f"SyncNet trainer at full width and its two CLIs; {time.time() - t0:.0f} s): "
             f"{'ok' if good else 'FAIL'}")
+        phase = "evaluation and data preparation"
+        t0 = time.time()
+        good = check_evaluation(pipeline, unet, vae, device, counters)
+        ok &= good
+        log(f"phase 15 (evaluation and data preparation: the SyncNet scorer, HyperIQA and I3D "
+            f"against the CPU, eval_fvd, the eight-stage pipeline and eval_sync_conf, "
+            f"validate_fidelity, inference_videos and the trainer's validation at full width; "
+            f"{time.time() - t0:.0f} s): {'ok' if good else 'FAIL'}")
         train_paths = {"cross_attention_block": "fused", "quantized_matmul": "int8-dense"}
         for k in kernels:
             if k["name"] in train_paths:

@@ -61,6 +61,61 @@ def nms(boxes: np.ndarray, scores: np.ndarray, thresh: float = 0.3) -> List[int]
     return keep
 
 
+def bounding_box_iou(a, b) -> float:
+    """ref:eval/syncnet_detect.py:239-251."""
+    xx1, yy1 = max(a[0], b[0]), max(a[1], b[1])
+    xx2, yy2 = min(a[2], b[2]), min(a[3], b[3])
+    inter = max(0, xx2 - xx1) * max(0, yy2 - yy1)
+    union = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
+    return inter / (union + 1e-9)
+
+
+def iou_tracking(detections: List[np.ndarray], min_track: int = 11, iou_thresh: float = 0.5,
+                 num_failed_det: int = 25, min_face_size: float = 0.0) -> List[dict]:
+    """Greedy IoU face tracking with the reference's stitching
+    (ref:eval/syncnet_detect.py:108-148 track_face): each pass takes one
+    track, which tolerates up to `num_failed_det` missed frames between
+    detections; gaps are filled by per-coordinate linear interpolation, and
+    tracks of `min_track` frames or fewer, or whose mean box is no larger
+    than `min_face_size` px, are dropped.
+
+    detections: per-frame arrays of (x1, y1, x2, y2[, conf]) rows. Returns
+    [{"frames": [int], "boxes": [np.ndarray(4) f32]}] over consecutive
+    frames. A detection joins a track by identity (the JAX package's
+    ``list.remove`` compares arrays by value and raises where a later face
+    of a frame matches before an earlier one; elsewhere the two agree)."""
+    remaining = [[np.asarray(d, np.float64) for d in dets] for dets in detections]
+    tracks: List[dict] = []
+    while True:
+        track: List[tuple] = []  # (frame, box)
+        for f, faces in enumerate(remaining):
+            for face in list(faces):
+                if not track:
+                    track.append((f, face[:4]))
+                    faces[:] = [x for x in faces if x is not face]
+                elif f - track[-1][0] <= num_failed_det:
+                    if bounding_box_iou(face[:4], track[-1][1]) > iou_thresh:
+                        track.append((f, face[:4]))
+                        faces[:] = [x for x in faces if x is not face]
+                        continue
+                else:
+                    break
+        if not track:
+            break
+        if len(track) > min_track:
+            framenum = np.array([f for f, _ in track])
+            bboxes = np.array([b for _, b in track])
+            frame_i = np.arange(framenum[0], framenum[-1] + 1)
+            bboxes_i = np.stack([np.interp(frame_i, framenum, bboxes[:, c]) for c in range(4)],
+                                axis=1)
+            mean_w = np.mean(bboxes_i[:, 2] - bboxes_i[:, 0])
+            mean_h = np.mean(bboxes_i[:, 3] - bboxes_i[:, 1])
+            if max(mean_w, mean_h) > min_face_size:
+                tracks.append({"frames": [int(f) for f in frame_i],
+                               "boxes": [b.astype(np.float32) for b in bboxes_i]})
+    return tracks
+
+
 # ---------------------------------------------------------------------------
 # S3FD
 # ---------------------------------------------------------------------------

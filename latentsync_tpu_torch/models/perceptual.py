@@ -82,3 +82,60 @@ class LPIPS(nn.Module):
             w = F.conv2d(d, head.model[1].weight.to(d.dtype))
             total = total + w.mean(dim=(1, 2, 3))
         return total
+
+
+# ---------------------------------------------------------------------------
+# FVD
+# ---------------------------------------------------------------------------
+
+
+def frechet_distance(feats_a, feats_b) -> float:
+    """The FVD / FID statistic ||mu_a - mu_b||² + Tr(Ca + Cb - 2 (Ca Cb)^½) of
+    two (N, D) feature sets, in float64 on the host (ref:eval/fvd.py:9-25;
+    ``scipy.linalg.sqrtm`` of the covariance product, its real part)."""
+    import numpy as np
+    import scipy.linalg
+
+    feats_a, feats_b = np.asarray(feats_a), np.asarray(feats_b)
+    diff = feats_a.mean(0) - feats_b.mean(0)
+    ca = np.cov(feats_a, rowvar=False)
+    cb = np.cov(feats_b, rowvar=False)
+    covmean = scipy.linalg.sqrtm(ca @ cb)
+    if isinstance(covmean, tuple):  # SciPy releases that return (sqrtm, error)
+        covmean = covmean[0]
+    if np.iscomplexobj(covmean):
+        covmean = covmean.real
+    return float(diff @ diff + np.trace(ca) + np.trace(cb) - 2 * np.trace(covmean))
+
+
+class I3DFeatures(nn.Module):
+    """The JAX package's minimal 3D-conv feature tower for FVD where no I3D
+    weights exist: four 3×3×3 convolutions (64, 128, 256, 512 channels;
+    strides (1,2,2) then (2,2,2)), each with GroupNorm (min(32, C/4) groups,
+    eps 1e-6) and ReLU, a mean over space and time and a linear head.
+    (B, 3, T, H, W) in [-1, 1] → (B, feature_dim)."""
+
+    def __init__(self, feature_dim: int = 400):
+        super().__init__()
+        cin = 3
+        for i, (ch, stride) in enumerate([(64, (1, 2, 2)), (128, (2, 2, 2)),
+                                          (256, (2, 2, 2)), (512, (2, 2, 2))]):
+            self.add_module(f"conv{i}", nn.Conv3d(cin, ch, 3, stride, 1))
+            self.add_module(f"norm{i}", nn.GroupNorm(min(32, ch // 4), ch, eps=1e-6))
+            cin = ch
+        self.head = nn.Linear(512, feature_dim)
+
+    def forward(self, video: torch.Tensor) -> torch.Tensor:
+        x = video
+        for i in range(4):
+            x = F.relu(getattr(self, f"norm{i}")(getattr(self, f"conv{i}")(x)))
+        return self.head(x.mean(dim=(2, 3, 4)))
+
+
+def compute_fvd(feats_fake, feats_real) -> float:
+    """ref:eval/fvd.py compute_our_fvd: the Fréchet distance of two feature
+    sets (tensors or arrays)."""
+    def host(f):
+        return f.detach().float().cpu().numpy() if isinstance(f, torch.Tensor) else f
+
+    return frechet_distance(host(feats_fake), host(feats_real))

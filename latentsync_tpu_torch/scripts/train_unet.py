@@ -22,10 +22,11 @@ and VideoMAEv2-giant files. The card unless ``--device cpu``. Under
 on its share of the batch and its own card (``parallel/mesh.py``); a rank
 beyond them says so and exits 0; rank 0 alone prints, saves and validates.
 Validation runs the port's ``LipsyncPipeline`` on the config's val pair at
-each checkpoint; SyncNet *scoring* of it waits for the port of eval, and the
-line says so. At the end the train losses (and validation scores, where
-there are any) are drawn to ``loss_chart.png``, best-effort as in the JAX
-CLI.
+each checkpoint and scores the render with the SyncNet scorer
+(``eval/sync_eval.py``, seeded random weights as in the JAX CLI), printing
+``val_sync_conf``. At the end the train losses and the validation scores
+(where there are any) are drawn to ``loss_chart.png``, best-effort as in
+the JAX CLI.
 """
 
 from __future__ import annotations
@@ -104,9 +105,10 @@ def _build_models(config, args, device, dtype):
 
 
 def run_validation(unet, vae, config, output_dir: str, step: int, device, dtype):
-    """The full inference pipeline on the config's val pair at a checkpoint
-    (ref:scripts/train_unet.py:459-494); skipped where the pair is absent.
-    Never raises: validation must not stop training."""
+    """The full inference pipeline on the config's val pair at a checkpoint,
+    its render scored by the SyncNet scorer (ref:scripts/train_unet.py:459-494);
+    returns the sync confidence, or None where the pair is absent or a step
+    failed. Never raises: validation must not stop training."""
     vp, ap = config.data.val_video_path, config.data.val_audio_path
     if not (vp and ap and os.path.isfile(vp) and os.path.isfile(ap)):
         return None
@@ -130,11 +132,18 @@ def run_validation(unet, vae, config, output_dir: str, step: int, device, dtype)
         out = os.path.join(out_dir, f"step_{step:08d}.mp4")
         pipe(vp, ap, out, num_inference_steps=config.run.inference_steps,
              guidance_scale=config.run.guidance_scale, seed=config.run.seed)
-        print("val sync scoring skipped: SyncNet scoring (eval) is not ported yet")
-        print(json.dumps({"val_step": step, "val_video": out, "val_sync_conf": None}))
+        conf = None
+        try:
+            from ..eval.sync_eval import SyncNetEvaluator
+
+            conf = float(SyncNetEvaluator(device=device).evaluate(out)[2])
+        except Exception as e:  # noqa: BLE001 — scoring must not kill training
+            print(f"val sync scoring skipped: {e}")
+        print(json.dumps({"val_step": step, "val_video": out, "val_sync_conf": conf}))
+        return conf
     except Exception as e:  # noqa: BLE001 — validation must not kill training
         print(f"validation failed at step {step}: {e}")
-    return None
+        return None
 
 
 def main(argv=None) -> int:
@@ -206,7 +215,7 @@ def _train(args, config, place, device, dtype) -> int:
                             host_id=place.rank, num_hosts=place.dp)
     max_steps = args.max_steps or config.run.max_train_steps
     fixed = None
-    losses = []
+    losses, val_confs = [], []
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.time()
@@ -243,7 +252,10 @@ def _train(args, config, place, device, dtype) -> int:
             if global_step % config.run.save_ckpt_steps == 0 and main:
                 save_checkpoint(args.output_dir, global_step, trainer.params,
                                 trainer.optimizer.state_dict())
-                run_validation(unet, vae, config, args.output_dir, global_step, device, dtype)
+                conf = run_validation(unet, vae, config, args.output_dir, global_step, device,
+                                      dtype)
+                if conf is not None:
+                    val_confs.append((global_step, conf))
             if global_step >= max_steps:
                 break
     finally:
@@ -253,12 +265,15 @@ def _train(args, config, place, device, dtype) -> int:
     print(json.dumps({"saved": save_checkpoint(args.output_dir, global_step, trainer.params,
                                                trainer.optimizer.state_dict()),
                       "step": global_step}))
-    if losses:
+    if losses or val_confs:
         try:
             from ..utils.observability import plot_loss_chart
 
-            plot_loss_chart(os.path.join(args.output_dir, "loss_chart.png"),
-                            ("train_loss", [s for s, _ in losses], [v for _, v in losses]))
+            series = [("train_loss", [s for s, _ in losses], [v for _, v in losses])]
+            if val_confs:
+                series.append(("val_sync_conf", [s for s, _ in val_confs],
+                               [v for _, v in val_confs]))
+            plot_loss_chart(os.path.join(args.output_dir, "loss_chart.png"), *series)
         except Exception as e:  # noqa: BLE001 — charting is best-effort
             print(f"loss chart failed: {e}")
     return 0

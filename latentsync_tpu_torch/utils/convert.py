@@ -18,7 +18,11 @@ nets: ``convert_stable_syncnet``, ``models/perceptual.py``
 ``rrdbnet``, ``arcface``) invert ``utils/convert_codeformer.py``
 ``convert_codeformer``, ``convert_bisenet`` and the converters in
 ``models/{retinaface,yolov5face,parsing,rrdbnet}.py``, into basicsr's and
-facelib's layouts.
+facelib's layouts. The evaluation nets' (``syncnet_s``, ``hyperiqa``,
+``i3d``) invert ``convert_eval.convert_syncnet_s``,
+``models/hyper_iqa.py`` ``convert_hyperiqa`` and ``models/i3d.py``
+``convert_i3d``, into upstream's and piergiaj's layouts; ``init_random_bn_``
+fills their batch-norm statistics too.
 """
 
 from __future__ import annotations
@@ -164,9 +168,9 @@ def _state_dict(variables, module_name) -> Dict[str, torch.Tensor]:
     """Flax variables (params, and batch_stats where present) → a state
     dict, each array in its own dtype, where `module_name` maps a module
     path (a tuple) to its torch name: conv kernels (kh, kw, I, O) become
-    (O, I, kh, kw), dense kernels (I, O) become (O, I), norm ``scale``
-    becomes ``weight`` and the batch statistics ``mean`` / ``var`` the
-    running ones."""
+    (O, I, kh, kw) and (kt, kh, kw, I, O) become (O, I, kt, kh, kw), dense
+    kernels (I, O) become (O, I), norm ``scale`` becomes ``weight`` and the
+    batch statistics ``mean`` / ``var`` the running ones."""
     if "params" not in variables:
         variables = {"params": variables}
     sd = {}
@@ -174,7 +178,8 @@ def _state_dict(variables, module_name) -> Dict[str, torch.Tensor]:
         for path, w in _flatten(variables.get(coll, {})):
             leaf = path[-1]
             if leaf == "kernel":
-                name, w = "weight", (np.transpose(w, (3, 2, 0, 1)) if w.ndim == 4 else w.T)
+                name, w = "weight", (np.transpose(w, (4, 3, 0, 1, 2)) if w.ndim == 5 else
+                                     np.transpose(w, (3, 2, 0, 1)) if w.ndim == 4 else w.T)
             else:
                 name = _BN_LEAF.get(leaf, leaf)
             sd[f"{module_name(path[:-1])}.{name}"] = torch.from_numpy(np.ascontiguousarray(w))
@@ -335,6 +340,23 @@ def init_random_(module: nn.Module, seed: int) -> nn.Module:
         else:
             v = _BIAS_STD * torch.randn(p.shape, generator=g)
         p.copy_(v)
+    return module
+
+
+@torch.no_grad()
+def init_random_bn_(module: nn.Module, seed: int) -> nn.Module:
+    """``init_random_``, then every batch norm's scale 1 + N(0, 0.1²), running
+    mean N(0, 0.1²) and running variance 1 + |N(0, 0.3²)| (drawn from
+    ``seed + 1`` in module order): the evaluation nets' seeded random
+    weights, statistics included, the same on every device."""
+    init_random_(module, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    for m in module.modules():
+        if isinstance(m, nn.modules.batchnorm._BatchNorm):
+            m.weight.copy_(1.0 + _NORM_STD * torch.randn(m.weight.shape, generator=g))
+            m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape, generator=g))
+            m.running_var.copy_(1.0 + (0.3 * torch.randn(m.running_var.shape,
+                                                          generator=g)).abs())
     return module
 
 
@@ -562,3 +584,85 @@ def arcface_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
         k = re.sub(r"(^|\.)prelu_alpha$", r"\1prelu.weight", k)
         renamed[re.sub(r"fc_1_alpha$", "fc.1.weight", k)] = v
     return renamed
+
+
+# ---------------------------------------------------------------------------
+# evaluation: the SyncNet scorer, HyperIQA and I3D
+# ---------------------------------------------------------------------------
+
+# upstream nn.Sequential index of each conv of the scorer's towers (its batch
+# norm follows at the next index; ref:eval/syncnet/syncnet.py:26-86)
+_SYNCNET_S_CONV = (0, 4, 8, 11, 14, 18)
+_SYNCNET_S_FC = {"fc1": 0, "bn": 1, "fc2": 3}
+
+
+def _syncnet_s_module(path: Tuple[str, ...]) -> str:
+    tower, part = path[0].split("_", 1)
+    if part.isdigit():
+        idx = _SYNCNET_S_CONV[int(part)] + (path[1] == "bn")
+        return f"netcnn{tower}.{idx}"
+    return f"netfc{tower}.{_SYNCNET_S_FC[part]}"
+
+
+def syncnet_s_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``SyncNetS`` variables ({"params", "batch_stats"}) → the port's
+    scorer state dict in the upstream ``syncnet_v2.model`` layout (without its
+    ``__S__.`` prefix), running statistics included: the inverse of
+    ``latentsync_tpu/utils/convert_eval.py`` ``convert_syncnet_s``."""
+    return _state_dict(variables, _syncnet_s_module)
+
+
+def _hyperiqa_module(path: Tuple[str, ...]) -> str:
+    head = path[0]
+    if head == "res":
+        rest = path[1:]
+        m = re.fullmatch(r"(layer\d)_(\d+)", rest[0])
+        if not m:
+            return f"res.{rest[0]}"
+        sub = {"ds_conv": "downsample.0", "ds_bn": "downsample.1"}.get(rest[1], rest[1])
+        return f"res.{m.group(1)}.{m.group(2)}.{sub}"
+    m = re.fullmatch(r"lda(\d)_(conv|fc)", head)
+    if m:
+        return f"res.lda{m.group(1)}_pool.0" if m.group(2) == "conv" else f"res.{head}"
+    m = re.fullmatch(r"conv1_(\d)", head)
+    return f"conv1.{m.group(1)}" if m else head
+
+
+# channels of the lda heads whose pooled maps are flattened into lda{1,2,3}_fc
+_LDA_CHANNELS = {"res.lda1_fc.weight": 16, "res.lda2_fc.weight": 32, "res.lda3_fc.weight": 64}
+
+
+def lda_columns_hwc_to_chw(weight: torch.Tensor, channels: int) -> torch.Tensor:
+    """An (out, H·W·C) dense weight whose columns follow a channels-last
+    flatten → the same weight for upstream's NCHW flatten (columns C·H·W)."""
+    out, n = weight.shape
+    side = int(round((n // channels) ** 0.5))
+    return weight.reshape(out, side, side, channels).permute(0, 3, 1, 2).reshape(out, n)
+
+
+def hyperiqa_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``HyperIQA`` variables → the port's state dict in the upstream
+    HyperNet layout (``koniq_pretrained.pkl``: ``res.*`` backbone with
+    ``res.ldaN_pool.0`` / ``res.ldaN_fc``, ``conv1.{0,2,4}``, ``fcNw_conv``,
+    ``fcNb_fc``, ``fc5w_fc``, ``fc5b_fc``). The JAX module flattens its
+    pooled lda maps channels-last, where upstream flattens NCHW, so the
+    columns of ``lda{1,2,3}_fc`` are permuted from (H, W, C) to (C, H, W)
+    order: the port computes what the JAX module computes, in upstream's
+    layout. (``convert_hyperiqa`` copies those columns unpermuted, so the JAX
+    module on upstream's own file computes another function than upstream.)"""
+    sd = _state_dict(variables, _hyperiqa_module)
+    for key, ch in _LDA_CHANNELS.items():
+        sd[key] = lda_columns_hwc_to_chw(sd[key], ch).contiguous()
+    return sd
+
+
+def _i3d_module(path: Tuple[str, ...]) -> str:
+    return ".".join(("logits",) + path[1:] if path[0] == "Logits" else path)
+
+
+def i3d_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``InceptionI3D`` variables → the port's state dict in piergiaj's
+    ``pytorch-i3d`` naming (``Conv3d_1a_7x7.conv3d.weight``,
+    ``Mixed_3b.b1a.bn.running_mean``, ``logits.conv3d.bias``): the inverse of
+    ``latentsync_tpu/models/i3d.py`` ``convert_i3d``."""
+    return _state_dict(variables, _i3d_module)

@@ -15,7 +15,9 @@ raised in the caller's thread.
 
 from __future__ import annotations
 
+import fractions
 import functools
+import json
 import os
 import queue
 import shutil
@@ -38,20 +40,38 @@ def _run(cmd, **kw):
     return subprocess.run(cmd, check=True, capture_output=True, **kw)
 
 
-def _probe_ffmpeg(path: str) -> Tuple[int, int, float]:
-    import json
+def video_info(path: str) -> Tuple[int, int, float, int]:
+    """(width, height, fps, frame count): ffprobe's, the count estimated from
+    the duration where the stream does not state it; where there is no
+    ffmpeg, OpenCV's (the fps rounded to a fraction of denominator at most
+    1001, as ffprobe states it)."""
+    if have_ffmpeg():
+        info = json.loads(_run(["ffprobe", "-v", "error", "-print_format", "json",
+                                "-show_streams", "-show_format", str(path)]).stdout)
+        vs = next(s for s in info["streams"] if s["codec_type"] == "video")
+        num, den = vs["r_frame_rate"].split("/")
+        fps = float(num) / float(den)
+        nb = int(vs.get("nb_frames", 0) or 0)
+        if not nb:
+            nb = int(round(float(info.get("format", {}).get("duration", 0) or 0) * fps))
+        return int(vs["width"]), int(vs["height"]), fps, nb
+    import cv2
 
-    info = json.loads(_run(["ffprobe", "-v", "error", "-print_format", "json",
-                            "-show_streams", str(path)]).stdout)
-    vs = next(s for s in info["streams"] if s["codec_type"] == "video")
-    num, den = vs["r_frame_rate"].split("/")
-    return int(vs["width"]), int(vs["height"]), float(num) / float(den)
+    cap = cv2.VideoCapture(str(path))
+    if not cap.isOpened():
+        raise IOError(f"cannot open {path}")
+    fps = cap.get(cv2.CAP_PROP_FPS) or 25.0
+    info = (int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)), int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)),
+            float(fractions.Fraction(fps).limit_denominator(1001)),
+            int(cap.get(cv2.CAP_PROP_FRAME_COUNT)))
+    cap.release()
+    return info
 
 
 def read_video(path: str, change_fps: bool = True, fps: int = 25) -> np.ndarray:
     """Decode to (F, H, W, 3) uint8 RGB, optionally resampled to `fps`."""
     if have_ffmpeg():
-        w, h, src_fps = _probe_ffmpeg(path)
+        w, h, src_fps, _ = video_info(path)
         cmd = ["ffmpeg", "-nostdin", "-v", "error", "-i", str(path)]
         if change_fps and abs(src_fps - fps) > 1e-3:
             cmd += ["-vf", f"fps={fps}"]
@@ -118,6 +138,22 @@ def write_audio(path: str, samples: np.ndarray, sample_rate: int = 16000) -> Non
 
     wavfile.write(str(path), sample_rate,
                   np.clip(samples * 32768.0, -32768, 32767).astype(np.int16))
+
+
+def write_video(path: str, frames: np.ndarray, fps: int = 25,
+                audio_path: Optional[str] = None) -> str:
+    """Encode (F, H, W, 3) uint8 RGB to an ``.mp4`` in one call (the
+    `StreamingVideoWriter` without its thread's overlap): H.264 with the
+    audio muxed where there is ffmpeg, else OpenCV mp4v with the audio as
+    the ``.wav`` sidecar. Returns the path written."""
+    frames = np.asarray(frames)
+    writer = StreamingVideoWriter(path, fps, frames.shape[1:3], audio_path=audio_path)
+    try:
+        writer.append(frames)
+    except BaseException:
+        writer.abort()
+        raise
+    return writer.close()
 
 
 class StreamingVideoWriter:
