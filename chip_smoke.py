@@ -150,8 +150,8 @@ and without CUDA it exits nonzero before doing anything):
    autoencoder at 4 faces, finite and timed; (c) RetinaFace (mobile0.25,
    resnet50), YOLOv5-face (n, l), ParseNet and BiSeNet in f32 (TF32 off)
    within NET_F32_TOL of the port on the CPU, RRDBNet x2 in bf16 within
-   UNET_TOL; (d) ``inference_codeformer --device cuda`` in a subprocess on
-   two synthetic 720p PNGs and an 8-frame ``.mp4``, then
+   UNET_TOL; (d) ``inference_codeformer --device cuda`` (its ``main`` in
+   process) on two synthetic 720p PNGs and an 8-frame ``.mp4``, then
    ``inference_vqgan`` and ``crop_align_face``, each output of the input's
    (or the requested) shape;
 13. restoration training at full width (``CodeFormer()``, the 512²
@@ -172,8 +172,8 @@ and without CUDA it exits nonzero before doing anything):
    target codes equal, and with the CPU's target codes the loss within
    RESTORE_LOSS_TOL and the transformer's gradients within
    RESTORE_GRAD_TOL in relative L2 (the free-running loss and gradients printed); (d) ``train_restoration`` with a copy of
-   ``options/codeformer_stage2.yaml`` naming the faces, 2 steps in a
-   subprocess, and ``generate_latent_gt`` on 4 faces;
+   ``options/codeformer_stage2.yaml`` naming the faces, 2 steps, and
+   ``generate_latent_gt`` on 4 faces, each ``main`` in process;
 14. the rest of training: (a) the gradients this slice adds against the
    plain composition's autograd on the card (K5 at the training forward's
    two fused shapes, K8 through ``dense_with_params`` at its 15 training
@@ -186,16 +186,17 @@ and without CUDA it exits nonzero before doing anything):
    plain version (K5 and K8 included): loss and per-group gradient
    distances, 100 % finite non-zero trainable gradients, the kernels of
    each path launched (K5 10 times, K8 360 at the shapes (a) checked) and no
-   other, peak memory, the median of 3 warm steps; (c) ``train_unet`` under
-   ``LATENTSYNC_INT8=1`` launched by ``python -m torch.distributed.run
-   --nproc_per_node 1`` (NCCL, world size 1), resuming phase 11 (c)'s
-   step-4 checkpoint for 2 steps, its loss chart written; (d) the SyncNet trainer
+   other, peak memory, the median of 3 warm steps; (c) ``train_unet``'s
+   ``main`` under ``LATENTSYNC_INT8=1`` in process, in the environment
+   ``python -m torch.distributed.run --nproc_per_node 1`` gives it (NCCL,
+   world size 1), resuming phase 11 (c)'s step-4 checkpoint for 2 steps, its
+   loss chart written; (d) the SyncNet trainer
    at full width (``configs/syncnet_16_pixel_attn.yaml``, batch 32, bf16)
    on seeded synthetic clips: warm steps, peak memory, ``sat_frac``, one
    step at batch 2 on the card in f32 and in bf16 against f32 on the CPU,
    ``train_syncnet`` for 4 steps with validation every 2 (chart,
    checkpoints with both loss histories) and a ``--resume`` step, and
-   ``eval_syncnet_acc``;
+   ``eval_syncnet_acc``, each ``main`` in process;
 15. evaluation and data preparation (seeded random weights, batch-norm
    statistics included; each sub-phase's wall time printed): (a) the SyncNet
    scorer (f32, TF32 off) on a 5 s synthetic talking clip (125 frames at
@@ -224,7 +225,28 @@ and without CUDA it exits nonzero before doing anything):
    configuration's and no other),
    ``inference_videos --score`` on one pair (the default configuration's
    kernels and no other) and the trainer's ``run_validation`` on phase 3's
-   UNet (a finite ``val_sync_conf``).
+   UNet (a finite ``val_sync_conf``);
+16. the last modules: (a) ``scripts/mesh_serving.py`` under ``python
+   -m torch.distributed.run`` over every card of the machine (NCCL; one
+   card: world 1, dp 1 × tp 1) at full width, CFG 1.5, bf16, a window a
+   card (at least MESH_WINDOWS_MIN), in the default configuration (20
+   steps), then in the fused and int8-dense ones (MESH_CONFIG_STEPS steps,
+   the two launches at once): every dp × tp layout's UNet forward and
+   window batch within MESH_TOL of the single-rank run in relative L2
+   (bitwise printed), each rank's kernel launches a forward those of the
+   single-rank forward at its shape, and every kernel of the
+   configuration's UNet (MESH_ON_PATH: K1-K4; K5-K7; K8 and the int8
+   convolution route) launched; (b) the landmark
+   trainer (``train_landmark_fallback``, 1 module × 128 features, batch 16)
+   for LANDMARK_STEPS steps on LANDMARK_FACES rendered faces (its default
+   draws 4000), its ``main`` in process: the loss falls, the NME is
+   printed, the saved asset loads through the port's FAN detector; two
+   steps from one model on the card and on the CPU (f32, TF32 off, the same
+   batch indices) agree (LANDMARK_TOL); (c) ``ops/deform_conv.py`` and
+   ``ops/upfirdn.py`` on the card against their CPU runs (CV_TOL), timed;
+   (d) ``perf_probe`` on phase 4's pipeline and ``transport_probe``, in
+   process, their lines printed: the FLOP count of the kernels' plain
+   versions on the meta device within 1e-3 of ``op_tally``'s.
 
 The line before the last is a JSON object with each kernel's launches on
 its path (``"path"``: the served configuration, ``probe``, ``train`` for
@@ -242,7 +264,10 @@ configurations and one for ``codeformer``. K5's and K8's entries carry
 ``train_launches``, their launches in phase 14 (b)'s fused and int8-dense
 steps, K9's ``train_launches`` 0 (no trainer calls it) beside its
 launches under grad in phase 14 (a), and K1's its launches in a SyncNet
-step. The last line is the device record.
+step. K1-K8 carry ``mesh_launches``: a forward's launches on rank 0 of
+phase 16 (a)'s first layout in ``mesh_path``, the first of the default,
+fused and int8-dense configurations that serves them. The last line is
+the device record.
 """
 
 from __future__ import annotations
@@ -260,6 +285,7 @@ import tempfile
 import threading
 import time
 import traceback
+import types
 import urllib.request
 
 SEED = 1247
@@ -2455,47 +2481,6 @@ def check_function_grads(device) -> bool:
     return ok
 
 
-@contextlib.contextmanager
-def plain_kernels():
-    """Every kernel wrapper with a gradient runs its plain version on the card
-    for the duration (the forwards of K1-K5, K8 and the flash route, the
-    flash route's backward); the Functions and their composed or
-    straight-through backwards stay."""
-    from latentsync_tpu_torch.ops import attention, attn_block, ffn, qconv, qmm
-    from latentsync_tpu_torch.ops import temporal_attention as ta
-
-    def k1(x, w_up, b_up, w_down, b_down, ln_scale, ln_bias, residual, eps):
-        return ffn.geglu_ffn_reference(x, w_up, b_up, w_down, b_down, ln_scale, ln_bias,
-                                       residual, eps)
-
-    def flash_forward(q, k, v, scale, with_lse=False):
-        o = attention.dot_product_attention_reference(q, k, v, scale)
-        return (o, None) if with_lse else o
-
-    def flash_backward(q, k, v, grad, scale, o=None, lse=None):
-        return attention.flash_attention_bwd_reference(q, k, v, grad, scale)
-
-    patches = [(ffn, "_geglu_ffn_kernel", k1),
-               (attn_block, "self_attention_block_fused",
-                attn_block.self_attention_block_reference),
-               (ta, "_temporal_kernel", ta.temporal_attention_reference),
-               (ta, "_spatial_kernel", lambda q, k, v, heads, scale, block_q:
-                ta.spatial_attention_reference(q, k, v, heads, scale)),
-               (attention, "_flash_forward", flash_forward),
-               (attention, "flash_attention_bwd", flash_backward),
-               (attn_block, "cross_attention_block_fused",
-                attn_block.cross_attention_block_reference),
-               (qconv, "quantized_matmul", qmm.quantized_matmul_reference)]
-    old = [(m, n, getattr(m, n)) for m, n, _ in patches]
-    for m, n, fn in patches:
-        setattr(m, n, fn)
-    try:
-        yield
-    finally:
-        for m, n, fn in old:
-            setattr(m, n, fn)
-
-
 def _train_batch(cfg):
     """One synthetic stage-2 batch in the data source's layout (batch 1)."""
     import numpy as np
@@ -2561,6 +2546,7 @@ def check_train_step(unet, vae, device, counters):
 
     from latentsync_tpu_torch.config import LatentSyncConfig
     from latentsync_tpu_torch.ops import _build
+    from latentsync_tpu_torch.ops.plain import plain_kernels
     from latentsync_tpu_torch.training.unet_trainer import UNetTrainer
 
     bf = torch.bfloat16
@@ -2803,6 +2789,7 @@ def check_codeformer(device, counters):
 
     from latentsync_tpu_torch.models import codeformer as cf
     from latentsync_tpu_torch.ops import attention
+    from latentsync_tpu_torch.ops.plain import plain_kernels
     from latentsync_tpu_torch.utils.convert import init_random_
 
     ok = True
@@ -2961,8 +2948,8 @@ def _write_faces(root: str, n: int, hw) -> list:
 
 
 def run_restoration_clis(root: str) -> bool:
-    """Phase 12 (d): the restoration CLIs in subprocesses on the card (seeded
-    random weights: no checkpoint files): ``inference_codeformer`` on two
+    """Phase 12 (d): the restoration CLIs on the card, each ``main`` in process
+    (seeded random weights: no checkpoint files): ``inference_codeformer`` on two
     synthetic 720p PNGs and an 8-frame ``.mp4``, ``inference_vqgan`` and
     ``crop_align_face``; each exits 0 and writes outputs of the expected
     shapes."""
@@ -2976,17 +2963,13 @@ def run_restoration_clis(root: str) -> bool:
     for i in range(8):
         writer.write(cv2.resize(cv2.imread(paths[i % 2]), (640, 360)))
     writer.release()
-    here = os.path.dirname(os.path.abspath(__file__))
     ckpt = os.path.join(root, "none.pth")
 
     def run(module, *args):
-        t0 = time.time()
-        proc = subprocess.run([sys.executable, "-m", f"latentsync_tpu_torch.scripts.{module}",
-                               *args, "--device", "cuda"], capture_output=True, text=True,
-                              timeout=600, cwd=here)
-        if proc.returncode:
-            log(proc.stderr[-3000:])
-        return proc.returncode, time.time() - t0
+        rc, stdout, err, wall = run_main(module, [*args, "--device", "cuda"])
+        if rc:
+            log((err or stdout)[-3000:])
+        return rc, wall
 
     def shape(path):
         img = cv2.imread(path)
@@ -3207,9 +3190,9 @@ def check_stage2_against_cpu(root: str, device) -> bool:
 def run_restoration_train_clis(root: str, faces: str) -> bool:
     """Phase 13 (d): ``train_restoration`` on a copy of
     ``options/codeformer_stage2.yaml`` whose ``dataroot_gt`` names the faces,
-    2 steps in its own process (JSON lines, the EMA checkpoint), and
-    ``generate_latent_gt`` on 4 faces (seeded random weights: 16 × 16 codes
-    of each face and its flip)."""
+    2 steps (JSON lines, the EMA checkpoint), and ``generate_latent_gt`` on 4
+    faces (seeded random weights: 16 × 16 codes of each face and its flip),
+    each ``main`` in process."""
     import numpy as np
     import yaml
 
@@ -3222,12 +3205,10 @@ def run_restoration_train_clis(root: str, faces: str) -> bool:
         yaml.safe_dump(opt, f)
 
     def run(module, *args):
-        t0 = time.time()
-        proc = subprocess.run([sys.executable, "-m", f"latentsync_tpu_torch.scripts.{module}",
-                               *args], capture_output=True, text=True, timeout=600, cwd=here)
-        if proc.returncode:
-            log(proc.stderr[-3000:])
-        return proc, time.time() - t0
+        rc, stdout, err, wall = run_main(module, args)
+        if rc:
+            log((err or stdout)[-3000:])
+        return types.SimpleNamespace(returncode=rc, stdout=stdout), wall
 
     ok = True
     ck = os.path.join(root, "option_ck")
@@ -3241,7 +3222,7 @@ def run_restoration_train_clis(root: str, faces: str) -> bool:
     for x in lines:
         log(f"  train_restoration: {json.dumps(x)}")
     log(f"[{gpu_line()}] train_restoration -opt codeformer_stage2.yaml (batch 4, full width) "
-        f"--max-steps 2: exit {proc.returncode}, {wall:.1f} s in its own process "
+        f"--max-steps 2: exit {proc.returncode}, {wall:.1f} s in process "
         f"{'ok' if good else 'FAIL'}")
     codes = os.path.join(root, "codes")
     proc, wall = run("generate_latent_gt", "-i", faces, "-o", codes)
@@ -3253,8 +3234,8 @@ def run_restoration_train_clis(root: str, faces: str) -> bool:
                 data[k].shape == (16, 16) and 0 <= data[k].min() and data[k].max() < 1024
                 for k in data.files)
     ok &= good
-    log(f"generate_latent_gt on 4 faces: exit {proc.returncode}, {wall:.1f} s in its own "
-        f"process {'ok' if good else 'FAIL'}")
+    log(f"generate_latent_gt on 4 faces: exit {proc.returncode}, {wall:.1f} s in process "
+        f"{'ok' if good else 'FAIL'}")
     return ok
 
 
@@ -3410,6 +3391,7 @@ def check_train_configs(unet, vae, device, counters):
 
     from latentsync_tpu_torch.config import LatentSyncConfig
     from latentsync_tpu_torch.ops import _build
+    from latentsync_tpu_torch.ops.plain import plain_kernels
 
     cfg = LatentSyncConfig()
     trainer = stage2_trainer(unet, vae, device)
@@ -3496,42 +3478,84 @@ def _json_records(text: str):
     return [json.loads(x) for x in text.splitlines() if x.startswith("{")]
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_main(module: str, argv, env=None):
+    """``latentsync_tpu_torch.scripts.<module>.main(argv)`` in this process,
+    with `env` set (and every serving switch cleared) for the duration:
+    (exit code, its standard output, its traceback or "", wall s). In
+    process, a CLI pays no interpreter, CUDA or import start-up."""
+    import gc
+    import importlib
+
+    import torch
+
+    main = importlib.import_module(f"latentsync_tpu_torch.scripts.{module}").main
+    env = dict(env or {})
+    old = {k: os.environ.pop(k, None) for k in set(SWITCHES) | set(env)}
+    os.environ.update(env)
+    buf, err = io.StringIO(), ""
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            result = main(list(argv))
+        # an int is the exit code; the CLIs whose ``__main__`` drops what
+        # ``main`` returns (a path, a state) exit 0
+        rc = result if isinstance(result, int) and not isinstance(result, bool) else 0
+    except SystemExit as e:  # argparse's errors, a CLI's own exit
+        rc = e.code if isinstance(e.code, int) else 1
+        err = traceback.format_exc()
+    except Exception:  # noqa: BLE001 — the check reports it
+        rc, err = 1, traceback.format_exc()
+    finally:
+        for k, v in old.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rc, buf.getvalue(), err, time.time() - t0
+
+
 def run_train_cli_ddp(root: str) -> bool:
-    """Phase 14 (c): ``train_unet`` under ``LATENTSYNC_INT8=1`` launched by
-    ``python -m torch.distributed.run --nproc_per_node 1`` (NCCL, world size
-    1) with ``--resume`` from the checkpoint phase 11 (c) left in `root`
+    """Phase 14 (c): ``train_unet`` under ``LATENTSYNC_INT8=1`` as ``python -m
+    torch.distributed.run --nproc_per_node 1`` starts it (its environment:
+    ``WORLD_SIZE`` 1, rank 0, a free local port; NCCL, world size 1), in this
+    process, with ``--resume`` from the checkpoint phase 11 (c) left in `root`
     (step 4, saved by the CLI without a launcher): the resume announced at
     step 4, 2 int8 steps, its loss chart written, step 6 saved. It is the
-    resume of phase 11 (c)'s run: each process pays a checkpoint's 10 GB of
-    I/O, and the script keeps inside its time limit."""
+    resume of phase 11 (c)'s run: it pays a checkpoint's 10 GB of I/O each
+    way, and the script keeps inside its time limit."""
     out = os.path.join(root, "train_out")
     for old in sorted(f for f in os.listdir(out) if f.startswith("step_"))[:-1]:
         os.remove(os.path.join(out, old))  # keep the latest checkpoint alone on disk
     chart = os.path.join(out, "loss_chart.png")
     if os.path.exists(chart):
         os.remove(chart)
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-           "1", "-m", "latentsync_tpu_torch.scripts.train_unet", "--config",
-           os.path.join(root, "unet_stage2.yaml"), "--output-dir", out, "--log-every", "1",
-           "--max-steps", "6", "--resume"]
-    env = {k: v for k, v in os.environ.items() if k not in SWITCHES}
-    env["LATENTSYNC_INT8"] = "1"
-    t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env)
-    wall = time.time() - t0
-    lines = _json_records(proc.stdout)
+    argv = ["--config", os.path.join(root, "unet_stage2.yaml"), "--output-dir", out,
+            "--log-every", "1", "--max-steps", "6", "--resume"]
+    launcher = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+                "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    rc, stdout, err, wall = run_main("train_unet", argv, dict(launcher, LATENTSYNC_INT8="1"))
+    lines = _json_records(stdout)
     steps = [x for x in lines if "loss" in x]
     dp = [x["data_parallel"] for x in lines if "data_parallel" in x]
-    good = proc.returncode == 0 and [x["step"] for x in steps] == [5, 6] \
+    good = rc == 0 and [x["step"] for x in steps] == [5, 6] \
         and all(math.isfinite(x["loss"]) for x in steps) \
         and dp == [{"backend": "nccl", "world": 1, "dp": 1}] \
         and any(x.get("step") == 4 and "resumed_from" in x for x in lines) \
         and any(x.get("step") == 6 and "saved" in x for x in lines) and os.path.isfile(chart)
     for x in lines:
-        log(f"  train_unet (torch.distributed.run, int8): {json.dumps(x)}")
-    log(f"[{gpu_line()}] python -m torch.distributed.run --nproc_per_node 1 train_unet "
-        f"--resume --max-steps 6 (LATENTSYNC_INT8=1): exit {proc.returncode}, {wall:.1f} s, "
-        f"loss chart {os.path.isfile(chart)} {'ok' if good else 'FAIL: ' + proc.stderr[-3000:]}")
+        log(f"  train_unet (the torch.distributed.run environment, int8): {json.dumps(x)}")
+    log(f"[{gpu_line()}] train_unet --resume --max-steps 6 in process under a launcher's "
+        f"environment (world size 1, LATENTSYNC_INT8=1): exit {rc}, {wall:.1f} s, loss chart "
+        f"{os.path.isfile(chart)} {'ok' if good else 'FAIL: ' + (err or stdout)[-3000:]}")
     return good
 
 
@@ -3558,6 +3582,7 @@ def check_syncnet_training(root: str, device, counters):
     import yaml
 
     from latentsync_tpu_torch.config import load_config
+    from latentsync_tpu_torch.ops.plain import plain_kernels
     from latentsync_tpu_torch.training.data import SyncNetSampleSource
     from latentsync_tpu_torch.training.syncnet_trainer import SyncNetTrainer
     from latentsync_tpu_torch.utils.checkpoint import latest_checkpoint, restore_checkpoint
@@ -3651,17 +3676,15 @@ def check_syncnet_training(root: str, device, counters):
     with open(config, "w") as f:
         yaml.safe_dump(tree, f)
     out = os.path.join(root, "syncnet_out")
-    cmd = [sys.executable, "-m", "latentsync_tpu_torch.scripts.train_syncnet", "--config",
-           config, "--output-dir", out, "--log-every", "1", "--validation-steps", "2"]
+    argv = ["--config", config, "--output-dir", out, "--log-every", "1", "--validation-steps",
+            "2"]
     for extra, want in ((["--max-steps", "4"], [1, 2, 3, 4]),
                         (["--max-steps", "5", "--resume"], [5])):
-        t0 = time.time()
-        proc = subprocess.run(cmd + extra, capture_output=True, text=True, timeout=600)
-        wall = time.time() - t0
-        lines = _json_records(proc.stdout)
+        rc, stdout, err, wall = run_main("train_syncnet", argv + extra)
+        lines = _json_records(stdout)
         steps = [x for x in lines if "loss" in x]
         vals = [x["val_step"] for x in lines if "val_step" in x]
-        ran = proc.returncode == 0 and [x["step"] for x in steps] == want \
+        ran = rc == 0 and [x["step"] for x in steps] == want \
             and all(math.isfinite(x["loss"]) for x in steps)
         aux = {}
         if ran:
@@ -3674,22 +3697,19 @@ def check_syncnet_training(root: str, device, counters):
             ran &= [s for s, _ in aux.get("train_hist", [])] == [1, 2, 3, 4] \
                 and [s for s, _ in aux.get("val_hist", [])] == [2, 4]
         good &= ran
-        log(f"[{gpu_line()}] train_syncnet {' '.join(extra)}: exit {proc.returncode}, "
+        log(f"[{gpu_line()}] train_syncnet {' '.join(extra)} (in process): exit {rc}, "
             f"{wall:.1f} s, steps {[(x['step'], round(x['loss'], 5), x['sat_frac']) for x in steps]}"
             f", validation at {vals}, histories in the checkpoint "
             f"{ {k: len(v) for k, v in aux.items() if k != 'step'} } "
-            f"{'ok' if ran else 'FAIL: ' + proc.stderr[-3000:]}")
-    t0 = time.time()
-    proc = subprocess.run([sys.executable, "-m", "latentsync_tpu_torch.scripts.eval_syncnet_acc",
-                           "--config", config, "--num-samples", "32", "--batch-size", "32"],
-                          capture_output=True, text=True, timeout=600)
-    lines = _json_records(proc.stdout)
-    ran = proc.returncode == 0 and len(lines) == 1 and lines[0].get("samples") == 32 \
+            f"{'ok' if ran else 'FAIL: ' + (err or stdout)[-3000:]}")
+    rc, stdout, err, wall = run_main("eval_syncnet_acc", ["--config", config, "--num-samples",
+                                                          "32", "--batch-size", "32"])
+    lines = _json_records(stdout)
+    ran = rc == 0 and len(lines) == 1 and lines[0].get("samples") == 32 \
         and 0 <= lines[0].get("accuracy", -1) <= 1 and math.isfinite(lines[0].get("loss", math.nan))
     good &= ran
-    log(f"[{gpu_line()}] eval_syncnet_acc (32 samples): exit {proc.returncode}, "
-        f"{time.time() - t0:.1f} s, {lines[-1] if lines else None} "
-        f"{'ok' if ran else 'FAIL: ' + proc.stderr[-3000:]}")
+    log(f"[{gpu_line()}] eval_syncnet_acc (32 samples, in process): exit {rc}, {wall:.1f} s, "
+        f"{lines[-1] if lines else None} {'ok' if ran else 'FAIL: ' + (err or stdout)[-3000:]}")
     return launches, good
 
 
@@ -4100,6 +4120,238 @@ def check_evaluation(pipeline, unet, vae, device, counters) -> bool:
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 16: serving across cards, the landmark trainer, DCNv2 / upfirdn, probes
+# ---------------------------------------------------------------------------
+
+# the mesh serving script's windows: every card gets at least one, one card two
+MESH_WINDOWS_MIN = 2
+# the kernels each served configuration launches in a UNet forward (the
+# flash route serves the VAE only)
+MESH_ON_PATH = {conf: ON_PATH[conf] - {"dot_product_attention"}
+                for conf in ("default", "fused", "int8-dense")}
+# each configuration's largest relative L2 from the single rank (one card:
+# the same computation; over cards int8 flips on any float difference)
+MESH_TOL = {"default": UNET_TOL, "fused": UNET_TOL, "int8-dense": INT8_TOL}
+# the fused and int8-dense launches' depth (the default one runs the 20)
+MESH_CONFIG_STEPS = 2
+# the landmark trainer's cut: its default draws 4000 faces for 2000 steps
+LANDMARK_FACES, LANDMARK_STEPS = 512, 300
+# two landmark steps, card (f32, TF32 off) against the CPU from one model:
+# the losses' relative difference, the running statistics' and the second
+# step's update's relative L2 (Adam turns gradients that are rounding alone,
+# ahead of a batch norm, into ±lr either way: those two biases are left out)
+LANDMARK_TOL = 1e-2
+LANDMARK_BN_FED = ("conv1.bias", "conv_last0.bias")
+# DCNv2 / upfirdn2d in f32 (TF32 off), card against CPU: relative L2
+CV_TOL = 1e-5
+
+
+def _mesh_row_ok(conf: str, r: dict, tol: float) -> bool:
+    launched = r["launches_a_forward"]
+    fine = r["ok"] and r["denoise_rel_l2"] <= tol and r["forward_rel_l2"] <= tol \
+        and launched == r["single_rank_launches"] \
+        and all(launched[k] > 0 for k in MESH_ON_PATH[conf])
+    log(f"[{gpu_line()}] mesh {conf} {r['layout']} (dp x tp; {r['windows']} windows, "
+        f"{r['steps']} steps, {r['dtype']}, {r['sharded_params']} sharded weights): denoise rel "
+        f"L2 {r['denoise_rel_l2']:.3g} max abs {r['denoise_max_abs']:.3g}, forward rel L2 "
+        f"{r['forward_rel_l2']:.3g} (tol {tol}; bitwise "
+        f"{r['denoise_max_abs'] == 0 and r['forward_max_abs'] == 0}); window batch "
+        f"{r['window_batch_wall_ms']:.1f} ms wall; kernels a forward "
+        f"{ {k: v for k, v in launched.items() if v} } (single rank "
+        f"{ {k: v for k, v in r['single_rank_launches'].items() if v} }), all-gathers a forward "
+        f"{r['all_gathers_a_forward']}; peak GiB per rank {r['peak_gib_per_rank']} "
+        f"{'ok' if fine else 'FAIL'}")
+    return fine
+
+
+def check_mesh_serving(device):
+    """Phase 16 (a): the mesh serving script over every card, in the default
+    configuration at full depth, then in the fused and int8-dense ones
+    (MESH_CONFIG_STEPS steps, both launches at once); returns ({configuration:
+    rank 0's kernel launches a forward in the first layout}, ok)."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    windows = max(MESH_WINDOWS_MIN, cards)
+    base = {k: v for k, v in os.environ.items() if k not in SWITCHES}
+
+    def launch(conf, steps=0):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+               str(cards), "-m", "latentsync_tpu_torch.scripts.mesh_serving", "--windows",
+               str(windows), "--tol", str(MESH_TOL[conf])]
+        cmd += ["--steps", str(steps)] if steps else []
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                env=dict(base, **CONFIGS[conf]))
+
+    good, launches = True, {}
+    for group in (("default",), ("fused", "int8-dense")):
+        t0 = time.time()
+        procs = {conf: launch(conf, 0 if conf == "default" else MESH_CONFIG_STEPS)
+                 for conf in group}
+        try:
+            for conf, proc in procs.items():
+                stdout, stderr = proc.communicate(timeout=900)
+                rows = [r for r in _json_records(stdout) if "layout" in r]
+                fine = proc.returncode == 0 and bool(rows)
+                for r in rows:
+                    fine &= _mesh_row_ok(conf, r, MESH_TOL[conf])
+                launches[conf] = rows[0]["launches_a_forward"] if rows else {}
+                good &= fine
+                log(f"mesh_serving ({conf}) under torch.distributed.run ({cards} card(s)): "
+                    f"exit {proc.returncode}, {time.time() - t0:.1f} s "
+                    f"{'ok' if fine else 'FAIL: ' + stderr[-3000:]}")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    return launches, good
+
+
+def check_landmark_trainer(device) -> bool:
+    """Phase 16 (b): the landmark-fallback trainer on the card."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from latentsync_tpu_torch.models.face_detection import FANLandmarkDetector
+    from latentsync_tpu_torch.scripts import train_landmark_fallback as tl
+    from latentsync_tpu_torch.utils.convert import load_state_dict_file
+
+    # two steps from one model on the card and on the CPU
+    images, lms = tl.render_dataset(72, seed=SEED)
+    cpu = tl.LandmarkTrainer(images, lms, LANDMARK_STEPS, batch=4, seed=SEED, device="cpu")
+    card = tl.LandmarkTrainer(images, lms, LANDMARK_STEPS, batch=4, seed=SEED, device=device,
+                              model=copy.deepcopy(cpu.model))
+    start = {k: v.detach().clone() for k, v in cpu.model.state_dict().items()}
+    indices = [torch.tensor([64, 70, 66, 71]), torch.tensor([68, 65, 69, 67])]
+    t0 = time.time()
+    with no_tf32():
+        losses = [(float(cpu.train_step(i)), float(card.train_step(i))) for i in indices]
+    pair_s = time.time() - t0
+    got = {k: v.detach().cpu() for k, v in card.model.state_dict().items()}
+    want = cpu.model.state_dict()
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+    stats = [k for k in want if k.endswith(("running_mean", "running_var"))]
+    weights = [k for k in want if k not in stats and k not in LANDMARK_BN_FED
+               and not k.endswith("num_batches_tracked")]
+    loss_diff = max(abs(a - b) / abs(a) for a, b in losses)
+    stat_rel = rel(torch.cat([got[k].flatten() for k in stats]),
+                   torch.cat([want[k].flatten() for k in stats]))
+    update_rel = rel(torch.cat([(got[k] - start[k]).flatten() for k in weights]),
+                     torch.cat([(want[k] - start[k]).flatten() for k in weights]))
+    pair = loss_diff <= LANDMARK_TOL and stat_rel <= LANDMARK_TOL and update_rel <= LANDMARK_TOL
+    del cpu, card
+    log(f"[{gpu_line()}] landmark trainer, two steps card (f32, TF32 off) vs CPU from one "
+        f"model (batch 4): losses {[(round(a, 6), round(b, 6)) for a, b in losses]}, loss rel. "
+        f"difference {loss_diff:.3g}, running statistics rel L2 {stat_rel:.3g}, second step's "
+        f"update rel L2 {update_rel:.3g} (tol {LANDMARK_TOL}; {pair_s:.1f} s) "
+        f"{'ok' if pair else 'FAIL'}")
+
+    with tempfile.TemporaryDirectory() as root:
+        out = os.path.join(root, "landmark_fallback.npz")
+        rc, stdout, err, wall = run_main("train_landmark_fallback", [
+            "--steps", str(LANDMARK_STEPS), "--dataset", str(LANDMARK_FACES), "--eval-every",
+            "50", "--seed", str(SEED), "--out", out])
+        lines = _json_records(stdout)
+        steps = [x for x in lines if "loss" in x]
+        ran = rc == 0 and len(steps) == LANDMARK_STEPS // 50 and os.path.isfile(out)
+        falls = ran and min(x["loss"] for x in steps[-2:]) < steps[0]["loss"]
+        loaded = False
+        det_nme = math.nan
+        if ran:
+            det = FANLandmarkDetector(load_state_dict_file(out), device=device)
+            faces, truth = tl.render_dataset(8, seed=SEED + 1)
+            found = det.landmarks(faces)
+            loaded = found.shape == (8, 68, 2) and bool(np.isfinite(found).all())
+            det_nme = float(tl.nme(torch.from_numpy(found), torch.from_numpy(truth)))
+        for x in lines:
+            log(f"  train_landmark_fallback: {json.dumps(x)}")
+        secs = steps[-1]["s"] if steps else math.nan
+        good = pair and ran and falls and loaded
+        log(f"[{gpu_line()}] train_landmark_fallback (1 x 128, batch 16, {LANDMARK_STEPS} steps "
+            f"on {LANDMARK_FACES} faces, in process): exit {rc}, {wall:.1f} s, "
+            f"{LANDMARK_STEPS / secs:.1f} steps/s in the loop, loss {steps[0]['loss'] if steps else None} -> "
+            f"{steps[-1]['loss'] if steps else None} (falls {falls}), final eval NME "
+            f"{steps[-1]['eval_nme'] if steps else None}; the asset through FANLandmarkDetector: "
+            f"{loaded}, NME {det_nme:.4f} on 8 new faces {'ok' if good else 'FAIL: ' + err[-3000:]}")
+    return good
+
+
+def check_cv_ops(device) -> bool:
+    """Phase 16 (c): DCNv2 and upfirdn2d on the card against their CPU runs."""
+    import torch
+
+    from latentsync_tpu_torch.ops import deform_conv as dc
+    from latentsync_tpu_torch.ops import upfirdn as uf
+
+    g = torch.Generator().manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g) * scale
+
+    x = randn(2, 64, 48, 48)
+    w = randn(64, 64, 3, 3, scale=0.05)
+    fir = randn(4, 4)
+    cases = [
+        ("modulated_deform_conv2d (2, 64, 48², offsets to ±3 px)", dc.modulated_deform_conv2d,
+         (x, randn(2, 18, 48, 48, scale=1.5), torch.rand(2, 9, 48, 48, generator=g), w,
+          randn(64))),
+        ("dcn_v2_pack (2, 64, 48²)", dc.dcn_v2_pack,
+         (x, randn(27, 64, 3, 3, scale=0.02), randn(27), w, randn(64))),
+        ("upfirdn2d up 2 (4, 32, 64²)", lambda a, k: uf.upfirdn2d(a, k, 2, 1, (2, 1)),
+         (randn(4, 32, 64, 64), fir)),
+        ("upfirdn2d down 2 (4, 32, 64²)", lambda a, k: uf.upfirdn2d(a, k, 1, 2, (1, 1)),
+         (randn(4, 32, 64, 64), fir)),
+        ("upsample2d (4, 32, 64²)", uf.upsample2d, (randn(4, 32, 64, 64),)),
+        ("downsample2d (4, 32, 64²)", uf.downsample2d, (randn(4, 32, 64, 64),)),
+        ("fused_leaky_relu (4, 32, 64²)", uf.fused_leaky_relu, (randn(4, 32, 64, 64), randn(32))),
+    ]
+    ok = True
+    with no_tf32():
+        for name, fn, args in cases:
+            want = fn(*args)
+            dev = [a.to(device) if isinstance(a, torch.Tensor) else a for a in args]
+            got = fn(*dev)
+            err = float((got.cpu().double() - want.double()).norm()
+                        / want.double().norm().clamp_min(1e-30))
+            ms = cuda_ms(lambda: fn(*dev), warmup=1, iters=5)
+            good = tuple(got.shape) == tuple(want.shape) and err <= CV_TOL
+            ok &= good
+            log(f"[{gpu_line()}] {name}: card vs CPU rel L2 {err:.3g} (tol {CV_TOL}), "
+                f"{ms:.3f} ms on the card {'ok' if good else 'FAIL'}")
+    return ok
+
+
+def run_probes(pipeline, device) -> bool:
+    """Phase 16 (d): perf_probe on phase 4's pipeline and transport_probe,
+    in process, every line printed."""
+    from latentsync_tpu_torch.scripts import perf_probe, transport_probe
+
+    t0 = time.time()
+    with configured("default"):
+        report = perf_probe.probe(windows=2, rounds=3, pipe=pipeline,
+                                  emit=lambda line: log(f"  perf_probe: {line}"))
+    check = report["flops_check"]
+    shares = [r["share_of_bf16_peak"] for k, r in report.items() if k != "flops_check"]
+    good = abs(check["ratio"] - 1.0) <= 1e-3 and all(0 < v < 1 for v in shares)
+    log(f"[{gpu_line()}] perf_probe (windows 2, best of 3; {time.time() - t0:.1f} s): FLOP "
+        f"counter / op_tally {check['ratio']:.6f}, shares of the bf16 peak "
+        f"{ {k: round(r['share_of_bf16_peak'], 4) for k, r in report.items() if k != 'flops_check'} } "
+        f"{'ok' if good else 'FAIL'}")
+    t0 = time.time()
+    rows = transport_probe.probe(device, emit=lambda line: log(f"  transport_probe: {line}"))
+    ran = sum("xfer_mb" in r for r in rows) == 8 and any(
+        r.get("stage") == "decode_fetch_64x256" for r in rows)
+    log(f"[{gpu_line()}] transport_probe ({time.time() - t0:.1f} s) {'ok' if ran else 'FAIL'}")
+    return good and ran
+
+
 def main() -> int:
     try:
         import torch
@@ -4300,6 +4552,25 @@ def main() -> int:
             f"against the CPU, eval_fvd, the eight-stage pipeline and eval_sync_conf, "
             f"validate_fidelity, inference_videos and the trainer's validation at full width; "
             f"{time.time() - t0:.0f} s): {'ok' if good else 'FAIL'}")
+        phase = "the last modules"
+        t0 = time.time()
+        parts = []
+        for label, fn in (("(a) serving across cards", lambda: check_mesh_serving(device)),
+                          ("(b) the landmark trainer", lambda: check_landmark_trainer(device)),
+                          ("(c) DCNv2 and upfirdn2d", lambda: check_cv_ops(device)),
+                          ("(d) perf_probe and transport_probe",
+                           lambda: run_probes(pipeline, device))):
+            t1 = time.time()
+            result = fn()
+            if label.startswith("(a)"):
+                mesh_launches, result = result
+            good = bool(result)
+            parts.append(good)
+            log(f"phase 16 {label}: {time.time() - t1:.1f} s {'ok' if good else 'FAIL'}")
+        ok &= all(parts)
+        log(f"phase 16 (the last modules: mesh serving over every card, the landmark "
+            f"trainer, DCNv2 and upfirdn2d against the CPU, perf_probe and transport_probe; "
+            f"{time.time() - t0:.0f} s): {'ok' if all(parts) else 'FAIL'}")
         train_paths = {"cross_attention_block": "fused", "quantized_matmul": "int8-dense"}
         for k in kernels:
             if k["name"] in train_paths:
@@ -4311,6 +4582,11 @@ def main() -> int:
                 k["grad_check_launches"] = grad_launches.get("qkv_proj", 0)
             if k["name"] in syncnet_launches:
                 k["syncnet_train_launches"] = syncnet_launches[k["name"]]
+        for k in kernels:
+            conf = next((c for c in MESH_ON_PATH if k["name"] in MESH_ON_PATH[c]), None)
+            if conf and k.get("path") != "codeformer":
+                k["mesh_launches"] = mesh_launches[conf].get(k["name"], 0)
+                k["mesh_path"] = conf
         for k in kernels:
             if k.get("path") == "codeformer":
                 k["launches"] = restore_launches

@@ -257,7 +257,8 @@ class RunConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """Device-mesh layout of the JAX package (data and model axes); kept
-    so config trees load unchanged. The port runs on one card."""
+    so config trees load unchanged. The port lays its ranks out with
+    ``parallel/mesh.py`` ``make_mesh(n_devices, model_parallel)``."""
 
     data_axis: str = "data"
     model_axis: str = "model"

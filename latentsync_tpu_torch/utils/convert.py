@@ -317,7 +317,7 @@ _NORM_STD = 0.1
 
 
 @torch.no_grad()
-def init_random_(module: nn.Module, seed: int) -> nn.Module:
+def init_random_(module: nn.Module, seed: int, device=None) -> nn.Module:
     """Fill every parameter with seeded, non-zero random values.
 
     Matrices and convolution kernels get N(0, 1/fan_in), so activations
@@ -327,18 +327,21 @@ def init_random_(module: nn.Module, seed: int) -> nn.Module:
     those at zero the UNet's output is identically 0 and every
     transformer adds nothing, which would hide a wrong kernel. The values
     are drawn on the CPU in f32 from `seed` in parameter-name order, so
-    they do not depend on the device."""
-    g = torch.Generator().manual_seed(seed)
+    they do not depend on the device; with `device` they are drawn there
+    instead (a full-width UNet in a fraction of a second on the card, in
+    values of that device's generator)."""
+    device = torch.device("cpu" if device is None else device)
+    g = torch.Generator(device=device).manual_seed(seed)
     norms = {id(m.weight) for m in module.modules()
              if isinstance(m, (nn.GroupNorm, nn.LayerNorm)) and m.weight is not None}
     for name, p in module.named_parameters():
         if p.dim() >= 2:
             fan_in = p[0].numel()
-            v = torch.randn(p.shape, generator=g) / fan_in**0.5
+            v = torch.randn(p.shape, generator=g, device=device) / fan_in**0.5
         elif id(p) in norms:
-            v = 1.0 + _NORM_STD * torch.randn(p.shape, generator=g)
+            v = 1.0 + _NORM_STD * torch.randn(p.shape, generator=g, device=device)
         else:
-            v = _BIAS_STD * torch.randn(p.shape, generator=g)
+            v = _BIAS_STD * torch.randn(p.shape, generator=g, device=device)
         p.copy_(v)
     return module
 
