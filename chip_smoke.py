@@ -246,7 +246,17 @@ and without CUDA it exits nonzero before doing anything):
    ``ops/upfirdn.py`` on the card against their CPU runs (CV_TOL), timed;
    (d) ``perf_probe`` on phase 4's pipeline and ``transport_probe``, in
    process, their lines printed: the FLOP count of the kernels' plain
-   versions on the meta device within 1e-3 of ``op_tally``'s.
+   versions on the meta device within 1e-3 of ``op_tally``'s;
+17. the last pieces: (a) the cog ``Predictor`` (``latentsync_tpu_torch/
+   predict.py``), ``setup()`` then ``predict()`` as cog calls them, on a 1.2
+   s synthetic talking clip without a bundle at phase 4's full width (the
+   FAN face path on the card; ``build_pipeline`` answers with phase 4's
+   pipeline): the frames padded to whole windows, the audio, regenerated
+   faces (at least REGEN_SHARE_MIN of the pixels), the wall time, and the
+   default configuration's kernels each launched and no other; (b)
+   ``Wav2LipSyncNet`` at its real geometry, card against CPU in f32 with
+   TF32 off (EVAL_TOL), and a bf16 forward at batch WAV2LIP_BATCH_BF16: its
+   median ms by CUDA events beside its bound, and its distance from f32.
 
 The line before the last is a JSON object with each kernel's launches on
 its path (``"path"``: the served configuration, ``probe``, ``train`` for
@@ -3724,7 +3734,10 @@ def check_syncnet_training(root: str, device, counters):
 # 2.17e-6, audio 1.54e-6, distances 2.26e-7, HyperIQA 2.2e-7, I3D 4.08e-7;
 # PERF.md §6)
 EVAL_TOL = {"syncnet_lip": 2e-5, "syncnet_aud": 1.5e-5, "syncnet_dists": 2e-6,
-            "hyperiqa": 2e-6, "i3d": 4e-6}
+            "hyperiqa": 2e-6, "i3d": 4e-6,
+            # phase 17 (b), Wav2LipSyncNet's two embeddings: 10x the first readings
+            # (visual 2.74e-6, audio 1.66e-6; PERF.md §6)
+            "wav2lip_vis": 3e-5, "wav2lip_aud": 2e-5}
 # the production point validate_fidelity holds against the exact trajectory
 PRODUCTION_FAST = "int8,deepcache=4:1:enc,cfg=0:0.5"
 
@@ -4352,6 +4365,171 @@ def run_probes(pipeline, device) -> bool:
     return good and ran
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the last pieces: the cog Predictor and the Wav2Lip SyncNet
+# ---------------------------------------------------------------------------
+
+# a regenerated pixel: |output - input| above this many uint8 levels (the mp4v
+# round trip of the synthetic head stays well below it), and the share of the
+# first clip's pixels that must be regenerated (the mouth region is ~5 %)
+REGEN_LEVELS = 40
+REGEN_SHARE_MIN = 0.005
+WAV2LIP_BATCH_CPU = 4
+WAV2LIP_BATCH_BF16 = 32
+# the bf16 forward's embeddings against the f32 forward's on the card, relative
+# L2 (bf16 rounds each of 20 convolutions' inputs: ~1e-2 expected)
+WAV2LIP_BF16_TOL = 0.1
+
+
+def run_predictor(root: str, pipeline, counters) -> bool:
+    """Phase 17 (a): ``predict.Predictor`` as cog drives it, ``setup()`` then
+    ``predict()``, on a 1.2 s synthetic talking clip without a bundle (the
+    FAN face path on the card), at full width (LatentSync 1.5 stage 2, 20
+    DDIM steps, CFG 1.5, bf16): ``build_pipeline`` answers with phase 4's
+    pipeline. The output has the input's frames padded to whole 16-frame
+    windows (the audio's 1.2 s give 32: the frames past the clip wrap around,
+    as every render does), its ``.wav`` sidecar, regenerated faces, and the
+    render launched the default configuration's kernels, each of them, and
+    no other."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from latentsync_tpu_torch.predict import Predictor
+    from latentsync_tpu_torch.utils.media import have_ffmpeg, read_audio, read_video
+
+    video, _ = _eval_clip(root, "predict", 1.2)
+    audio = video[:-4] + ".wav"
+    src = read_video(video, change_fps=False)
+    recorder = _PerRender(pipeline, counters)
+    with _serving(recorder), configured("default"):
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.time()
+        predictor = Predictor()
+        predictor.setup()
+        out = predictor.predict(video, audio)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    try:
+        got = read_video(out, change_fps=False)
+        # the audio is muxed where there is ffmpeg, else the .wav sidecar
+        sidecar = out if have_ffmpeg() else out[:-4] + ".wav"
+        sound = read_audio(sidecar) if os.path.isfile(sidecar) else np.zeros(0, np.float32)
+    finally:
+        shutil.rmtree(os.path.dirname(out), ignore_errors=True)
+    windows = -(-len(src) // 16) * 16
+    n = min(len(src), len(got))
+    share = float((np.abs(got[:n].astype(np.int16) - src[:n].astype(np.int16))
+                   > REGEN_LEVELS).mean()) if n else 0.0
+    good = predictor.pipeline is recorder and len(recorder.renders) == 1 \
+        and len(got) == windows and got.shape[1:] == src.shape[1:] \
+        and int(1.2 * 16000) <= len(sound) <= int(windows / 25 * 16000) \
+        and share >= REGEN_SHARE_MIN
+    log(f"[{gpu_line()}] Predictor.setup() + predict() on {len(src)} frames of "
+        f"{src.shape[1]}² and 1.2 s of audio (no bundle): {wall:.1f} s wall; {len(got)} frames "
+        f"out (want {windows}), audio {len(sound)} samples ({os.path.basename(sidecar)}), {share * 100:.2f} % of pixels "
+        f"regenerated (> {REGEN_LEVELS} levels; min {REGEN_SHARE_MIN * 100:.1f} %) "
+        f"{'ok' if good else 'FAIL'}")
+    renders = recorder.renders or [{fn.__name__: fn.launches for fn in counters}]
+    return _counted(renders[0], ON_PATH["default"], "Predictor.predict, default "
+                    "configuration") and good
+
+
+def check_wav2lip_syncnet(device) -> bool:
+    """Phase 17 (b): ``Wav2LipSyncNet`` at its real geometry (faces (B, 15,
+    128, 256), mel (B, 1, 80, 16); seeded random weights and batch-norm
+    statistics): f32 with TF32 off at batch WAV2LIP_BATCH_CPU on the card
+    against the CPU (both embeddings within EVAL_TOL in relative L2), then a
+    bf16 forward at batch WAV2LIP_BATCH_BF16 (the convolutions' weights in
+    bf16, the batch norms in f32, as the JAX module's ``dtype``): its median
+    ms over 10 calls by CUDA events beside the bound, and its distance from
+    the f32 forward on the card."""
+    import torch
+
+    from latentsync_tpu_torch.models.syncnet import Wav2LipSyncNet
+    from latentsync_tpu_torch.utils.convert import init_random_bn_
+
+    cpu_model = init_random_bn_(Wav2LipSyncNet(), seed=SEED).eval()
+    card = init_random_bn_(Wav2LipSyncNet(), seed=SEED).eval().to(device)
+    g = torch.Generator().manual_seed(SEED)
+    faces = torch.randn(WAV2LIP_BATCH_BF16, 15, 128, 256, generator=g)
+    mel = torch.randn(WAV2LIP_BATCH_BF16, 1, 80, 16, generator=g)
+    b = WAV2LIP_BATCH_CPU
+    with torch.no_grad():
+        t0 = time.time()
+        c_vis, c_aud = cpu_model(faces[:b], mel[:b])
+        cpu_s = time.time() - t0
+        with no_tf32():
+            g_vis, g_aud = card(faces[:b].to(device), mel[:b].to(device))
+            f32_all = card(faces.to(device), mel.to(device))
+    errs = {"wav2lip_vis": _rel_l2(g_vis.cpu(), c_vis), "wav2lip_aud": _rel_l2(g_aud.cpu(), c_aud)}
+    good = all(errs[k] <= EVAL_TOL[k] for k in errs) and g_vis.shape == (b, 1024) \
+        and g_aud.shape == (b, 1024) and bool(torch.isfinite(g_vis).all())
+
+    for m in card.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.to(torch.bfloat16)
+    x = (faces.to(device, torch.bfloat16), mel.to(device, torch.bfloat16))
+    times = []
+    with torch.no_grad():
+        bf16 = card(*x)
+        for _ in range(10):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            card(*x)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    med = sorted(times)[len(times) // 2]
+    dist = [_rel_l2(o, r) for o, r in zip(bf16, f32_all)]
+    good &= all(torch.isfinite(o).all() for o in bf16) and max(dist) <= WAV2LIP_BF16_TOL
+    flops = WAV2LIP_BATCH_BF16 * 2 * sum(
+        m.weight.numel() * out_hw for m, out_hw in _conv_output_sizes(card, x))
+    log(f"[{gpu_line()}] Wav2LipSyncNet (65.2 M parameters): card vs CPU (f32, TF32 off, batch "
+        f"{b}) rel L2 visual {errs['wav2lip_vis']:.3g} audio {errs['wav2lip_aud']:.3g} (tols "
+        f"{EVAL_TOL['wav2lip_vis']}, {EVAL_TOL['wav2lip_aud']}; CPU forward {cpu_s:.2f} s); "
+        f"bf16 batch {WAV2LIP_BATCH_BF16}: median {med:.3f} ms of 10 (CUDA events), "
+        f"{flops / 1e9:.1f} GFLOP, bound {flops / PEAK_OPS['bf16'] * 1e3:.3f} ms (operations), "
+        f"{flops / (med * 1e-3) / 1e12:.1f} TFLOP/s; rel L2 from f32 visual {dist[0]:.3g} audio "
+        f"{dist[1]:.3g} (tol {WAV2LIP_BF16_TOL}) {'ok' if good else 'FAIL'}")
+    return good
+
+
+def _conv_output_sizes(model, inputs):
+    """(convolution, output H·W) of each convolution of one forward of `model`
+    on one sample of `inputs`."""
+    import torch
+
+    sizes, hooks = [], []
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            hooks.append(m.register_forward_hook(
+                lambda mod, _, out: sizes.append((mod, out.shape[-2] * out.shape[-1]))))
+    try:
+        with torch.no_grad():
+            model(*(t[:1] for t in inputs))
+    finally:
+        for h in hooks:
+            h.remove()
+    return sizes
+
+
+def check_last_pieces(pipeline, device, counters) -> bool:
+    """Phase 17, sub-phase by sub-phase with its wall time."""
+    ok = True
+    with tempfile.TemporaryDirectory() as root:
+        for label, fn in (("(a) the cog Predictor", lambda: run_predictor(root, pipeline,
+                                                                         counters)),
+                          ("(b) Wav2LipSyncNet", lambda: check_wav2lip_syncnet(device))):
+            t0 = time.time()
+            good = bool(fn())
+            ok &= good
+            log(f"phase 17 {label}: {time.time() - t0:.1f} s {'ok' if good else 'FAIL'}")
+    return ok
+
+
 def main() -> int:
     try:
         import torch
@@ -4571,6 +4749,13 @@ def main() -> int:
         log(f"phase 16 (the last modules: mesh serving over every card, the landmark "
             f"trainer, DCNv2 and upfirdn2d against the CPU, perf_probe and transport_probe; "
             f"{time.time() - t0:.0f} s): {'ok' if all(parts) else 'FAIL'}")
+        phase = "the last pieces"
+        t0 = time.time()
+        good = check_last_pieces(pipeline, device, counters)
+        ok &= good
+        log(f"phase 17 (the last pieces: the cog Predictor at full width without a bundle, "
+            f"Wav2LipSyncNet card against CPU and in bf16; {time.time() - t0:.0f} s): "
+            f"{'ok' if good else 'FAIL'}")
         train_paths = {"cross_attention_block": "fused", "quantized_matmul": "int8-dense"}
         for k in kernels:
             if k["name"] in train_paths:

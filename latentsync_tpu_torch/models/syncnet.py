@@ -1,4 +1,5 @@
-"""StableSyncNet, the frozen lip-sync supervisor of stage-2 training.
+"""StableSyncNet, the frozen lip-sync supervisor of stage-2 training, and
+the Wav2Lip-style SyncNet ablation ``Wav2LipSyncNet``.
 
 Counterpart of ``latentsync_tpu/models/syncnet.py`` (``SyncResnetBlock2D``,
 ``SyncAttentionBlock2D``, ``DownEncoder2D``, ``StableSyncNet``): twin
@@ -16,6 +17,10 @@ kernel (``geglu_route``) and the composed ``geglu_ffn_xla_full`` elsewhere,
 which at the stage-2 inputs is every one of its four shapes (16 to 130
 rows, no multiple of 128). Their attention (at most 130 tokens) is plain
 torch, as in the reference.
+
+``Wav2LipSyncNet`` (the JAX package's ``Wav2LipSyncNet``) is convolutions
+and batch norms alone, cuDNN's on the card: it reaches no Pallas kernel in
+the JAX package and has no hand kernel here.
 """
 
 from __future__ import annotations
@@ -148,11 +153,108 @@ class StableSyncNet(nn.Module):
         self.audio_encoder = DownEncoder2D(config.audio_encoder)
 
     def forward(self, image_sequences, audio_sequences):
-        def embed(h):
-            # flattened channels-last, as the JAX model (one element where the
-            # towers end at 1×1, as every released config does)
-            h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1).float()
-            return h / torch.clamp(torch.linalg.vector_norm(h, dim=1, keepdim=True), min=1e-12)
+        return (_unit_embedding(self.visual_encoder(image_sequences)),
+                _unit_embedding(self.audio_encoder(audio_sequences)))
 
-        return (embed(self.visual_encoder(image_sequences)),
-                embed(self.audio_encoder(audio_sequences)))
+
+def _unit_embedding(h):
+    """A tower's (B, C, H, W) output flattened channels-last, as the JAX models
+    flatten it (one element where the towers end at 1×1, as every released
+    config does), in f32, L2-normalised with a 1e-12 floor."""
+    h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1).float()
+    return h / torch.clamp(torch.linalg.vector_norm(h, dim=1, keepdim=True), min=1e-12)
+
+
+_WAV2LIP_ACTS = {"relu": F.relu, "leaky": lambda x: F.leaky_relu(x, 0.2), "silu": F.silu,
+                 "tanh": torch.tanh}
+
+
+class _Wav2LipConv(nn.Module):
+    """conv → batch norm (``conv_block.0`` / ``conv_block.1``, upstream's
+    names), the residual added before the activation."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride, padding: int,
+                 residual: bool, act: str):
+        super().__init__()
+        self.conv_block = nn.Sequential(nn.Conv2d(cin, cout, kernel, stride, padding),
+                                        nn.BatchNorm2d(cout))
+        self.residual = residual
+        self.act = act
+
+    def forward(self, x):
+        conv, bn = self.conv_block
+        # the running statistics always, as the JAX model's
+        # use_running_average=True, in train() mode too; in f32
+        h = F.batch_norm(conv(x).float(), bn.running_mean.float(), bn.running_var.float(),
+                         bn.weight.float(), bn.bias.float(), training=False, eps=bn.eps)
+        if self.residual:
+            h = h + x
+        return _WAV2LIP_ACTS[self.act](h).to(x.dtype)
+
+
+class Wav2LipSyncNet(nn.Module):
+    """The Wav2Lip-style SyncNet ablation (ref:latentsync/models/
+    wav2lip_syncnet.py:8-90), counterpart of the JAX package's
+    ``Wav2LipSyncNet``: the conv / batch-norm towers of ``VISUAL`` (20
+    blocks) and ``AUDIO`` (17), the residual added before the activation.
+    forward(faces (B, 15, 128, 256) stacked half-frames, mel (B, 1, 80, 16))
+    → (visual, audio) unit embeddings (B, 1024) in f32. `act_fn` is leaky
+    (LeakyReLU 0.2, upstream's), relu, silu or tanh; the last blocks of each
+    tower are ReLU whatever it is. The batch norms normalise with their
+    running statistics in every mode and are never updated, as the JAX
+    module's. Parameter names are upstream's
+    (``{visual,audio}_encoder.{i}.conv_block.{0,1}``), which the JAX
+    package's ``convert_wav2lip_syncnet`` reads."""
+
+    # (cout, kernel, stride, padding, residual, act_override)
+    VISUAL = (
+        (32, 7, 1, 3, False, None), (64, 5, (1, 2), 1, False, None),
+        (64, 3, 1, 1, True, None), (64, 3, 1, 1, True, None),
+        (128, 3, 2, 1, False, None),
+        (128, 3, 1, 1, True, None), (128, 3, 1, 1, True, None),
+        (128, 3, 1, 1, True, None),
+        (256, 3, 3, 1, False, None),
+        (256, 3, 1, 1, True, None), (256, 3, 1, 1, True, None),
+        (512, 3, 2, 1, False, None),
+        (512, 3, 1, 1, True, None), (512, 3, 1, 1, True, None),
+        (1024, 3, 2, 1, False, None),
+        (1024, 3, 1, 1, True, None), (1024, 3, 1, 1, True, None),
+        (1024, 3, 2, 1, False, "relu"),
+        (1024, 3, 1, 0, False, "relu"),
+        (1024, 1, 1, 0, False, "relu"),
+    )
+    AUDIO = (
+        (32, 3, 1, 1, False, None),
+        (32, 3, 1, 1, True, None), (32, 3, 1, 1, True, None),
+        (64, 3, (3, 1), 1, False, None),
+        (64, 3, 1, 1, True, None), (64, 3, 1, 1, True, None),
+        (128, 3, 3, 1, False, None),
+        (128, 3, 1, 1, True, None), (128, 3, 1, 1, True, None),
+        (256, 3, (3, 2), 1, False, None),
+        (256, 3, 1, 1, True, None), (256, 3, 1, 1, True, None),
+        (512, 3, 1, 1, False, None),
+        (512, 3, 1, 1, True, None), (512, 3, 1, 1, True, None),
+        (1024, 3, 1, 0, False, "relu"),
+        (1024, 1, 1, 0, False, "relu"),
+    )
+
+    def __init__(self, act_fn: str = "leaky"):
+        super().__init__()
+        if act_fn not in _WAV2LIP_ACTS:
+            raise ValueError(act_fn)
+        self.act_fn = act_fn
+
+        def tower(specs, cin):
+            blocks = []
+            for cout, k, s, p, res, act in specs:
+                blocks.append(_Wav2LipConv(cin, cout, k, s, p, res, act or act_fn))
+                cin = cout
+            return nn.Sequential(*blocks)
+
+        self.visual_encoder = tower(self.VISUAL, 15)
+        self.audio_encoder = tower(self.AUDIO, 1)
+
+    def forward(self, faces, audio):
+        dt = self.visual_encoder[0].conv_block[0].weight.dtype
+        return (_unit_embedding(self.visual_encoder(faces.to(dt))),
+                _unit_embedding(self.audio_encoder(audio.to(dt))))

@@ -177,14 +177,22 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
 
 
+def no_card_message(prog: str, device: str):
+    """The message a run on `device` gives where it is the card and there is
+    none, else None."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        return (f"{prog}: no CUDA device (torch.cuda.is_available() is false); pass "
+                "--device cpu to run on the CPU")
+    return None
+
+
 def no_card(prog: str, device: str) -> bool:
     """True, with the message on stderr, where `device` is the card and
     there is none."""
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        print(f"{prog}: no CUDA device (torch.cuda.is_available() is false); pass "
-              "--device cpu to run on the CPU", file=sys.stderr)
-        return True
-    return False
+    message = no_card_message(prog, device)
+    if message:
+        print(message, file=sys.stderr)
+    return message is not None
 
 
 def main(argv=None) -> int:

@@ -53,8 +53,9 @@ from ..ops import temporal_attention as ta
 PEAKS = {"bf16": 989e12, "int8": 1979e12}
 SHARE_KEYS = {"bf16": "share_of_bf16_peak_989e12", "int8": "share_of_int8_peak_1979e12"}
 UNPORTED = {
-    "tempq": "ROADMAP §1.12 (it sweeps the TPU temporal kernel's batch block; K3 on the "
-             "card has no such parameter: its warps a block follow from shared memory)",
+    "tempq": "ROADMAP.md §1, 'Deliberately without a counterpart' (it sweeps the TPU "
+             "temporal kernel's batch block; K3 on the card has no such parameter: its warps "
+             "a block follow from shared memory)",
 }
 
 

@@ -22,7 +22,8 @@ facelib's layouts. The evaluation nets' (``syncnet_s``, ``hyperiqa``,
 ``i3d``) invert ``convert_eval.convert_syncnet_s``,
 ``models/hyper_iqa.py`` ``convert_hyperiqa`` and ``models/i3d.py``
 ``convert_i3d``, into upstream's and piergiaj's layouts; ``init_random_bn_``
-fills their batch-norm statistics too.
+fills their batch-norm statistics too. ``wav2lip_syncnet`` inverts
+``models/syncnet.py`` ``convert_wav2lip_syncnet`` (the SyncNet ablation).
 """
 
 from __future__ import annotations
@@ -226,6 +227,24 @@ def stable_syncnet_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
     """JAX StableSyncNet params → the port's (upstream ``stable_syncnet.pt``
     layout) state dict: the inverse of ``convert_stable_syncnet``."""
     return _convert(params, lambda p: _apply(_SYNCNET_RULES, p))
+
+
+def _wav2lip_syncnet_module(path: Tuple[str, ...]) -> str:
+    tower, i, kind = re.fullmatch(r"(visual_encoder|audio_encoder)_(\d+)_(conv|bn)",
+                                  path[0]).groups()
+    return f"{tower}.{i}.conv_block.{0 if kind == 'conv' else 1}"
+
+
+def wav2lip_syncnet_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``Wav2LipSyncNet`` variables ({"params", "batch_stats"}) → the
+    port's state dict in upstream's layout (``{visual,audio}_encoder.{i}.
+    conv_block.0`` the convolution, ``.1`` the batch norm, running statistics
+    and a zero ``num_batches_tracked`` included): the inverse of
+    ``latentsync_tpu/models/syncnet.py`` ``convert_wav2lip_syncnet``."""
+    sd = _state_dict(variables, _wav2lip_syncnet_module)
+    for key in [k for k in sd if k.endswith(".running_mean")]:
+        sd[key.replace(".running_mean", ".num_batches_tracked")] = torch.tensor(0)
+    return sd
 
 
 # torchvision vgg16().features index of each of the 13 convolutions

@@ -267,7 +267,8 @@ def test_ddim_tables_and_step_match_jax():
     _close(PDDIM.step(_t(eps), _t(x), at[3], ap[3]).numpy(), ref, atol=1e-6)
 
 
-_FOREIGN = ("jax", "flax", "latentsync_tpu", "torch_ref_models")
+# the top-level ``scripts`` and ``predict`` are the JAX package's CLIs and cog predictor
+_FOREIGN = ("jax", "flax", "latentsync_tpu", "torch_ref_models", "scripts", "predict")
 
 
 def test_port_imports_no_jax():
@@ -275,9 +276,10 @@ def test_port_imports_no_jax():
     job-queue worker, the CLIs, the trainer and its CLI, probe, onboarding,
     the face-restoration CLIs), its face models, the restoration stack
     (CodeFormer, detectors, parsers, upsampler, helper, alignment) and the
-    trainer's loss nets, data and checkpoints loads no module of jax, flax,
-    the JAX package or the tests' torch reference models."""
-    code = ("import sys, latentsync_tpu_torch.serving.api, latentsync_tpu_torch.pipelines."
+    trainer's loss nets, data and checkpoints, and the cog predictor loads no
+    module of jax, flax, the JAX package (its top-level ``scripts`` and
+    ``predict`` included) or the tests' torch reference models."""
+    code = ("import sys, latentsync_tpu_torch.predict, latentsync_tpu_torch.serving.api, latentsync_tpu_torch.pipelines."
             "lipsync, latentsync_tpu_torch.scripts.micro_probe, "
             "latentsync_tpu_torch.scripts.prepare_video, latentsync_tpu_torch.serving.batcher, "
             "latentsync_tpu_torch.scripts.inference, latentsync_tpu_torch.scripts.api, "
@@ -312,7 +314,8 @@ def _port_sources():
 def test_port_source_imports_nothing_of_the_jax_package(path):
     """No import statement anywhere in the port's sources or in
     ``chip_smoke.py``, at any depth (imports inside functions included),
-    names jax, flax, ``latentsync_tpu`` or the tests' ``torch_ref_models``."""
+    names jax, flax, ``latentsync_tpu``, the top-level ``scripts`` or
+    ``predict``, or the tests' ``torch_ref_models``."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
